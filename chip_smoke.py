@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Smoke test of spark_rapids_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from the checkout (one nvcc per source,
+all at once), holds each kernel against its plain PyTorch twin on the card,
+runs the engine's main query through a session at 16,777,216 fact rows and
+the benchmark step at bench.py's shapes, and checks both against numpy
+oracles. Each phase prints one JSON line; then a `kernels` line, the
+card's `nvidia-smi` name and power limit, and last
+`{"ok": true, "device": {...}}`. Any failure exits non-zero without that
+last line. Without CUDA (or without the package beside this file) it exits
+2 and prints no result. It imports nothing of JAX.
+
+Kernel times are device times from CUDA events (see time_ms), the median
+of 10 rounds after warm-up. The query's warm collect() is timed
+WALL_ROUNDS times with pallas.mode auto and off in turns, and the bench
+step WALL_ROUNDS times with CUDA events; each is reported as its median,
+min and max. Bounds are bytes moved (each input read once, each output
+written once) over the H100's published memory rate.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# fact/dim shapes of the engine query and the bench step (bench.py:42-46)
+QUERY_FACT_ROWS = 16_777_216
+N_FACT = 4_194_304
+N_DIM = 65_536
+N_GROUPS = 1_024
+KEY_SPACE = 131_072
+K_STEPS = 8
+WALL_ROUNDS = 11
+H100_BYTES_PER_S = 3.35e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def hbm_rate(name: str) -> float:
+    if "H100" not in name:
+        raise RuntimeError(f"no memory rate on record for {name!r}; "
+                           "the bounds are for an H100")
+    return H100_BYTES_PER_S
+
+
+def spread(xs) -> dict:
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs)}
+
+
+def time_ms(torch, fn, warmup: int = 3, rounds: int = 10,
+            calls: int = 20) -> float:
+    """Device time of one call: the median over `rounds` of the CUDA-event
+    time of `calls` back-to-back calls, divided by `calls`. A sleep kernel
+    queued ahead of each round keeps the card busy while the host enqueues
+    the round, so the events time the card's work and not the host's
+    launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms of spinning at 2 GHz
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def query_tables(pa, n_fact: int, n_dim: int, key_space: int, n_groups: int,
+                 seed: int = 1):
+    """The engine query's fact and dim tables as Arrow tables."""
+    rng = np.random.default_rng(seed)
+    fact = pa.table({
+        "k": rng.integers(0, key_space, n_fact, dtype=np.int64),
+        "g": rng.integers(0, n_groups, n_fact, dtype=np.int64
+                          ).astype(np.int32),
+        "v": rng.uniform(0.5, 1.5, n_fact),
+        "c": rng.integers(0, 2 ** 30, n_fact, dtype=np.int64),
+    })
+    dim = pa.table({
+        "k": rng.permutation(key_space)[:n_dim].astype(np.int64),
+        "w": rng.integers(0, 2 ** 30, n_dim, dtype=np.int64),
+    })
+    return fact, dim
+
+
+def main_query(sess, fact, dim):
+    """The engine's main query as a DataFrame of `sess`: filter v > 0.6,
+    inner join on k, sum(c + w) and count(v) by g."""
+    from spark_rapids_tpu_torch.expr import Count, Sum, col
+    return sess.from_arrow(fact).filter(col("v") > 0.6) \
+        .join(sess.from_arrow(dim), on="k") \
+        .group_by("g").agg(total=Sum(col("c") + col("w")),
+                           cnt=Count(col("v")))
+
+
+def query_oracle(fact, dim):
+    """numpy: filter v > 0.6, inner join on k, sum(c + w) and count(v) by g."""
+    k = fact.column("k").to_numpy()
+    g = fact.column("g").to_numpy()
+    v = fact.column("v").to_numpy()
+    c = fact.column("c").to_numpy()
+    dk = dim.column("k").to_numpy()
+    dw = dim.column("w").to_numpy()
+    order = np.argsort(dk)
+    dk, dw = dk[order], dw[order]
+    ix = np.clip(np.searchsorted(dk, k), 0, len(dk) - 1)
+    hit = (dk[ix] == k) & (v > 0.6)
+    cnt = np.bincount(g[hit], minlength=N_GROUPS)
+    total = np.zeros(N_GROUPS, np.int64)
+    np.add.at(total, g[hit], c[hit] + dw[ix[hit]])
+    groups = np.nonzero(cnt)[0]
+    return groups, total[groups], cnt[groups]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch import benchstep
+        from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+        from spark_rapids_tpu_torch.exec.base import batch_vecs
+        from spark_rapids_tpu_torch.exec.basic import TpuFilterExec, \
+            TpuScanExec
+        from spark_rapids_tpu_torch.exec.joins import _probe_counts
+        from spark_rapids_tpu_torch.expr import col
+        from spark_rapids_tpu_torch.ops import cuda_build
+        from spark_rapids_tpu_torch.ops.pallas_probe import (
+            candidate_counts, murmur3_rows, murmur3_rows_plain)
+        from spark_rapids_tpu_torch.ops.pallas_segsum import (
+            MAX_SEGMENTS, segment_sum_f64, segment_sum_f64_plain)
+        from spark_rapids_tpu_torch.plugin import TpuSession
+    except ImportError as e:
+        print(f"chip_smoke: the package is not beside this script: {e}",
+              file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    rate = hbm_rate(kind)
+
+    # ---- 0. build every kernel of the path from the checkout's sources
+    t0 = time.monotonic()
+    logs = cuda_build.build()
+    emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
+          "compiled": sorted(logs), "sources": list(cuda_build.SOURCES)})
+
+    # ---- 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch_name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 2. kernel A (murmur3_rows) against its plain twin
+    gen = np.random.default_rng(7)
+    n = 1 << 20
+    a_err = 0
+    for dt, lo, hi in ((torch.int32, -2 ** 31, 2 ** 31),
+                       (torch.int64, -2 ** 63, 2 ** 63 - 1)):
+        keys = torch.from_numpy(gen.integers(lo, hi, n, dtype=np.int64)
+                                ).to(dt).to(dev)
+        valid = torch.from_numpy(gen.random(n) > 0.1).to(dev)
+        seed = torch.from_numpy(gen.integers(-2 ** 31, 2 ** 31, n)
+                                .astype(np.int32)).to(dev)
+        got = murmur3_rows(keys, valid, seed)
+        want = murmur3_rows_plain(keys, valid, seed)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err != 0:
+            raise AssertionError(f"murmur3_rows differs from its plain twin "
+                                 f"on {dt} keys by up to {err}")
+        a_err = max(a_err, err)
+    fact, dim = query_tables(pa, QUERY_FACT_ROWS, N_DIM, KEY_SPACE, N_GROUPS)
+    probe = TpuFilterExec(col("v") > 0.6, TpuScanExec(fact, dev)).filter(
+        batch_from_arrow(fact.slice(0, 1 << 20), dev))
+    build = batch_from_arrow(dim, dev)
+    pk, bk = [batch_vecs(probe)[0]], [batch_vecs(build)[0]]
+    counts_k = candidate_counts(pk, bk, probe.row_mask(), build.row_mask())
+    counts_p = _probe_counts(probe, build, (0,), (0,))[0]
+    if not torch.equal(counts_k, counts_p):
+        raise AssertionError("candidate_counts differs from _probe_counts")
+    # timing at the main path's probe shape: an int64 key column of one
+    # batch (capacity 1,048,576) hashed from the initial seed
+    seed42 = torch.full((probe.capacity,), 42, dtype=torch.int32, device=dev)
+    pkey = pk[0]
+    a_ms = time_ms(torch, lambda: murmur3_rows(pkey.data, pkey.validity,
+                                               seed42))
+    a_plain = time_ms(torch, lambda: murmur3_rows_plain(
+        pkey.data, pkey.validity, seed42))
+    a_bound = probe.capacity * (8 + 1 + 4 + 4) / rate * 1e3
+    emit({"phase": "kernel_murmur3_rows", "max_abs_err_int32_int64": a_err,
+          "candidate_counts_exact": True, "rows": probe.capacity,
+          "live_probe_rows": probe.row_count(), "ms": a_ms,
+          "plain_ms": a_plain, "bound_ms": a_bound})
+
+    # ---- 3. kernel B (segment_sum_f64) against its plain twin and numpy
+    nb, g = N_FACT, N_GROUPS
+    vals_np = np.where(gen.random(nb) < 0.3, 0.0, gen.uniform(0.5, 1.5, nb))
+    ids_np = gen.integers(0, g, nb).astype(np.int32)
+    vals = torch.from_numpy(vals_np).to(dev)
+    ids = torch.from_numpy(ids_np).to(dev)
+    out1 = segment_sum_f64(vals, ids, g)
+    out2 = segment_sum_f64(vals, ids, g)
+    plain = segment_sum_f64_plain(vals, ids, g)
+    torch.cuda.synchronize()
+    if not torch.equal(out1, out2):
+        raise AssertionError("segment_sum_f64 is not bit-identical on repeat")
+    exact = np.bincount(ids_np, weights=vals_np, minlength=g)
+    mass = np.bincount(ids_np, weights=np.abs(vals_np), minlength=g)
+    err = np.abs(out1.cpu().numpy() - exact)
+    if not np.all(err <= 1e-9 * mass):
+        raise AssertionError(f"segment_sum_f64 error {err.max()} above "
+                             "1e-9 x L1 mass")
+    twin_err = (out1 - plain).abs().cpu().numpy()
+    if not np.all(twin_err <= 1e-9 * mass):
+        raise AssertionError(f"segment_sum_f64 differs from its plain twin "
+                             f"by {twin_err.max()}, above 1e-9 x L1 mass")
+    b_err = float(twin_err.max())
+
+    def seg(v, i, gg):
+        return segment_sum_f64(torch.tensor(v, dtype=torch.float64,
+                                            device=dev),
+                               torch.tensor(i, device=dev), gg).tolist()
+
+    edge = {
+        "beyond_f32": seg([1e300, 1.0, 2.0, 3.0], [0, 1, 1, 2], 4)
+        == [1e300, 3.0, 3.0, 0.0],
+        "ids_out_of_range": seg([1.0, 2.0, 99.0, 77.0], [0, 1, -1, 5], 4)
+        == [1.0, 2.0, 0.0, 0.0],
+        "int64_ids_beyond_int32": seg([5.0, 1.0], [2 ** 32 + 2, 0], 4)
+        == [1.0, 0.0, 0.0, 0.0],
+    }
+    nan_out = seg([float("nan"), 1.0, 2.0], [0, 1, 2], 3)
+    edge["nan_confined"] = bool(np.isnan(nan_out[0])) and \
+        nan_out[1:] == [1.0, 2.0]
+    try:
+        segment_sum_f64(vals[:8], ids[:8], MAX_SEGMENTS + 1)
+        edge["rejects_oversized"] = False
+    except ValueError:
+        edge["rejects_oversized"] = True
+    if not all(edge.values()):
+        raise AssertionError(f"segment_sum_f64 edge cases failed: {edge}")
+    ids64 = ids.to(torch.int64)
+    b_ms = time_ms(torch, lambda: segment_sum_f64(vals, ids, g))
+    b_plain = time_ms(torch, lambda: segment_sum_f64_plain(vals, ids, g))
+    b_lib = time_ms(torch, lambda: torch.zeros(
+        g, dtype=torch.float64, device=dev).index_add_(0, ids64, vals))
+    b_bound = (nb * (8 + 4) + g * 8) / rate * 1e3
+    emit({"phase": "kernel_segment_sum_f64", "rows": nb, "groups": g,
+          "repeat_bit_identical": True, "max_err_vs_numpy": float(err.max()),
+          "max_abs_err_vs_plain": b_err, "edge_cases": edge, "ms": b_ms,
+          "plain_ms": b_plain, "library_ms": b_lib, "bound_ms": b_bound})
+
+    # ---- 4. the engine query through a session, fusion on, on the card;
+    # the join is sized through kernel A (pallas.mode auto) and through its
+    # plain twin (off), timed in turns
+    want = query_oracle(fact, dim)
+
+    def check_query(out, mode):
+        out = out.sort_by("g")
+        for name, w in zip(("g", "total", "cnt"), want):
+            if not np.array_equal(out.column(name).to_numpy(), w):
+                raise AssertionError(f"query column {name} differs from the "
+                                     f"oracle (pallas.mode={mode})")
+
+    dfs = {}
+    for mode in ("auto", "off"):
+        sess = TpuSession({"spark.rapids.tpu.fusion.enabled": True,
+                           "spark.rapids.tpu.fusion.pallas.mode": mode})
+        if sess.device.type != "cuda":
+            raise AssertionError(f"session resolved to {sess.device}")
+        dfs[mode] = main_query(sess, fact, dim)
+        plan = dfs[mode].explain()
+        if "TpuFusedStageExec" not in plan:
+            raise AssertionError(f"filter and probe did not fuse:\n{plan}")
+        check_query(dfs[mode].collect(), mode)  # warm-up
+    walls = {"auto": [], "off": []}
+    counts = {"auto": set(), "off": set()}
+    for i in range(WALL_ROUNDS):
+        for mode in ("auto", "off") if i % 2 == 0 else ("off", "auto"):
+            torch.cuda.synchronize()
+            murmur3_rows.launches = segment_sum_f64.launches = 0
+            t0 = time.perf_counter()
+            out = dfs[mode].collect()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            counts[mode].add((murmur3_rows.launches,
+                              segment_sum_f64.launches))
+            check_query(out, mode)
+    if len(counts["auto"]) != 1 or min(counts["auto"])[0] == 0:
+        raise AssertionError(f"the fused query launched murmur3_rows "
+                             f"{sorted(counts['auto'])} times per collect")
+    if counts["off"] != {(0, 0)}:
+        raise AssertionError(f"pallas.mode=off launched kernels "
+                             f"{sorted(counts['off'])}")
+    (a_launches, b_query_launches), = counts["auto"]
+    launches = {"murmur3_rows": a_launches,
+                "segment_sum_f64": b_query_launches}
+    emit({"phase": "engine_query", "fact_rows": QUERY_FACT_ROWS,
+          "dim_rows": N_DIM, "groups": int(len(want[0])),
+          "matched_rows": int(want[2].sum()), "exact": True,
+          "warm_collect_s": spread(walls["auto"]),
+          "warm_collect_s_plain_sizing": spread(walls["off"]),
+          "pairs_auto_faster": sum(a < o for a, o in zip(walls["auto"],
+                                                         walls["off"])),
+          "launches_per_collect": launches})
+
+    # ---- 5. the bench step at bench.py's shapes
+    data = benchstep.make_data(N_FACT, N_DIM, N_GROUPS, KEY_SPACE, seed=0)
+    fk, fg, fv, dk, dw = data
+    tens = [torch.from_numpy(a).to(dev) for a in data]
+    ix = np.clip(np.searchsorted(dk, fk), 0, len(dk) - 1)
+    matched = (dk[ix] == fk) & (fv > 0.6)
+    want_sums = np.bincount(fg, weights=np.where(matched, fv * dw[ix], 0.0),
+                            minlength=N_GROUPS)
+
+    def step():
+        return benchstep.many_steps(*tens, n_groups=N_GROUPS,
+                                    key_space=KEY_SPACE, k_steps=K_STEPS)
+
+    first, _ = step()  # warm-up
+    step_ms, bench_counts = [], set()
+    for _ in range(WALL_ROUNDS):
+        torch.cuda.synchronize()
+        murmur3_rows.launches = segment_sum_f64.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sums, rows = step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end) / K_STEPS)
+        bench_counts.add((murmur3_rows.launches, segment_sum_f64.launches))
+        if not np.allclose(sums.cpu().numpy(), want_sums, rtol=1e-9,
+                           atol=0.0):
+            raise AssertionError("bench step sums differ from the oracle")
+        if not torch.equal(sums, first):
+            raise AssertionError("bench step sums are not bit-identical "
+                                 "on repeat")
+        if int(rows) != int(matched.sum()):
+            raise AssertionError("bench step matched rows differ from the "
+                                 "oracle")
+    if bench_counts != {(0, K_STEPS)}:
+        raise AssertionError(f"bench step launches {sorted(bench_counts)}")
+    bench_launches = {"murmur3_rows": 0, "segment_sum_f64": K_STEPS}
+    emit({"phase": "bench_step", "fact_rows": N_FACT, "k_steps": K_STEPS,
+          "step_ms": spread(step_ms), "matched_rows": int(rows),
+          "rtol": 1e-9, "repeat_bit_identical": True,
+          "launches_per_call": bench_launches})
+
+    # ---- 6. every kernel the run launched; launches are per run of its
+    # path (one collect, one many_steps call)
+    emit({"kernels": [
+        {"name": "murmur3_rows", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
+         "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
+         "launches": launches["murmur3_rows"], "max_abs_err": a_err,
+         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "segment_sum_f64", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/segment_sum_f64.cu",
+         "replaces": "spark_rapids_tpu/ops/pallas_segsum.py:162",
+         "launches": bench_launches["segment_sum_f64"],
+         "cuda_kernels_per_launch": 2,
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": b_bound, "bound_by": "bytes", "library_ms": b_lib},
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

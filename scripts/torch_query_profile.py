@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Where the engine query's time goes on one NVIDIA GPU.
+
+    python3 scripts/torch_query_profile.py [--out DIR]
+
+DIR defaults to profile_out/ (git-ignored).
+
+Runs chip_smoke.py's engine query (filter -> broadcast join -> grouped
+aggregate, fusion on) through spark_rapids_tpu_torch at chip_smoke.py's
+size (16,777,216 fact rows), warms it up, then
+traces one warm collect() with torch.profiler. Prints one JSON line: wall
+time, device busy time (the union of kernel intervals on the card), the
+device's idle share, and the largest kernels by device time; the full
+key_averages table goes to DIR/query_profile.txt. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def _busy_us(events) -> float:
+    """Union of the device intervals of all kernels and copies (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("torch_query_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import pyarrow as pa
+
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.plugin import TpuSession
+
+    fact, dim = cs.query_tables(pa, cs.QUERY_FACT_ROWS, cs.N_DIM,
+                                cs.KEY_SPACE, cs.N_GROUPS)
+    df = cs.main_query(TpuSession({"spark.rapids.tpu.fusion.enabled": True}),
+                       fact, dim)
+    df.collect()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = _busy_us(dev_events) / 1e6
+    by_kernel = {}
+    for e in dev_events:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "query_profile.txt").write_text(prof.key_averages().table(
+        sort_by="cuda_time_total", row_limit=60))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "card": smi, "fact_rows": cs.QUERY_FACT_ROWS, "wall_s": wall_s,
+        "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall_s,
+        "device_events": len(dev_events),
+        "top_kernels_ms": [[name[:80], ms] for name, ms in top]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Columnar batches (`spark_rapids_tpu/columnar/batch.py`).
+
+A `ColumnarBatch` is a plain dataclass: a static schema, a tuple of
+`Column`s sharing one capacity bucket, and the logical row count as an
+int32 scalar tensor on the batch's device. Keeping the count on the device
+lets filters and joins change cardinality without a host sync;
+`row_count()` is the explicit, host-synchronising read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import types as T
+from .column import Column, from_arrow as col_from_arrow, \
+    to_arrow as col_to_arrow, torch_dtype
+from .padding import row_bucket
+
+__all__ = ["Schema", "ColumnarBatch", "batch_from_arrow", "batch_to_arrow",
+           "empty_batch", "join_output_schema"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Schema:
+    names: Tuple[str, ...]
+    types: Tuple[T.DataType, ...]
+
+    def __post_init__(self):
+        if len(self.names) != len(self.types):
+            raise ValueError("schema names and types differ in length")
+
+    def __len__(self):
+        return len(self.names)
+
+    def index_of(self, name: str) -> int:
+        return self.names.index(name)
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.schema([pa.field(n, T.to_arrow(t))
+                          for n, t in zip(self.names, self.types)])
+
+    @staticmethod
+    def from_arrow(schema) -> "Schema":
+        return Schema(tuple(schema.names),
+                      tuple(T.from_arrow(f.type) for f in schema))
+
+    def __repr__(self):
+        inner = ", ".join(f"{n}: {t.simple_string()}"
+                          for n, t in zip(self.names, self.types))
+        return f"Schema({inner})"
+
+
+def join_output_schema(left: Schema, right: Schema, join_type: str) -> Schema:
+    """semi/anti project the left side; everything else is the combined
+    row (the JAX package's one definition)."""
+    if join_type in ("semi", "anti"):
+        return left
+    return Schema(left.names + right.names, left.types + right.types)
+
+
+@dataclasses.dataclass
+class ColumnarBatch:
+    schema: Schema
+    columns: Tuple[Column, ...]
+    num_rows: torch.Tensor  # int32 scalar on the batch's device
+
+    @property
+    def capacity(self) -> int:
+        return self.columns[0].capacity if self.columns else 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.num_rows.device
+
+    def row_count(self) -> int:
+        """Host-synchronising logical row count (host paths only)."""
+        return int(self.num_rows)
+
+    def row_mask(self) -> torch.Tensor:
+        """bool[cap]: True for live (non-padding) rows."""
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.num_rows
+
+
+def batch_from_arrow(table, device: torch.device,
+                     capacity: Optional[int] = None) -> ColumnarBatch:
+    """pyarrow Table -> device ColumnarBatch (the H2D boundary)."""
+    n = table.num_rows
+    cap = capacity or row_bucket(n)
+    cols: List[Column] = [col_from_arrow(table.column(i), device, cap)[0]
+                          for i in range(table.num_columns)]
+    return ColumnarBatch(Schema.from_arrow(table.schema), tuple(cols),
+                         torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def batch_to_arrow(batch: ColumnarBatch):
+    """Device ColumnarBatch -> pyarrow Table (the D2H boundary)."""
+    import pyarrow as pa
+    n = batch.row_count()
+    arrays = [col_to_arrow(c, n) for c in batch.columns]
+    return pa.Table.from_arrays(arrays, schema=batch.schema.to_arrow())
+
+
+def empty_batch(schema: Schema, device: torch.device,
+                capacity: int = 0) -> ColumnarBatch:
+    cap = row_bucket(max(capacity, 1))
+    cols = tuple(Column(dt, torch.zeros(cap, dtype=torch_dtype(dt),
+                                        device=device),
+                        torch.zeros(cap, dtype=torch.bool, device=device))
+                 for dt in schema.types)
+    return ColumnarBatch(schema, cols,
+                         torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def concat_tables(tables: Sequence, schema: Schema):
+    import pyarrow as pa
+    if not tables:
+        return schema.to_arrow().empty_table()
+    return pa.concat_tables(tables)

@@ -1,0 +1,138 @@
+"""Typed configuration registry (the subset of `spark_rapids_tpu/config.py`
+this engine reads).
+
+Keys, types and defaults are the JAX package's, so one settings dict drives
+both engines. `TpuConf` wraps a plain dict of user settings, with
+environment overrides (`SPARK_RAPIDS_SQL_ENABLED=...`) exactly as the JAX
+package applies them. Unregistered keys pass through raw.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Sequence
+
+__all__ = ["ConfEntry", "TpuConf", "register", "get_default_conf"]
+
+_REGISTRY: Dict[str, "ConfEntry"] = {}
+
+
+def _convert(value: Any, typ: str) -> Any:
+    if typ == "bool":
+        if isinstance(value, bool):
+            return value
+        return str(value).strip().lower() in ("true", "1", "yes")
+    if typ == "int":
+        return int(value)
+    if typ == "double":
+        return float(value)
+    return str(value)
+
+
+class ConfEntry:
+    def __init__(self, key: str, typ: str, default: Any, doc: str,
+                 check_values: Optional[Sequence[Any]] = None):
+        self.key = key
+        self.typ = typ
+        self.default = default
+        self.doc = doc
+        self.check_values = tuple(check_values) if check_values else None
+
+    def convert(self, raw: Any) -> Any:
+        v = _convert(raw, self.typ)
+        if self.check_values is not None and v not in self.check_values:
+            raise ValueError(
+                f"{self.key}={v!r} not in allowed values {self.check_values}")
+        return v
+
+
+def register(key: str, typ: str, default: Any, doc: str, **kw) -> ConfEntry:
+    if key not in _REGISTRY:
+        _REGISTRY[key] = ConfEntry(key, typ, default, doc, **kw)
+    return _REGISTRY[key]
+
+
+register("spark.rapids.sql.enabled", "bool", True,
+         "Enable the columnar rewrite of SQL physical plans.")
+register("spark.rapids.sql.explain", "string", "NONE",
+         "Explain output for the plan rewrite: NONE, NOT_ON_GPU (only "
+         "fallback reasons), ALL.", check_values=("NONE", "NOT_ON_GPU", "ALL"))
+register("spark.rapids.sql.batchSizeRows", "int", 1 << 20,
+         "Target max rows per device batch.")
+register("spark.rapids.sql.ansi.enabled", "bool", False,
+         "ANSI mode: overflow/invalid-cast raise instead of null/wrap.")
+register("spark.sql.ansi.enabled", "bool", False,
+         "Host Spark's ANSI switch (honored like the rapids-namespace key).")
+register("spark.rapids.sql.join.subPartition.rows", "int", 4 << 20,
+         "Build sides larger than this hash-split into key-aligned "
+         "sub-partitions joined pairwise.")
+register("spark.rapids.sql.autoBroadcastJoinThreshold", "int", 10 << 20,
+         "Build sides estimated at or below this many bytes join via a "
+         "broadcast exchange instead of a shuffled join; -1 disables "
+         "broadcast joins.")
+register("spark.rapids.tpu.padding.minRows", "int", 128,
+         "Minimum padded row bucket (lane-aligned).")
+register("spark.rapids.tpu.padding.growth", "double", 2.0,
+         "Row bucket growth factor (powers of this between min and max).")
+register("spark.rapids.tpu.fusion.enabled", "bool", False,
+         "Whole-stage fusion: a planner pass (plan/fusion.py) replaces "
+         "maximal chains of project/filter/broadcast-join-probe operators "
+         "with one fused stage that runs the members back to back per "
+         "batch with one host sync for the join sizing.")
+register("spark.rapids.tpu.fusion.minOps", "int", 2,
+         "Minimum member count for a chain to be worth fusing (clamped "
+         "to >= 2).")
+register("spark.rapids.tpu.fusion.pallas.mode", "string", "auto",
+         "Backend for the fused stage's hash-probe sizing: auto uses the "
+         "hand-written kernel (ops/pallas_probe.py) when the session "
+         "device is CUDA and the plain torch path on the CPU; off forces "
+         "the plain path everywhere; force routes through the kernel "
+         "wrapper on every device (on the CPU the wrapper takes its plain "
+         "twin). All routes are bit-identical.",
+         check_values=("auto", "off", "force"))
+
+
+class TpuConf:
+    """Instance view over a settings dict, with typed accessors."""
+
+    def __init__(self, settings: Optional[Dict[str, Any]] = None):
+        self._settings: Dict[str, Any] = dict(settings or {})
+        for key in _REGISTRY:
+            env = key.upper().replace(".", "_")
+            if env in os.environ and key not in self._settings:
+                self._settings[key] = os.environ[env]
+
+    def get(self, key: str) -> Any:
+        e = _REGISTRY.get(key)
+        if e is None:
+            return self._settings.get(key)
+        if key in self._settings:
+            return e.convert(self._settings[key])
+        return e.default
+
+    @property
+    def is_sql_enabled(self) -> bool:
+        return self.get("spark.rapids.sql.enabled")
+
+    @property
+    def explain(self) -> str:
+        return self.get("spark.rapids.sql.explain")
+
+    @property
+    def is_ansi(self) -> bool:
+        return self.get("spark.rapids.sql.ansi.enabled") or \
+            self.get("spark.sql.ansi.enabled")
+
+    @property
+    def batch_size_rows(self) -> int:
+        return self.get("spark.rapids.sql.batchSizeRows")
+
+
+_default_conf: Optional[TpuConf] = None
+
+
+def get_default_conf() -> TpuConf:
+    global _default_conf
+    if _default_conf is None:
+        _default_conf = TpuConf()
+    return _default_conf

@@ -1,0 +1,162 @@
+"""Hash aggregate exec, complete mode (`spark_rapids_tpu/exec/aggregate.py`).
+
+Grouping is sort-by-keys + boundary detection + segmented reductions. One
+input batch aggregates in one pass; several are aggregated per batch into
+partial buffers, merged pairwise, and finalised, which is the JAX engine's
+merge-pass structure (without its spill and OOM-retry machinery). Sum,
+Count, Min and Max carry one partial buffer each. The partial and final
+plan modes of a distributed aggregate wait for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence
+
+import torch
+
+from .. import types as T
+from ..columnar.batch import ColumnarBatch, Schema, empty_batch
+from ..columnar.column import torch_dtype
+from ..expr.aggregates import AggregateFunction, Count, Max, Min, Sum
+from ..expr.base import Expression, Vec, bind_references, output_name
+from ..ops.rowops import (compact_vecs, gather_vecs, group_ids_from_sorted,
+                          lexsort_indices, segment_reduce, sort_keys_for)
+from ..plan.nodes import AggExpr
+from .base import UnaryTpuExec, TpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .coalesce import concat_batches
+
+__all__ = ["TpuHashAggregateExec", "SUPPORTED_AGGREGATES"]
+
+SUPPORTED_AGGREGATES = (Sum, Count, Min, Max)
+
+
+def _sorted_by_keys(key_vecs: List[Vec], all_vecs: List[Vec], row_mask):
+    groups = [[(~row_mask).to(torch.int8)]]  # padding after every live row
+    for kv in key_vecs:
+        groups.append(sort_keys_for(kv))
+    order = lexsort_indices(groups)
+    return gather_vecs(all_vecs, order), row_mask[order]
+
+
+class TpuHashAggregateExec(UnaryTpuExec):
+    def __init__(self, group_exprs: Sequence[Expression],
+                 aggs: Sequence[AggExpr], child: TpuExec, conf=None):
+        super().__init__([child], conf)
+        self.group_exprs = list(group_exprs)
+        self.aggs = list(aggs)
+        self._bound_groups = [bind_references(e, child.output)
+                              for e in self.group_exprs]
+        self._bound_aggs = []
+        for a in self.aggs:
+            if not isinstance(a.func, SUPPORTED_AGGREGATES):
+                raise NotImplementedError(
+                    f"aggregate {type(a.func).__name__} is not supported by "
+                    "spark_rapids_tpu_torch yet (sum, count, min, max)")
+            f = a.func
+            if f.child is not None:
+                f = f.with_children([bind_references(f.child, child.output)])
+            self._bound_aggs.append(AggExpr(f, a.name))
+        knames = [output_name(e, f"k{i}")
+                  for i, e in enumerate(self.group_exprs)]
+        ktypes = [e.data_type for e in self._bound_groups]
+        self._schema = Schema(
+            tuple(knames + [a.name for a in self._bound_aggs]),
+            tuple(ktypes + [a.func.data_type for a in self._bound_aggs]))
+        # the partial-buffer layout carried between merge passes
+        pnames, ptps = list(knames), list(ktypes)
+        for a in self._bound_aggs:
+            for j, pt in enumerate(a.func.partial_types()):
+                pnames.append(f"{a.name}__p{j}")
+                ptps.append(pt)
+        self._partial_schema = Schema(tuple(pnames), tuple(ptps))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def aggregate(self, batch: ColumnarBatch, input_partial: bool = False,
+                  output_partial: bool = False) -> ColumnarBatch:
+        """One aggregation pass over one batch: raw rows or partial buffers
+        in, final values or partial buffers out."""
+        ctx = device_ctx(batch)
+        vecs = batch_vecs(batch)
+        mask = ctx.row_mask
+        cap = batch.capacity
+        nk = len(self._bound_groups)
+        if input_partial:
+            keys = list(vecs[:nk])
+            buf_vecs, off = [], nk
+            for a in self._bound_aggs:
+                k = len(a.func.partial_types())
+                buf_vecs.extend(vecs[off:off + k])
+                off += k
+        else:
+            keys = [e.eval(ctx, vecs) for e in self._bound_groups]
+            buf_vecs = [Vec(T.LONG, torch.ones(cap, dtype=torch.int64,
+                                               device=mask.device), mask)
+                        if a.func.child is None else
+                        a.func.child.eval(ctx, vecs)
+                        for a in self._bound_aggs]
+        if keys:
+            sorted_vecs, sorted_mask = _sorted_by_keys(keys, keys + buf_vecs,
+                                                       mask)
+            skeys, sbufs = sorted_vecs[:nk], sorted_vecs[nk:]
+            gid, ng, starts = group_ids_from_sorted(skeys, sorted_mask)
+        else:
+            skeys, sbufs, sorted_mask = [], buf_vecs, mask
+            gid = torch.zeros(cap, dtype=torch.int32, device=mask.device)
+            ng = 1
+            starts = torch.arange(cap, device=mask.device) == 0
+        out_vecs: List[Vec] = []
+        if skeys:  # representative key rows: group starts to the front
+            out_vecs.extend(compact_vecs(skeys, starts)[0])
+        for a, v in zip(self._bound_aggs, sbufs):
+            out_vecs.append(self._agg_one(a.func, v, gid, cap, sorted_mask,
+                                          input_partial))
+        schema = self._partial_schema if output_partial else self._schema
+        return vecs_to_batch(schema, out_vecs, ng)
+
+    @staticmethod
+    def _agg_one(func: AggregateFunction, v: Vec, gid, cap: int, row_mask,
+                 merging: bool) -> Vec:
+        valid = v.validity & row_mask
+
+        def seg(op, acc_dtype=None):
+            data = v.data if acc_dtype is None else v.data.to(acc_dtype)
+            out = segment_reduce(op, data, gid, cap, valid)
+            return out, segment_reduce("count", data, gid, cap, valid) > 0
+
+        ones = torch.ones(cap, dtype=torch.bool, device=row_mask.device)
+        if isinstance(func, Count):
+            data = seg("sum", torch.int64)[0] if merging else \
+                segment_reduce("count", v.data, gid, cap, valid)
+            return Vec(T.LONG, data, ones)
+        if isinstance(func, Sum):
+            out_t = func.data_type
+            acc = torch.float64 if T.is_floating(out_t) else torch.int64
+            data, has = seg("sum", acc)
+            return Vec(out_t, data.to(torch_dtype(out_t)), has)
+        op = "min" if isinstance(func, Min) else "max"
+        data, has = seg(op)
+        return Vec(v.dtype, data.to(torch_dtype(v.dtype)), has)
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        batches = list(self.child.execute())
+        if not batches:
+            if self.group_exprs:
+                return
+            # a global aggregate over no input still emits its one row
+            batches = [empty_batch(self.child.output, self.device)]
+        if len(batches) == 1:
+            yield self.aggregate(batches[0])
+            return
+        pending = [self.aggregate(b, output_partial=True) for b in batches]
+        while len(pending) > 1:
+            pair = concat_batches([pending.pop(0), pending.pop(0)])
+            pending.append(self.aggregate(pair, input_partial=True,
+                                          output_partial=True))
+        yield self.aggregate(pending[0], input_partial=True)
+
+    def _arg_string(self):
+        return (f"[complete, keys={[repr(e) for e in self.group_exprs]}, "
+                f"aggs={[a.name for a in self.aggs]}]")

@@ -1,0 +1,92 @@
+"""Scan, project and filter execs (`spark_rapids_tpu/exec/basic.py`)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..columnar.batch import ColumnarBatch, Schema, batch_from_arrow
+from ..expr.base import Expression, bind_references, output_name
+from ..ops.rowops import compact_vecs
+from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
+
+__all__ = ["TpuScanExec", "TpuProjectExec", "TpuFilterExec"]
+
+
+class TpuScanExec(TpuExec):
+    """Host Arrow table -> device batches of at most batchSizeRows rows."""
+
+    def __init__(self, table, device: torch.device, conf=None,
+                 batch_rows: int = None):
+        super().__init__([], conf, device)
+        self.table = table
+        self._schema = Schema.from_arrow(table.schema)
+        self.batch_rows = batch_rows or self.conf.batch_size_rows
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def do_execute(self):
+        n = self.table.num_rows
+        step = self.batch_rows
+        for off in range(0, max(n, 1), step):
+            chunk = self.table.slice(off, min(step, n - off)) if n else \
+                self.table
+            yield batch_from_arrow(chunk, self.device)
+            if n == 0:
+                break
+
+    def _arg_string(self):
+        return f"[{self.table.num_rows} rows, {self.device}]"
+
+
+class TpuProjectExec(UnaryTpuExec):
+    def __init__(self, exprs: Sequence[Expression], child: TpuExec, conf=None):
+        super().__init__([child], conf)
+        self.exprs = list(exprs)
+        self._bound = [bind_references(e, child.output) for e in self.exprs]
+        names = tuple(output_name(e, f"col{i}")
+                      for i, e in enumerate(self.exprs))
+        self._schema = Schema(names, tuple(e.data_type for e in self._bound))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def project(self, batch: ColumnarBatch) -> ColumnarBatch:
+        ctx = device_ctx(batch)
+        vecs = batch_vecs(batch)
+        return vecs_to_batch(self._schema,
+                             [e.eval(ctx, vecs) for e in self._bound],
+                             batch.num_rows)
+
+    def do_execute(self):
+        for b in self.child.execute():
+            yield self.project(b)
+
+    def _arg_string(self):
+        return f"[{', '.join(map(repr, self.exprs))}]"
+
+
+class TpuFilterExec(UnaryTpuExec):
+    def __init__(self, condition: Expression, child: TpuExec, conf=None):
+        super().__init__([child], conf)
+        self.condition = condition
+        self._bound = bind_references(condition, child.output)
+
+    def filter(self, batch: ColumnarBatch) -> ColumnarBatch:
+        ctx = device_ctx(batch)
+        vecs = batch_vecs(batch)
+        pred = self._bound.eval(ctx, vecs)
+        keep = pred.data & pred.validity & ctx.row_mask
+        out_vecs, new_n = compact_vecs(vecs, keep)
+        return vecs_to_batch(batch.schema, out_vecs, new_n)
+
+    def do_execute(self):
+        for b in self.child.execute():
+            yield self.filter(b)
+
+    def _arg_string(self):
+        return f"[{self.condition!r}]"

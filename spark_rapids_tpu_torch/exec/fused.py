@@ -1,0 +1,131 @@
+"""Whole-stage fused execution (`spark_rapids_tpu/exec/fused.py`).
+
+`plan/fusion.py` replaces a maximal chain of filter / project / broadcast
+join probe operators with one `TpuFusedStageExec`. The JAX engine traces
+the members into one XLA program per batch; this engine runs eagerly, so
+the members' own per-batch functions run back to back on each batch and
+their intermediates never leave the device. Results are identical to the
+unfused chain by construction: the same functions run on the same inputs.
+
+What fusion keeps from the JAX engine:
+
+  * Join expand needs an output capacity. The stage computes each join's
+    exact slot total on the device and reads all totals in ONE host sync
+    per batch after the chain ran; a total above its capacity re-runs the
+    batch at a grown, grow-only capacity.
+  * The join sizing hash runs through the hand-written murmur3 kernel
+    (ops/pallas_probe.py) when `spark.rapids.tpu.fusion.pallas.mode` is
+    auto on a CUDA session, or force. The expand step still recomputes the
+    plain hash, as the JAX engine does, so the kernel feeds only the sizing
+    total and must match `_probe_counts` bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List
+
+import torch
+
+from ..columnar.batch import ColumnarBatch, Schema
+from ..columnar.padding import row_bucket
+from .base import TpuExec, batch_vecs, vecs_to_batch
+from .basic import TpuProjectExec
+from .joins import TpuBroadcastHashJoinExec, _expand_join, _probe_counts
+
+__all__ = ["TpuFusedStageExec"]
+
+
+class TpuFusedStageExec(TpuExec):
+    """One fused pipeline stage. children = [source] + build exchanges (in
+    member order); the member execs stay linked beneath."""
+
+    def __init__(self, members: List[TpuExec], spec, conf=None):
+        source = members[0].children[0]
+        builds = [m.children[1] for m in members
+                  if isinstance(m, TpuBroadcastHashJoinExec)]
+        super().__init__([source] + builds, conf)
+        self._members = list(members)
+        self.spec = spec
+        self._schema = members[-1].output
+        self._join_members = [m for m in members
+                              if isinstance(m, TpuBroadcastHashJoinExec)]
+        # grow-only expand capacity per join member (None = size off the
+        # first batch)
+        self._join_caps: list = [None] * len(self._join_members)
+        from ..plan.fusion import KEY_PALLAS
+        mode = str(self.conf.get(KEY_PALLAS))
+        self._pallas = mode == "force" or (
+            mode == "auto" and self.device is not None
+            and self.device.type == "cuda")
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return f"[{self.spec!r}]"
+
+    def _probe_total(self, m, probe: ColumnarBatch,
+                     build: ColumnarBatch) -> torch.Tensor:
+        """Exact expand-slot total for one join member, on the device (the
+        unfused `join_pair` sizing formula)."""
+        if self._pallas:
+            from ..ops.pallas_probe import candidate_counts
+            pvecs, bvecs = batch_vecs(probe), batch_vecs(build)
+            counts = candidate_counts([pvecs[i] for i in m._lk_ix],
+                                      [bvecs[i] for i in m._rk_ix],
+                                      probe.row_mask(), build.row_mask())
+        else:
+            counts = _probe_counts(probe, build, m._lk_ix, m._rk_ix)[0]
+        slot = torch.clamp(counts, min=1) if m.join_type == "left" else counts
+        return torch.where(probe.row_mask(), slot, 0).sum(dtype=torch.int64)
+
+    def _run_chain(self, batch: ColumnarBatch, builds, caps):
+        out, totals, ji = batch, [], 0
+        for m in self._members:
+            if isinstance(m, TpuBroadcastHashJoinExec):
+                totals.append(self._probe_total(m, out, builds[ji]))
+                out_vecs, n = _expand_join(out, builds[ji], m._lk_ix,
+                                           m._rk_ix, caps[ji], m.join_type)
+                out = vecs_to_batch(m.output, out_vecs, n)
+                ji += 1
+            elif isinstance(m, TpuProjectExec):
+                out = m.project(out)
+            else:  # TpuFilterExec
+                out = m.filter(out)
+        return out, totals
+
+    def _caps_for(self, batch: ColumnarBatch) -> tuple:
+        # members below a join keep the batch capacity, so the source cap is
+        # the first-batch guess; overflow re-runs correct it, never shrink
+        for i, cap in enumerate(self._join_caps):
+            if cap is None:
+                self._join_caps[i] = row_bucket(max(batch.capacity, 1))
+        return tuple(self._join_caps)
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        builds = []
+        for m in self._join_members:
+            build = m.build_batch()
+            if build is None:
+                if m.join_type in ("inner", "semi"):
+                    return
+                build = m.empty_build()
+            builds.append(build)
+        for b in self.children[0].execute():
+            while True:
+                caps = self._caps_for(b)
+                out, totals = self._run_chain(b, builds, caps)
+                if not totals:
+                    break
+                grown = False
+                # the one per-batch host sync: every join's slot total
+                for i, t in enumerate(torch.stack(totals).tolist()):
+                    if t > caps[i]:
+                        self._join_caps[i] = row_bucket(max(t, 1))
+                        grown = True
+                if not grown:
+                    break
+            if self._join_members and out.row_count() == 0:
+                continue  # unfused joins drop empty outputs too
+            yield out

@@ -1,0 +1,67 @@
+"""Aggregate function descriptors (`spark_rapids_tpu/expr/aggregates.py`:
+Sum, Count, Min, Max).
+
+Each aggregate declares its partial-buffer types; the hash-aggregate exec
+lowers them to sort-based segmented reductions. `Sum` over integrals widens
+to LONG.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from .. import types as T
+from .base import Expression
+
+__all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max"]
+
+
+class AggregateFunction(Expression):
+    def __init__(self, child: Optional[Expression] = None):
+        super().__init__([] if child is None else [child])
+
+    @property
+    def child(self) -> Optional[Expression]:
+        return self.children[0] if self.children else None
+
+    def partial_types(self) -> List[T.DataType]:
+        return [self.data_type]
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Sum(AggregateFunction):
+    @property
+    def data_type(self):
+        ct = self.child.data_type
+        if T.is_integral(ct):
+            return T.LONG
+        if isinstance(ct, T.DecimalType):
+            return T.DecimalType.bounded(ct.precision + 10, ct.scale)
+        return T.DOUBLE
+
+
+class Count(AggregateFunction):
+    """count(expr), or count(*) when the child is None."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+
+class Min(AggregateFunction):
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+
+class Max(AggregateFunction):
+    @property
+    def data_type(self):
+        return self.child.data_type

@@ -1,0 +1,326 @@
+"""Expression IR core (`spark_rapids_tpu/expr/base.py`).
+
+The JAX package writes each expression once over an array namespace (numpy
+for its CPU oracle, jax.numpy for the device). This engine has one backend:
+every kernel is a plain function on torch tensors, and the device is the
+one the input tensors live on. Evaluation operates on `Vec` (dtype + data
++ validity); the exec layer converts `Column` <-> `Vec` without copies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from .. import types as T
+from ..columnar.column import Column, torch_dtype
+
+__all__ = ["Vec", "EvalContext", "Expression", "LeafExpression", "Literal",
+           "AttributeReference", "BoundReference", "Alias",
+           "bind_references", "output_name", "and_validity"]
+
+
+@dataclasses.dataclass
+class Vec:
+    dtype: T.DataType
+    data: torch.Tensor
+    validity: torch.Tensor
+
+    @staticmethod
+    def from_column(col: Column) -> "Vec":
+        return Vec(col.dtype, col.data, col.validity)
+
+    def to_column(self) -> Column:
+        return Column(self.dtype, self.data, self.validity)
+
+    def gather(self, idx: torch.Tensor) -> "Vec":
+        return Vec(self.dtype, self.data[idx], self.validity[idx])
+
+
+@dataclasses.dataclass
+class EvalContext:
+    """row_mask: bool[cap] live-row mask of the batch being evaluated; its
+    device and length give literals theirs. ANSI mode has no error channel
+    here yet: the planner rejects it."""
+    row_mask: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_mask.device
+
+
+def and_validity(*vs) -> Optional[torch.Tensor]:
+    out = None
+    for v in vs:
+        if v is None:
+            continue
+        out = v if out is None else (out & v)
+    return out
+
+
+class Expression:
+    """Base expression node. Subclasses define `children`, `data_type`, and
+    `_compute(ctx, *child_vecs) -> Vec`."""
+
+    def __init__(self, children: Sequence["Expression"] = ()):
+        self.children: List[Expression] = list(children)
+
+    @property
+    def data_type(self) -> T.DataType:
+        raise NotImplementedError
+
+    @property
+    def nullable(self) -> bool:
+        return any(c.nullable for c in self.children)
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def eval(self, ctx: EvalContext, batch_vecs: Sequence[Vec]) -> Vec:
+        return self._compute(ctx, *[c.eval(ctx, batch_vecs)
+                                    for c in self.children])
+
+    def _compute(self, ctx: EvalContext, *children: Vec) -> Vec:
+        raise NotImplementedError(type(self).__name__)
+
+    def transform_up(self, fn) -> "Expression":
+        new_children = [c.transform_up(fn) for c in self.children]
+        unchanged = all(a is b for a, b in zip(new_children, self.children))
+        node = self if unchanged else self.with_children(new_children)
+        return fn(node)
+
+    def with_children(self, children: Sequence["Expression"]) -> "Expression":
+        import copy
+        node = copy.copy(self)
+        node.children = list(children)
+        return node
+
+    def collect(self, pred) -> List["Expression"]:
+        out = [self] if pred(self) else []
+        for c in self.children:
+            out.extend(c.collect(pred))
+        return out
+
+    def __repr__(self):
+        if not self.children:
+            return self.name
+        return f"{self.name}({', '.join(map(repr, self.children))})"
+
+    # --- operator sugar for the DataFrame frontend ---------------------------
+    @staticmethod
+    def _wrap(v) -> "Expression":
+        return v if isinstance(v, Expression) else Literal(v)
+
+    def __add__(self, o):
+        from .arithmetic import Add
+        return Add(self, self._wrap(o))
+
+    def __sub__(self, o):
+        from .arithmetic import Subtract
+        return Subtract(self, self._wrap(o))
+
+    def __mul__(self, o):
+        from .arithmetic import Multiply
+        return Multiply(self, self._wrap(o))
+
+    def __eq__(self, o):  # type: ignore[override]
+        from .predicates import EqualTo
+        return EqualTo(self, self._wrap(o))
+
+    def __ne__(self, o):  # type: ignore[override]
+        from .predicates import EqualTo, Not
+        return Not(EqualTo(self, self._wrap(o)))
+
+    def __lt__(self, o):
+        from .predicates import LessThan
+        return LessThan(self, self._wrap(o))
+
+    def __le__(self, o):
+        from .predicates import LessThanOrEqual
+        return LessThanOrEqual(self, self._wrap(o))
+
+    def __gt__(self, o):
+        from .predicates import GreaterThan
+        return GreaterThan(self, self._wrap(o))
+
+    def __ge__(self, o):
+        from .predicates import GreaterThanOrEqual
+        return GreaterThanOrEqual(self, self._wrap(o))
+
+    def __and__(self, o):
+        from .predicates import And
+        return And(self, self._wrap(o))
+
+    def __or__(self, o):
+        from .predicates import Or
+        return Or(self, self._wrap(o))
+
+    def __invert__(self):
+        from .predicates import Not
+        return Not(self)
+
+    def __radd__(self, o):
+        return self._wrap(o).__add__(self)
+
+    def __rsub__(self, o):
+        return self._wrap(o).__sub__(self)
+
+    def __rmul__(self, o):
+        return self._wrap(o).__mul__(self)
+
+    def __bool__(self):
+        raise ValueError(
+            "Cannot convert an Expression to a bool. Use '&' for AND, '|' for "
+            "OR, '~' for NOT when building conditions.")
+
+    def __hash__(self):
+        return id(self)
+
+    def alias(self, name: str) -> "Expression":
+        return Alias(self, name)
+
+
+class LeafExpression(Expression):
+    def __init__(self):
+        super().__init__(())
+
+
+def _infer_literal_type(v) -> T.DataType:
+    if v is None:
+        return T.NULL
+    if isinstance(v, bool):
+        return T.BOOLEAN
+    if isinstance(v, int):
+        return T.INT if -2**31 <= v < 2**31 else T.LONG
+    if isinstance(v, float):
+        return T.DOUBLE
+    raise NotImplementedError(f"literal {v!r} of type {type(v).__name__} is "
+                              "not supported by spark_rapids_tpu_torch yet")
+
+
+class Literal(LeafExpression):
+    def __init__(self, value, dtype: Optional[T.DataType] = None):
+        super().__init__()
+        self.value = value
+        self._dtype = _infer_literal_type(value) if dtype is None else dtype
+
+    @property
+    def data_type(self) -> T.DataType:
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self.value is None
+
+    def _compute(self, ctx: EvalContext, *children: Vec) -> Vec:
+        n = ctx.row_mask.shape[0]
+        tdt = torch_dtype(self._dtype)
+        if self.value is None:
+            return Vec(self._dtype,
+                       torch.zeros(n, dtype=tdt, device=ctx.device),
+                       torch.zeros(n, dtype=torch.bool, device=ctx.device))
+        return Vec(self._dtype,
+                   torch.full((n,), self.value, dtype=tdt, device=ctx.device),
+                   torch.ones(n, dtype=torch.bool, device=ctx.device))
+
+    def __repr__(self):
+        if self._dtype == _infer_literal_type(self.value):
+            return f"lit({self.value!r})"
+        return f"lit({self.value!r}:{self._dtype.simple_string()})"
+
+
+class AttributeReference(LeafExpression):
+    """Named column reference (bind_references resolves it to an ordinal)."""
+
+    def __init__(self, name: str, dtype: Optional[T.DataType] = None,
+                 nullable: bool = True):
+        super().__init__()
+        self._name = name
+        self._dtype = dtype
+        self._nullable = nullable
+
+    @property
+    def data_type(self) -> T.DataType:
+        if self._dtype is None:
+            raise ValueError(f"unresolved attribute {self._name}")
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self._nullable
+
+    @property
+    def col_name(self) -> str:
+        return self._name
+
+    def _compute(self, ctx, *children):
+        raise RuntimeError(f"unbound attribute {self._name}; "
+                           "call bind_references")
+
+    def __repr__(self):
+        return f"col({self._name})"
+
+
+class BoundReference(LeafExpression):
+    def __init__(self, ordinal: int, dtype: T.DataType, nullable: bool = True):
+        super().__init__()
+        self.ordinal = ordinal
+        self._dtype = dtype
+        self._nullable = nullable
+
+    @property
+    def data_type(self) -> T.DataType:
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self._nullable
+
+    def eval(self, ctx: EvalContext, batch_vecs: Sequence[Vec]) -> Vec:
+        return batch_vecs[self.ordinal]
+
+    def __repr__(self):
+        return f"input[{self.ordinal}]"
+
+
+class Alias(Expression):
+    def __init__(self, child: Expression, alias: str):
+        super().__init__([child])
+        self.alias = alias
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    @property
+    def nullable(self):
+        return self.children[0].nullable
+
+    def eval(self, ctx, batch_vecs):
+        return self.children[0].eval(ctx, batch_vecs)
+
+    def __repr__(self):
+        return f"{self.children[0]!r} AS {self.alias}"
+
+
+def bind_references(expr: Expression, schema) -> Expression:
+    """Resolve AttributeReference -> BoundReference against a Schema."""
+
+    def fn(node):
+        if isinstance(node, AttributeReference):
+            i = schema.index_of(node.col_name)
+            return BoundReference(i, schema.types[i], node._nullable)
+        return node
+
+    return expr.transform_up(fn)
+
+
+def output_name(expr: Expression, default: str) -> str:
+    if isinstance(expr, Alias):
+        return expr.alias
+    if isinstance(expr, AttributeReference):
+        return expr.col_name
+    return default

@@ -1,0 +1,99 @@
+"""Spark-exact Murmur3 hashing for the int and long families
+(`spark_rapids_tpu/expr/hashing.py`).
+
+Spark's murmur3_x86_32 is uint32 arithmetic with wraparound. torch's
+uint32 lacks most operations, so every value here is an int32 holding the
+same 32 bits: multiplication and addition wrap identically, and a logical
+right shift is an arithmetic shift followed by a mask (torch `>>` on int32
+keeps the sign), the same translation `ops/pallas_probe.py` of the JAX
+package uses. This is also the plain version that the hand-written CUDA
+kernel in ops/pallas_probe.py is held against, bit for bit.
+
+Strings, floats and decimals wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import types as T
+from .base import Vec
+
+__all__ = ["hash_vec", "hash_vecs", "hash_int", "hash_long", "INT_FAMILY",
+           "LONG_FAMILY"]
+
+INT_FAMILY = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+              T.DateType)
+LONG_FAMILY = (T.LongType, T.TimestampType)
+
+
+def _i32(x: int) -> int:
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+_C1 = _i32(0xcc9e2d51)
+_C2 = _i32(0x1b873593)
+_M5 = _i32(0xe6546b64)
+_F1 = _i32(0x85ebca6b)
+_F2 = _i32(0xc2b2ae35)
+
+
+def _srl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x >> r) & ((1 << (32 - r)) - 1)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _srl(x, 32 - r)
+
+
+def _mix_k1(k1):
+    return _rotl(k1 * _C1, 15) * _C2
+
+
+def _mix_h1(h1, k1):
+    return _rotl(h1 ^ k1, 13) * 5 + _M5
+
+
+def _fmix(h1, length: int):
+    h1 = h1 ^ length
+    h1 = h1 ^ _srl(h1, 16)
+    h1 = h1 * _F1
+    h1 = h1 ^ _srl(h1, 13)
+    h1 = h1 * _F2
+    return h1 ^ _srl(h1, 16)
+
+
+def hash_int(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """murmur3 of one 4-byte block per row (int32 v, int32 running seed)."""
+    return _fmix(_mix_h1(seed, _mix_k1(v)), 4)
+
+
+def hash_long(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """murmur3 of one int64 per row as two 4-byte blocks, low word first."""
+    low = (v & 0xFFFFFFFF).to(torch.int32)
+    high = (v >> 32).to(torch.int32)
+    return _fmix(_mix_h1(_mix_h1(seed, _mix_k1(low)), _mix_k1(high)), 8)
+
+
+def hash_vec(v: Vec, seed: torch.Tensor) -> torch.Tensor:
+    """Hash one column into the int32 running hash; null rows pass the seed
+    through (Spark)."""
+    if isinstance(v.dtype, INT_FAMILY):
+        h = hash_int(v.data.to(torch.int32), seed)
+    elif isinstance(v.dtype, LONG_FAMILY):
+        h = hash_long(v.data.to(torch.int64), seed)
+    else:
+        raise NotImplementedError(
+            f"murmur3 over {v.dtype.simple_string()} is not supported by "
+            "spark_rapids_tpu_torch yet (int and long families only)")
+    return torch.where(v.validity, h, seed)
+
+
+def hash_vecs(vecs, seed: int = 42) -> torch.Tensor:
+    """Row hash across columns: int32 result (Spark Murmur3Hash)."""
+    n = vecs[0].validity.shape[0]
+    h = torch.full((n,), seed, dtype=torch.int32,
+                   device=vecs[0].validity.device)
+    for v in vecs:
+        h = hash_vec(v, h)
+    return h

@@ -1,0 +1,72 @@
+"""DataFrame frontend (`spark_rapids_tpu/frontend.py`: select, filter,
+join, group_by, agg, collect). It builds plan nodes; the session rewrites
+and runs them."""
+
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+from .expr.aggregates import AggregateFunction
+from .expr.base import Alias, AttributeReference, Expression
+from .plan import nodes as N
+
+__all__ = ["DataFrame", "GroupedData"]
+
+
+def _as_expr(e: Union[str, Expression]) -> Expression:
+    return AttributeReference(e) if isinstance(e, str) else e
+
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys: Sequence[Expression]):
+        self.df = df
+        self.keys = [_as_expr(k) for k in keys]
+
+    def agg(self, **named_aggs: AggregateFunction) -> "DataFrame":
+        aggs = [N.AggExpr(f, name) for name, f in named_aggs.items()]
+        return DataFrame(self.df.session,
+                         N.CpuHashAggregateExec(self.keys, aggs, self.df.plan))
+
+
+class DataFrame:
+    def __init__(self, session, plan: N.PhysicalPlan):
+        self.session = session
+        self.plan = plan
+
+    @property
+    def schema(self):
+        return self.plan.output
+
+    def select(self, *exprs: Union[str, Expression],
+               **named: Expression) -> "DataFrame":
+        projs = [_as_expr(e) for e in exprs]
+        projs.extend(Alias(_as_expr(e), nm) for nm, e in named.items())
+        return DataFrame(self.session, N.CpuProjectExec(projs, self.plan))
+
+    def filter(self, condition: Expression) -> "DataFrame":
+        return DataFrame(self.session, N.CpuFilterExec(condition, self.plan))
+
+    def group_by(self, *keys: Union[str, Expression]) -> GroupedData:
+        return GroupedData(self, keys)
+
+    def agg(self, **named_aggs: AggregateFunction) -> "DataFrame":
+        return GroupedData(self, []).agg(**named_aggs)
+
+    def join(self, other: "DataFrame", on: Union[str, Sequence[str]] = None,
+             how: str = "inner") -> "DataFrame":
+        """Equi join on the `on` key columns."""
+        keys = [] if on is None else ([on] if isinstance(on, str)
+                                      else list(on))
+        return DataFrame(self.session, N.CpuHashJoinExec(
+            self.plan, other.plan, [_as_expr(k) for k in keys],
+            [_as_expr(k) for k in keys], how))
+
+    def collect(self):
+        """Execute and return a pyarrow Table."""
+        return self.session.execute_plan(self.plan)
+
+    def explain(self) -> str:
+        return self.session.explain_plan(self.plan)
+
+    def __repr__(self):
+        return f"DataFrame({self.schema})\n{self.plan.tree_string()}"

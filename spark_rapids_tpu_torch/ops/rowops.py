@@ -1,0 +1,128 @@
+"""Row-level device ops shared by the execs (`spark_rapids_tpu/ops/rowops.py`):
+stable compaction, gather, multi-key sort, group ids, segmented reduction.
+
+Compaction keeps the padded capacity and returns a new logical count as a
+device scalar: a stable sort on the keep flags, no host sync. torch has no
+lexsort, so `lexsort_indices` chains stable sorts from the least
+significant key up, which gives the same permutation. torch's
+`index_add_` and `scatter_reduce_` raise on out-of-range indices where JAX
+drops them, so `segment_reduce` sends such rows to a spare slot.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from .. import types as T
+from ..expr.base import Vec
+
+__all__ = ["gather_vecs", "compact_vecs", "sort_keys_for", "lexsort_indices",
+           "key_change_flags", "group_ids_from_sorted", "segment_reduce"]
+
+
+def gather_vecs(vecs: Sequence[Vec], idx: torch.Tensor) -> List[Vec]:
+    return [v.gather(idx) for v in vecs]
+
+
+def compact_vecs(vecs: Sequence[Vec],
+                 keep_mask: torch.Tensor) -> Tuple[List[Vec], torch.Tensor]:
+    """Stable-move rows where keep_mask (bool[cap]) to the front; returns
+    (columns, new_count). Padding tail contents are unspecified."""
+    order = torch.sort((~keep_mask).to(torch.int8), stable=True).indices
+    new_count = keep_mask.sum(dtype=torch.int32)
+    return gather_vecs(vecs, order), new_count
+
+
+def sort_keys_for(v: Vec) -> List:
+    """Sort key tensors for an ascending, nulls-first order over a column
+    (the grouping order), MOST significant first: [null position,
+    (NaN position), value]. Descending and nulls-last orders come with the
+    sort exec."""
+    keys: List = [v.validity.to(torch.int8)]  # null (0) before valid (1)
+    if T.is_floating(v.dtype):
+        nan = torch.isnan(v.data)
+        zero = torch.zeros((), dtype=v.data.dtype, device=v.data.device)
+        keys.append(nan.to(torch.int8))  # NaN sorts greatest
+        keys.append(torch.where(nan, zero, v.data))
+    else:
+        keys.append(v.data.to(torch.int8) if v.data.dtype == torch.bool
+                    else v.data)
+    return keys
+
+
+def lexsort_indices(key_groups: Sequence[List]) -> torch.Tensor:
+    """Keys given MOST significant first; returns the stable permutation."""
+    flat: List = [k for grp in key_groups for k in grp]
+    order = None
+    for k in reversed(flat):
+        kk = k if order is None else k[order]
+        idx = torch.sort(kk, stable=True).indices
+        order = idx if order is None else order[idx]
+    return order
+
+
+def key_change_flags(key_vecs: Sequence[Vec], n: int) -> torch.Tensor:
+    """True at rows whose key differs from the previous row (row 0 False).
+    Two nulls are equal, and two NaNs are equal (Spark grouping)."""
+    device = key_vecs[0].data.device if key_vecs else None
+    change = torch.zeros(n, dtype=torch.bool, device=device)
+    for v in key_vecs:
+        both_valid = v.validity[1:] & v.validity[:-1]
+        neq = v.data[1:] != v.data[:-1]
+        if v.data.is_floating_point():
+            neq = neq & ~(torch.isnan(v.data[1:]) & torch.isnan(v.data[:-1]))
+        neq = (neq & both_valid) | (v.validity[1:] != v.validity[:-1])
+        change[1:] |= neq
+    return change
+
+
+def group_ids_from_sorted(key_vecs: Sequence[Vec], row_mask: torch.Tensor):
+    """After sorting by keys: (group_id[cap], num_groups, starts_mask).
+    Rows beyond the live region get id cap-1 (callers mask them)."""
+    n = row_mask.shape[0]
+    change = key_change_flags(key_vecs, n)
+    starts = change | (torch.arange(n, device=row_mask.device) == 0)
+    starts = starts & row_mask
+    gid = torch.cumsum(starts, dim=0, dtype=torch.int32) - 1
+    gid = torch.where(row_mask, gid, n - 1)
+    return gid, starts.sum(dtype=torch.int32), starts
+
+
+def _neutral(op: str, dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
+                   valid: torch.Tensor = None) -> torch.Tensor:
+    """Segmented reduction over rows with group ids; invalid rows are
+    excluded (null-skipping aggregates). Returns a per-group tensor of
+    length cap. Ids outside [0, cap) contribute nothing."""
+    if valid is None:
+        valid = torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
+    idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
+    if op == "count":
+        out = torch.zeros(cap + 1, dtype=torch.int64, device=data.device)
+        return out.index_add_(0, idx, valid.to(torch.int64))[:cap]
+    if op == "sum":
+        contrib = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
+                                                       device=data.device))
+        out = torch.zeros(cap + 1, dtype=data.dtype, device=data.device)
+        return out.index_add_(0, idx, contrib)[:cap]
+    if op in ("min", "max"):
+        is_bool = data.dtype == torch.bool
+        work = data.to(torch.int32) if is_bool else data
+        neutral = int(op == "min") if is_bool else _neutral(op, work.dtype)
+        contrib = torch.where(valid, work, torch.full((), neutral,
+                                                      dtype=work.dtype,
+                                                      device=data.device))
+        out = torch.full((cap + 1,), neutral, dtype=work.dtype,
+                         device=data.device)
+        out = out.scatter_reduce_(0, idx, contrib,
+                                  "amin" if op == "min" else "amax")[:cap]
+        return out.to(torch.bool) if is_bool else out
+    raise ValueError(f"unknown segmented op {op}")

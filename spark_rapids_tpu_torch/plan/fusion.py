@@ -1,0 +1,108 @@
+"""Whole-stage fusion planner pass (`spark_rapids_tpu/plan/fusion.py`).
+
+Behind `spark.rapids.tpu.fusion.enabled`, the pass finds MAXIMAL chains of
+batch-shape-compatible operators:
+
+  * `TpuProjectExec` / `TpuFilterExec`,
+  * the probe side of a `TpuBroadcastHashJoinExec` whose build child is a
+    `TpuBroadcastExchangeExec` (inner/left/semi/anti, no condition),
+
+and replaces each chain of at least `fusion.minOps` members with one
+`exec/fused.py TpuFusedStageExec`. Everything else breaks the chain, the
+aggregate above a join included: a complete aggregate merges across the
+whole batch stream. The JAX engine also fuses a stage-terminal PARTIAL
+aggregate, which only its mesh planner creates; that member comes with the
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+KEY_ENABLED = "spark.rapids.tpu.fusion.enabled"
+KEY_MIN_OPS = "spark.rapids.tpu.fusion.minOps"
+KEY_PALLAS = "spark.rapids.tpu.fusion.pallas.mode"
+
+FUSIBLE_JOIN_TYPES = ("inner", "left", "semi", "anti")
+
+__all__ = ["apply_fusion", "FusedStageSpec", "KEY_ENABLED", "KEY_MIN_OPS",
+           "KEY_PALLAS", "FUSIBLE_JOIN_TYPES"]
+
+
+class FusedStageSpec:
+    """Identity of one fused stage: the source schema plus one signature
+    string per member (bound-expression reprs, key ordinals, join type,
+    schemas)."""
+
+    __slots__ = ("source", "members")
+
+    def __init__(self, source: str, members):
+        self.source = source
+        self.members = tuple(members)
+
+    def __repr__(self):
+        return (f"FusedStageSpec(source={self.source}, "
+                f"members=[{'; '.join(self.members)}])")
+
+
+def _schema_sig(schema) -> str:
+    return (f"{tuple(schema.names)!r}:"
+            f"{[t.simple_string() for t in schema.types]!r}")
+
+
+def _member_sig(m) -> str:
+    from ..exec.basic import TpuFilterExec, TpuProjectExec
+    from ..exec.joins import TpuBroadcastHashJoinExec
+    if isinstance(m, TpuProjectExec):
+        return f"Project[{m._bound!r} -> {_schema_sig(m._schema)}]"
+    if isinstance(m, TpuFilterExec):
+        return f"Filter[{m._bound!r} @ {_schema_sig(m.child.output)}]"
+    if isinstance(m, TpuBroadcastHashJoinExec):
+        return (f"BroadcastHashJoin[{m.join_type}, lk={m._lk_ix!r}, "
+                f"rk={m._rk_ix!r}, build={_schema_sig(m.children[1].output)}, "
+                f"out={_schema_sig(m.output)}]")
+    raise TypeError(f"not a fusible member: {type(m).__name__}")
+
+
+def apply_fusion(root, conf):
+    if root is None or not conf.get(KEY_ENABLED):
+        return root
+    return _walk(root, conf)
+
+
+def _walk(node, conf):
+    fused = _try_fuse(node, conf)
+    if fused is not None:
+        # recurse BELOW the stage only (source + build exchanges)
+        fused.children = [_walk(c, conf) for c in fused.children]
+        return fused
+    if node.children:
+        node.children = [_walk(c, conf) for c in node.children]
+    return node
+
+
+def _fusible(node) -> bool:
+    from ..exec.basic import TpuFilterExec, TpuProjectExec
+    from ..exec.broadcast import TpuBroadcastExchangeExec
+    from ..exec.joins import TpuBroadcastHashJoinExec
+    if isinstance(node, (TpuProjectExec, TpuFilterExec)):
+        return True
+    if isinstance(node, TpuBroadcastHashJoinExec):
+        return (node.join_type in FUSIBLE_JOIN_TYPES
+                and isinstance(node.children[1], TpuBroadcastExchangeExec))
+    return False
+
+
+def _try_fuse(node, conf):
+    """Replace the maximal fusible chain headed at `node` (if >= minOps
+    members) with a TpuFusedStageExec; None when nothing fuses."""
+    chain = []
+    cur = node
+    while _fusible(cur):
+        chain.append(cur)
+        cur = cur.children[0]  # the probe/stream child for every member
+    if len(chain) < max(2, int(conf.get(KEY_MIN_OPS))):
+        return None
+    members = list(reversed(chain))  # bottom-up (stream order)
+    spec = FusedStageSpec(source=_schema_sig(cur.output),
+                          members=tuple(_member_sig(m) for m in members))
+    from ..exec.fused import TpuFusedStageExec
+    return TpuFusedStageExec(members, spec, conf=conf)

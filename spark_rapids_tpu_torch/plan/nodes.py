@@ -1,0 +1,152 @@
+"""Logical-physical plan nodes the DataFrame frontend builds
+(`spark_rapids_tpu/plan/nodes.py`: scan, project, filter, hash aggregate,
+hash join).
+
+In the JAX package these nodes also carry a numpy interpreter, the CPU
+oracle its tests compare against. This engine only rewrites them into
+device execs (plan/overrides.py); the oracle stays the JAX package's, and
+the tests run both.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+from ..columnar.batch import Schema, join_output_schema
+from ..expr.aggregates import AggregateFunction
+from ..expr.base import Expression, bind_references, output_name
+
+__all__ = ["PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
+           "AggExpr", "CpuHashAggregateExec", "CpuHashJoinExec"]
+
+
+class PhysicalPlan:
+    def __init__(self, children: Sequence["PhysicalPlan"]):
+        self.children = list(children)
+
+    @property
+    def output(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        s = "  " * indent + f"{self.name}{self._arg_string()}\n"
+        for c in self.children:
+            s += c.tree_string(indent + 1)
+        return s
+
+    def _arg_string(self) -> str:
+        return ""
+
+
+class CpuScanExec(PhysicalPlan):
+    """In-memory Arrow table scan."""
+
+    def __init__(self, table, label: str = "memory"):
+        super().__init__([])
+        self.table = table
+        self.label = label
+        self._schema = Schema.from_arrow(table.schema)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return f"[{self.label}, {self.table.num_rows} rows]"
+
+
+class CpuProjectExec(PhysicalPlan):
+    def __init__(self, exprs: Sequence[Expression], child: PhysicalPlan):
+        super().__init__([child])
+        self.exprs = list(exprs)
+        self._bound = [bind_references(e, child.output) for e in self.exprs]
+        names = tuple(output_name(e, f"col{i}")
+                      for i, e in enumerate(self.exprs))
+        self._schema = Schema(names, tuple(e.data_type for e in self._bound))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return f"[{', '.join(map(repr, self.exprs))}]"
+
+
+class CpuFilterExec(PhysicalPlan):
+    def __init__(self, condition: Expression, child: PhysicalPlan):
+        super().__init__([child])
+        self.condition = condition
+        self._bound = bind_references(condition, child.output)
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def _arg_string(self):
+        return f"[{self.condition!r}]"
+
+
+@dataclasses.dataclass
+class AggExpr:
+    func: AggregateFunction
+    name: str
+
+
+class CpuHashAggregateExec(PhysicalPlan):
+    def __init__(self, group_exprs: Sequence[Expression],
+                 aggs: Sequence[AggExpr], child: PhysicalPlan):
+        super().__init__([child])
+        self.group_exprs = list(group_exprs)
+        self.aggs = list(aggs)
+        self._bound_groups = [bind_references(e, child.output)
+                              for e in self.group_exprs]
+        self._bound_aggs = []
+        for a in self.aggs:
+            f = a.func
+            if f.child is not None:
+                f = f.with_children([bind_references(f.child, child.output)])
+            self._bound_aggs.append(AggExpr(f, a.name))
+        names = tuple([output_name(e, f"k{i}")
+                       for i, e in enumerate(self.group_exprs)] +
+                      [a.name for a in self.aggs])
+        tps = tuple([e.data_type for e in self._bound_groups] +
+                    [a.func.data_type for a in self._bound_aggs])
+        self._schema = Schema(names, tps)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return (f"[keys={[repr(e) for e in self.group_exprs]}, "
+                f"aggs={[a.name for a in self.aggs]}]")
+
+
+class CpuHashJoinExec(PhysicalPlan):
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 join_type: str = "inner", condition: Expression = None):
+        super().__init__([left, right])
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = "inner" if join_type == "cross" else join_type
+        self.condition = condition
+        self._bl = [bind_references(e, left.output) for e in self.left_keys]
+        self._br = [bind_references(e, right.output) for e in self.right_keys]
+        self._schema = join_output_schema(left.output, right.output,
+                                          self.join_type)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        cond = "" if self.condition is None else f", cond={self.condition!r}"
+        return f"[{self.join_type}, keys={[repr(e) for e in self.left_keys]}" \
+               f"{cond}]"

@@ -1,0 +1,169 @@
+"""Plan rewrite: plan nodes -> device execs (`spark_rapids_tpu/plan/overrides.py`
+rules `_c_scan` ... `_c_join`, with the broadcast choice by estimated
+build size).
+
+This slice has no CPU engine to fall back to, so the JAX engine's per-node
+"will not work" tags become errors: every type, expression, aggregate, join
+type or mode outside the slice raises NotImplementedError here, before any
+data moves, and nothing silently computes something else.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from .. import types as T
+from ..columnar.column import check_supported
+from ..config import TpuConf
+from ..expr import arithmetic as A
+from ..expr import predicates as P
+from ..expr.aggregates import Sum
+from ..expr.base import Alias, AttributeReference, BoundReference, \
+    Expression, Literal
+from ..expr.hashing import INT_FAMILY, LONG_FAMILY
+from . import nodes as N
+
+__all__ = ["Overrides"]
+
+_SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
+                    A.Add, A.Subtract, A.Multiply, P.EqualTo, P.LessThan,
+                    P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
+                    P.And, P.Or, P.Not)
+_ARITH_TYPES = (T.IntegerType, T.LongType, T.DoubleType)
+# join types whose build (right) side may be broadcast
+_BROADCASTABLE = ("inner", "left", "semi", "anti")
+
+
+def _unsupported(what: str):
+    raise NotImplementedError(f"{what} is not supported by "
+                              "spark_rapids_tpu_torch yet")
+
+
+def _check_expr(e: Expression) -> None:
+    for node in e.collect(lambda _: True):
+        if not isinstance(node, _SUPPORTED_EXPRS):
+            _unsupported(f"expression {type(node).__name__}")
+        check_supported(node.data_type, f"{type(node).__name__} result")
+        if isinstance(node, A.BinaryArithmetic) and not all(
+                isinstance(c.data_type, _ARITH_TYPES) for c in node.children):
+            _unsupported("arithmetic over " + ", ".join(
+                c.data_type.simple_string() for c in node.children))
+
+
+def _estimated_rows(plan: N.PhysicalPlan) -> float:
+    """Heuristic output cardinality (`plan/cbo.py` `_estimate_from`, exact
+    at in-memory scans, without the runtime-statistics feedback)."""
+    kids = [_estimated_rows(c) for c in plan.children]
+    if isinstance(plan, N.CpuScanExec):
+        return float(plan.table.num_rows)
+    if isinstance(plan, N.CpuFilterExec):
+        return kids[0] * 0.5
+    if isinstance(plan, N.CpuHashAggregateExec):
+        return max(kids[0] / 8.0, 1.0) if plan.group_exprs else 1.0
+    if isinstance(plan, N.CpuHashJoinExec):
+        return float(max(kids))
+    return kids[0]
+
+
+def _estimated_bytes(plan: N.PhysicalPlan) -> float:
+    """Cardinality x row width (data bytes + one validity byte a column)."""
+    width = sum(dt.np_dtype.itemsize + 1 for dt in plan.output.types)
+    return _estimated_rows(plan) * max(width, 1)
+
+
+class Overrides:
+    """Entry point (reference GpuOverrides.apply): check, convert, fuse."""
+
+    def __init__(self, conf: TpuConf, device: torch.device):
+        self.conf = conf
+        self.device = torch.device(device)
+        self.explain_log: List[str] = []
+
+    def apply(self, plan: N.PhysicalPlan):
+        if not self.conf.is_sql_enabled:
+            _unsupported("spark.rapids.sql.enabled=false (the CPU engine)")
+        if self.conf.is_ansi:
+            _unsupported("ANSI mode")
+        result = self._convert(plan)
+        from .fusion import apply_fusion
+        return apply_fusion(result, self.conf)
+
+    def explain_string(self) -> str:
+        return "\n".join(self.explain_log)
+
+    def _convert(self, plan: N.PhysicalPlan):
+        children = [self._convert(c) for c in plan.children]
+        conf = self.conf
+        if isinstance(plan, N.CpuScanExec):
+            for dt in plan.output.types:
+                check_supported(dt, "scan column")
+            from ..exec.basic import TpuScanExec
+            out = TpuScanExec(plan.table, self.device, conf)
+        elif isinstance(plan, N.CpuProjectExec):
+            for e in plan._bound:
+                _check_expr(e)
+            from ..exec.basic import TpuProjectExec
+            out = TpuProjectExec(plan.exprs, children[0], conf)
+        elif isinstance(plan, N.CpuFilterExec):
+            _check_expr(plan._bound)
+            if not isinstance(plan._bound.data_type, T.BooleanType):
+                _unsupported("a non-boolean filter condition")
+            from ..exec.basic import TpuFilterExec
+            out = TpuFilterExec(plan.condition, children[0], conf)
+        elif isinstance(plan, N.CpuHashAggregateExec):
+            out = self._convert_agg(plan, children)
+        elif isinstance(plan, N.CpuHashJoinExec):
+            out = self._convert_join(plan, children)
+        else:
+            _unsupported(f"plan node {plan.name}")
+        if self.conf.explain == "ALL":
+            self.explain_log.append(f"*{plan.name} will run on "
+                                    f"{self.device} as {out.name}")
+        return out
+
+    def _convert_agg(self, plan: N.CpuHashAggregateExec, children):
+        from ..exec.aggregate import SUPPORTED_AGGREGATES, TpuHashAggregateExec
+        for e in plan._bound_groups:
+            _check_expr(e)
+        for a in plan._bound_aggs:
+            if not isinstance(a.func, SUPPORTED_AGGREGATES):
+                _unsupported(f"aggregate {type(a.func).__name__}")
+            if a.func.child is not None:
+                _check_expr(a.func.child)
+                if isinstance(a.func, Sum) and not isinstance(
+                        a.func.child.data_type, _ARITH_TYPES):
+                    _unsupported("sum over "
+                                 f"{a.func.child.data_type.simple_string()}")
+            check_supported(a.func.data_type,
+                            f"{type(a.func).__name__} result")
+        return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],
+                                    self.conf)
+
+    def _convert_join(self, plan: N.CpuHashJoinExec, children):
+        from ..exec.broadcast import TpuBroadcastExchangeExec
+        from ..exec.joins import (SUPPORTED_JOIN_TYPES,
+                                  TpuBroadcastHashJoinExec,
+                                  TpuShuffledHashJoinExec)
+        if plan.join_type not in SUPPORTED_JOIN_TYPES:
+            _unsupported(f"join type {plan.join_type}")
+        if plan.condition is not None:
+            _unsupported("a join condition")
+        if not plan.left_keys:
+            _unsupported("a keyless (nested loop) join")
+        for e in plan.left_keys + plan.right_keys:
+            if not isinstance(e, AttributeReference):
+                _unsupported("a join key that is not a column reference")
+        for e in plan._bl + plan._br:
+            if not isinstance(e.data_type, INT_FAMILY + LONG_FAMILY):
+                _unsupported(f"join key type {e.data_type.simple_string()}")
+        threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
+        if (threshold >= 0 and plan.join_type in _BROADCASTABLE
+                and _estimated_bytes(plan.children[1]) <= threshold):
+            return TpuBroadcastHashJoinExec(
+                children[0], TpuBroadcastExchangeExec(children[1], self.conf),
+                plan.left_keys, plan.right_keys, plan.join_type, self.conf)
+        return TpuShuffledHashJoinExec(children[0], children[1],
+                                       plan.left_keys, plan.right_keys,
+                                       plan.join_type, self.conf)
