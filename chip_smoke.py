@@ -5,20 +5,24 @@
 
 Builds the hand-written CUDA kernels from the checkout (one nvcc per source,
 all at once), holds each kernel against its plain PyTorch twin on the card,
-runs the engine's main query through a session at 16,777,216 fact rows and
-the benchmark step at bench.py's shapes, and checks both against numpy
-oracles. Each phase prints one JSON line; then a `kernels` line, the
-card's `nvidia-smi` name and power limit, and last
-`{"ok": true, "device": {...}}`. Any failure exits non-zero without that
-last line. Without CUDA (or without the package beside this file) it exits
-2 and prints no result. It imports nothing of JAX.
+runs the engine's main query through a session at 16,777,216 fact rows, the
+benchmark step at bench.py's shapes, and the main query again under the
+distributed plan (partial aggregate -> key exchange over a 4-position mesh
+-> per-shard final aggregate), and checks each against numpy oracles. Each
+phase prints one JSON line; then a `kernels` line, the card's `nvidia-smi`
+name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
+exits non-zero without that last line. Without CUDA (or without the package
+beside this file) it exits 2 and prints no result. It imports nothing of
+JAX.
 
 Kernel times are device times from CUDA events (see time_ms), the median
-of 10 rounds after warm-up. The query's warm collect() is timed
+of 10 rounds after warm-up. Each query's warm collect() is timed
 WALL_ROUNDS times with pallas.mode auto and off in turns, and the bench
 step WALL_ROUNDS times with CUDA events; each is reported as its median,
 min and max. Bounds are bytes moved (each input read once, each output
-written once) over the H100's published memory rate.
+written once) over the H100's published memory rate. Launch counts are
+read per path: every count is set to 0 just before a run of the path and
+read just after.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ N_GROUPS = 1_024
 KEY_SPACE = 131_072
 K_STEPS = 8
 WALL_ROUNDS = 11
+MESH_POSITIONS = 4
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -110,23 +115,46 @@ def main_query(sess, fact, dim):
                            cnt=Count(col("v")))
 
 
-def query_oracle(fact, dim):
-    """numpy: filter v > 0.6, inner join on k, sum(c + w) and count(v) by g."""
-    k = fact.column("k").to_numpy()
-    g = fact.column("g").to_numpy()
-    v = fact.column("v").to_numpy()
-    c = fact.column("c").to_numpy()
+def _joined(k, v, dim):
+    """The query's filter and join on fact columns k and v: the mask of
+    rows that pass both, and each row's dim w (dim keys are unique)."""
     dk = dim.column("k").to_numpy()
     dw = dim.column("w").to_numpy()
     order = np.argsort(dk)
     dk, dw = dk[order], dw[order]
     ix = np.clip(np.searchsorted(dk, k), 0, len(dk) - 1)
-    hit = (dk[ix] == k) & (v > 0.6)
+    return (dk[ix] == k) & (v > 0.6), dw[ix]
+
+
+def query_oracle(fact, dim):
+    """numpy: filter v > 0.6, inner join on k, sum(c + w) and count(v) by g."""
+    g = fact.column("g").to_numpy()
+    c = fact.column("c").to_numpy()
+    hit, w = _joined(fact.column("k").to_numpy(), fact.column("v").to_numpy(),
+                     dim)
     cnt = np.bincount(g[hit], minlength=N_GROUPS)
     total = np.zeros(N_GROUPS, np.int64)
-    np.add.at(total, g[hit], c[hit] + dw[ix[hit]])
+    np.add.at(total, g[hit], c[hit] + w[hit])
     groups = np.nonzero(cnt)[0]
     return groups, total[groups], cnt[groups]
+
+
+def segsum_path_inputs(fact, dim, cap: int):
+    """The first fused batch's int64 segmented sum as the distributed
+    query's partial aggregate runs it (Sum's sum): the batch's joined rows
+    sorted by g, dense group ids, values c + w, and padding rows at id
+    cap-1 with value 0."""
+    g = fact.column("g").to_numpy()[:cap]
+    c = fact.column("c").to_numpy()[:cap]
+    hit, w = _joined(fact.column("k").to_numpy()[:cap],
+                     fact.column("v").to_numpy()[:cap], dim)
+    by_g = np.argsort(g[hit], kind="stable")
+    gid = np.unique(g[hit][by_g], return_inverse=True)[1]
+    ids = np.full(cap, cap - 1, np.int32)
+    vals = np.zeros(cap, np.int64)
+    ids[:len(gid)] = gid
+    vals[:len(gid)] = (c[hit] + w[hit])[by_g]
+    return vals, ids
 
 
 def main() -> int:
@@ -143,6 +171,7 @@ def main() -> int:
 
         from spark_rapids_tpu_torch import benchstep
         from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+        from spark_rapids_tpu_torch.exec import exchange
         from spark_rapids_tpu_torch.exec.base import batch_vecs
         from spark_rapids_tpu_torch.exec.basic import TpuFilterExec, \
             TpuScanExec
@@ -151,6 +180,8 @@ def main() -> int:
         from spark_rapids_tpu_torch.ops import cuda_build
         from spark_rapids_tpu_torch.ops.pallas_probe import (
             candidate_counts, murmur3_rows, murmur3_rows_plain)
+        from spark_rapids_tpu_torch.ops.pallas_groupby import (
+            segment_sum_i64, segment_sum_i64_plain)
         from spark_rapids_tpu_torch.ops.pallas_segsum import (
             MAX_SEGMENTS, segment_sum_f64, segment_sum_f64_plain)
         from spark_rapids_tpu_torch.plugin import TpuSession
@@ -374,22 +405,149 @@ def main() -> int:
           "rtol": 1e-9, "repeat_bit_identical": True,
           "launches_per_call": bench_launches})
 
-    # ---- 6. every kernel the run launched; launches are per run of its
-    # path (one collect, one many_steps call)
+    # ---- 6. kernel C (segment_sum_i64) against its plain twin, bit for bit
+    cap = 1 << 20
+    vals_np, ids_np = segsum_path_inputs(fact, dim, cap)
+    c_vals = torch.from_numpy(vals_np).to(dev)
+    c_ids = torch.from_numpy(ids_np).to(dev)
+    c_cases = {
+        "path": (c_vals, c_ids, cap),
+        "unsorted_g1024": (
+            torch.from_numpy(gen.integers(-2 ** 62, 2 ** 62, cap)).to(dev),
+            torch.from_numpy(gen.integers(0, N_GROUPS, cap).astype(np.int32)
+                             ).to(dev), N_GROUPS),
+    }
+    for name, (v, i, gg) in c_cases.items():
+        got = segment_sum_i64(v, i, gg)
+        again = segment_sum_i64(v, i, gg)
+        plain = segment_sum_i64_plain(v, i, gg)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"segment_sum_i64 differs from its plain "
+                                 f"twin ({name})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"segment_sum_i64 is not bit-identical on "
+                                 f"repeat ({name})")
+
+    def seg64(v, i, gg):
+        v = torch.tensor(v, dtype=torch.int64, device=dev)
+        i = torch.as_tensor(i, device=dev)
+        got = segment_sum_i64(v, i, gg)
+        if not torch.equal(got, segment_sum_i64_plain(v, i, gg)):
+            raise AssertionError("segment_sum_i64 differs from its plain twin "
+                                 f"on an edge case: {got.tolist()}")
+        return got.tolist()
+
+    rand = gen.integers(-2 ** 40, 2 ** 40, 200_000)
+    rand_ids = gen.integers(-3, 4_100, 200_000)
+    ok = (rand_ids >= 0) & (rand_ids < 4_097)
+    want_4097 = np.zeros(4_097, np.int64)
+    np.add.at(want_4097, rand_ids[ok], rand[ok])
+    c_edge = {
+        "wrap_past_2_63": seg64([2 ** 62, 2 ** 62, 2 ** 62, 5], [0, 0, 0, 1],
+                                2) == [-(2 ** 62), 5],
+        "ids_out_of_range": seg64([1, 2, 99, 77], [0, 1, -1, 5], 4)
+        == [1, 2, 0, 0],
+        "int64_id_2_32_plus_2": seg64(
+            [5, 1], torch.tensor([2 ** 32 + 2, 0], dtype=torch.int64), 4)
+        == [1, 0, 0, 0],
+        "n_0": seg64([], torch.zeros(0, dtype=torch.int32), 3) == [0, 0, 0],
+        "g_1": seg64([3, -7, 11], [0, 0, 0], 1) == [7],
+        "g_4097": seg64(rand.tolist(), rand_ids, 4_097) == want_4097.tolist(),
+    }
+    if not all(c_edge.values()):
+        raise AssertionError(f"segment_sum_i64 edge cases failed: {c_edge}")
+    c_ids64 = c_ids.to(torch.int64)
+    c_ms = time_ms(torch, lambda: segment_sum_i64(c_vals, c_ids, cap))
+    c_plain = time_ms(torch, lambda: segment_sum_i64_plain(c_vals, c_ids, cap))
+    c_lib = time_ms(torch, lambda: torch.zeros(
+        cap, dtype=torch.int64, device=dev).index_add_(0, c_ids64, c_vals))
+    c_bound = (cap * (8 + 4) + cap * 8) / rate * 1e3
+    emit({"phase": "kernel_segment_sum_i64", "rows": cap, "groups": cap,
+          "live_rows": int((ids_np < cap - 1).sum()),
+          "live_groups": int(ids_np[ids_np < cap - 1].max()) + 1,
+          "bit_identical_vs_plain": True, "repeat_bit_identical": True,
+          "edge_cases": c_edge, "ms": c_ms, "plain_ms": c_plain,
+          "library_ms": c_lib, "bound_ms": c_bound})
+
+    # ---- 7. the engine query under the distributed plan: fused [filter,
+    # broadcast probe, partial aggregate] -> key exchange over the mesh ->
+    # per-shard final aggregate, with pallas.mode auto and off in turns
+    mesh_conf = {"spark.rapids.shuffle.mode": "ICI",
+                 "spark.rapids.tpu.mesh.shape": f"shuffle={MESH_POSITIONS}",
+                 "spark.rapids.tpu.fusion.enabled": True}
+    ddfs = {}
+    for mode in ("auto", "off"):
+        sess = TpuSession(dict(mesh_conf, **{
+            "spark.rapids.tpu.fusion.pallas.mode": mode}))
+        ddfs[mode] = main_query(sess, fact, dim)
+        plan = ddfs[mode].explain()
+        fused = [ln for ln in plan.splitlines() if "TpuFusedStageExec" in ln]
+        if not (fused and "PartialAgg[" in fused[0]
+                and "TpuShuffleExchangeExec" in plan
+                and plan.startswith("TpuHashAggregateExec[final")):
+            raise AssertionError(f"not the distributed plan:\n{plan}")
+        check_query(ddfs[mode].collect(), mode)  # warm-up
+    dwalls = {"auto": [], "off": []}
+    dcounts = {"auto": set(), "off": set()}
+    for i in range(WALL_ROUNDS):
+        for mode in ("auto", "off") if i % 2 == 0 else ("off", "auto"):
+            torch.cuda.synchronize()
+            murmur3_rows.launches = segment_sum_f64.launches = 0
+            segment_sum_i64.launches = 0
+            before = exchange.MESH_EXCHANGES
+            t0 = time.perf_counter()
+            out = ddfs[mode].collect()
+            torch.cuda.synchronize()
+            dwalls[mode].append(time.perf_counter() - t0)
+            if exchange.MESH_EXCHANGES <= before:
+                raise AssertionError("a distributed collect ran no mesh "
+                                     "exchange")
+            dcounts[mode].add((segment_sum_i64.launches,
+                               murmur3_rows.launches,
+                               segment_sum_f64.launches))
+            check_query(out, mode)
+    if len(dcounts["auto"]) != 1 or 0 in min(dcounts["auto"])[:2]:
+        raise AssertionError(f"the distributed query launched (C, A, B) "
+                             f"{sorted(dcounts['auto'])} times per collect")
+    if dcounts["off"] != {(0, 0, 0)}:
+        raise AssertionError(f"pallas.mode=off launched kernels "
+                             f"{sorted(dcounts['off'])}")
+    (c_launches, a_dist_launches, _), = dcounts["auto"]
+    emit({"phase": "distributed_query", "fact_rows": QUERY_FACT_ROWS,
+          "dim_rows": N_DIM, "groups": int(len(want[0])),
+          "mesh_positions": MESH_POSITIONS,
+          "cuda_devices": torch.cuda.device_count(), "exact": True,
+          "warm_collect_s": spread(dwalls["auto"]),
+          "warm_collect_s_plain": spread(dwalls["off"]),
+          "pairs_auto_faster": sum(a < o for a, o in zip(dwalls["auto"],
+                                                         dwalls["off"])),
+          "launches_per_collect": {"segment_sum_i64": c_launches,
+                                   "murmur3_rows": a_dist_launches}})
+
+    # ---- 8. every kernel the run launched; launches are per run of the
+    # path named beside them (one collect, one many_steps call)
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "launches": launches["murmur3_rows"], "max_abs_err": a_err,
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "path": "engine_query", "launches": launches["murmur3_rows"],
+         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": a_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "segment_sum_f64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_f64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_segsum.py:162",
+         "path": "bench_step",
          "launches": bench_launches["segment_sum_f64"],
          "cuda_kernels_per_launch": 2,
          "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
          "bound_ms": b_bound, "bound_by": "bytes", "library_ms": b_lib},
+        {"name": "segment_sum_i64", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
+         "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
+         "path": "distributed_query", "launches": c_launches,
+         "max_abs_err": 0, "ms": c_ms, "plain_ms": c_plain,
+         "bound_ms": c_bound, "bound_by": "bytes", "library_ms": c_lib},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where the engine query's time goes on one NVIDIA GPU.
 
-    python3 scripts/torch_query_profile.py [--out DIR]
+    python3 scripts/torch_query_profile.py [--distributed] [--pallas MODE]
+                                           [--out DIR]
 
 DIR defaults to profile_out/ (git-ignored).
 
 Runs chip_smoke.py's engine query (filter -> broadcast join -> grouped
 aggregate, fusion on) through spark_rapids_tpu_torch at chip_smoke.py's
 size (16,777,216 fact rows), warms it up, then
-traces one warm collect() with torch.profiler. Prints one JSON line: wall
-time, device busy time (the union of kernel intervals on the card), the
-device's idle share, and the largest kernels by device time; the full
-key_averages table goes to DIR/query_profile.txt. Needs CUDA.
+traces one warm collect() with torch.profiler. With --distributed the query
+runs under chip_smoke.py's distributed plan (ICI shuffle over a 4-position
+mesh: fused partial aggregate -> key exchange -> per-shard final). --pallas
+sets spark.rapids.tpu.fusion.pallas.mode (auto or off). Prints one JSON
+line: wall time, device busy time (the union of kernel intervals on the
+card), the device's idle share, and the largest kernels by device time; the
+full key_averages table goes to DIR/query_profile[_distributed]_MODE.txt.
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def _busy_us(events) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--pallas", choices=("auto", "off"), default="auto")
     args = ap.parse_args()
 
     import torch
@@ -59,8 +66,13 @@ def main() -> int:
 
     fact, dim = cs.query_tables(pa, cs.QUERY_FACT_ROWS, cs.N_DIM,
                                 cs.KEY_SPACE, cs.N_GROUPS)
-    df = cs.main_query(TpuSession({"spark.rapids.tpu.fusion.enabled": True}),
-                       fact, dim)
+    conf = {"spark.rapids.tpu.fusion.enabled": True,
+            "spark.rapids.tpu.fusion.pallas.mode": args.pallas}
+    if args.distributed:
+        conf.update({"spark.rapids.shuffle.mode": "ICI",
+                     "spark.rapids.tpu.mesh.shape":
+                         f"shuffle={cs.MESH_POSITIONS}"})
+    df = cs.main_query(TpuSession(conf), fact, dim)
     df.collect()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -79,13 +91,16 @@ def main() -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "query_profile.txt").write_text(prof.key_averages().table(
+    name = "query_profile" + ("_distributed" if args.distributed else "")
+    (out / f"{name}_{args.pallas}.txt").write_text(prof.key_averages().table(
         sort_by="cuda_time_total", row_limit=60))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "fact_rows": cs.QUERY_FACT_ROWS, "wall_s": wall_s,
+        "card": smi, "fact_rows": cs.QUERY_FACT_ROWS,
+        "plan": "distributed" if args.distributed else "single",
+        "pallas_mode": args.pallas, "wall_s": wall_s,
         "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall_s,
         "device_events": len(dev_events),
         "top_kernels_ms": [[name[:80], ms] for name, ms in top]}))

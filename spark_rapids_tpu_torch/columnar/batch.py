@@ -85,6 +85,20 @@ class ColumnarBatch:
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.num_rows
 
+    def repadded(self, new_cap: int) -> "ColumnarBatch":
+        """The same rows at capacity `new_cap`: zero padding appended, or
+        the padding tail cut (the caller keeps new_cap >= the row count)."""
+        def fit(t):
+            cap = t.shape[0]
+            if new_cap <= cap:
+                return t[:new_cap]
+            return torch.cat([t, torch.zeros(new_cap - cap, dtype=t.dtype,
+                                             device=t.device)])
+
+        return ColumnarBatch(self.schema, tuple(
+            Column(c.dtype, fit(c.data), fit(c.validity))
+            for c in self.columns), self.num_rows)
+
 
 def batch_from_arrow(table, device: torch.device,
                      capacity: Optional[int] = None) -> ColumnarBatch:

@@ -90,6 +90,28 @@ register("spark.rapids.tpu.fusion.pallas.mode", "string", "auto",
          "wrapper on every device (on the CPU the wrapper takes its plain "
          "twin). All routes are bit-identical.",
          check_values=("auto", "off", "force"))
+register("spark.rapids.shuffle.mode", "string", "MULTITHREADED",
+         "MULTITHREADED: host-serialized threaded shuffle (reference "
+         "default); ICI: the exchange between mesh positions that the "
+         "distributed plan (exec/requirements.py) rides; CACHE_ONLY: "
+         "device-resident local-only cache. This engine runs ICI only; "
+         "an exchange under the other modes raises at plan time.",
+         check_values=("MULTITHREADED", "ICI", "CACHE_ONLY"))
+register("spark.rapids.shuffle.ici.slotRows", "int", 0,
+         "Per-destination slot rows of the mesh exchange (0 = auto: the "
+         "per-position capacity, which can never overflow). Smaller values "
+         "bound skew memory; overflow is detected on the device and the "
+         "exchange reruns with doubled slots.")
+register("spark.rapids.tpu.mesh.shape", "string", "",
+         "Logical mesh as 'name=N' (empty or 1 = single position, no "
+         "mesh). Position i lives on cuda:(i % device_count) on a CUDA "
+         "session, on the CPU on a CPU session.")
+register("spark.rapids.tpu.mesh.enabled", "bool", False,
+         "Sharded execution (the JAX package's mesh/plan.py): not in "
+         "spark_rapids_tpu_torch yet, so true raises at plan time.")
+register("spark.rapids.tpu.mesh.resizeExchanges", "bool", True,
+         "With sharded execution, resize plan-level hash exchanges to the "
+         "mesh size. Read only with spark.rapids.tpu.mesh.enabled.")
 
 
 class TpuConf:

@@ -1,11 +1,19 @@
-"""Hash aggregate exec, complete mode (`spark_rapids_tpu/exec/aggregate.py`).
+"""Hash aggregate exec (`spark_rapids_tpu/exec/aggregate.py`).
 
 Grouping is sort-by-keys + boundary detection + segmented reductions. One
 input batch aggregates in one pass; several are aggregated per batch into
 partial buffers, merged pairwise, and finalised, which is the JAX engine's
 merge-pass structure (without its spill and OOM-retry machinery). Sum,
-Count, Min and Max carry one partial buffer each. The partial and final
-plan modes of a distributed aggregate wait for the multi-GPU slice.
+Count, Min and Max carry one partial buffer each.
+
+Modes, as in the JAX engine: complete (raw rows -> final values), partial
+(raw rows -> partial buffers, one output per input batch, no merge across
+batches) and final (partial buffers -> final values). The distribution pass
+(exec/requirements.py) splits a grouped aggregate into partial ->
+key-exchange -> final; that final side has `partitioned_input`, so groups
+are disjoint across its input batches and it finalises each shard alone.
+A final side over input that is not key-partitioned has no caller yet and
+raises.
 """
 
 from __future__ import annotations
@@ -40,11 +48,24 @@ def _sorted_by_keys(key_vecs: List[Vec], all_vecs: List[Vec], row_mask):
 
 class TpuHashAggregateExec(UnaryTpuExec):
     def __init__(self, group_exprs: Sequence[Expression],
-                 aggs: Sequence[AggExpr], child: TpuExec, conf=None):
+                 aggs: Sequence[AggExpr], child: TpuExec, conf=None,
+                 mode: str = "complete", agg_bind_schema: Schema = None,
+                 partitioned_input: bool = False):
         super().__init__([child], conf)
+        if mode not in ("complete", "partial", "final"):
+            raise ValueError(f"unknown aggregate mode {mode}")
+        if mode == "final" and not (partitioned_input and group_exprs):
+            raise NotImplementedError(
+                "a final aggregate over input that is not key-partitioned "
+                "is not supported by spark_rapids_tpu_torch yet")
+        self.mode = mode
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
-        self._bound_groups = [bind_references(e, child.output)
+        # a final side reads partial buffers positionally; its expressions
+        # bind against the schema below the partial side
+        bind_schema = agg_bind_schema or child.output
+        self.partitioned_input = partitioned_input
+        self._bound_groups = [bind_references(e, bind_schema)
                               for e in self.group_exprs]
         self._bound_aggs = []
         for a in self.aggs:
@@ -54,21 +75,24 @@ class TpuHashAggregateExec(UnaryTpuExec):
                     "spark_rapids_tpu_torch yet (sum, count, min, max)")
             f = a.func
             if f.child is not None:
-                f = f.with_children([bind_references(f.child, child.output)])
+                f = f.with_children([bind_references(f.child, bind_schema)])
             self._bound_aggs.append(AggExpr(f, a.name))
         knames = [output_name(e, f"k{i}")
                   for i, e in enumerate(self.group_exprs)]
         ktypes = [e.data_type for e in self._bound_groups]
-        self._schema = Schema(
+        self._final_schema = Schema(
             tuple(knames + [a.name for a in self._bound_aggs]),
             tuple(ktypes + [a.func.data_type for a in self._bound_aggs]))
-        # the partial-buffer layout carried between merge passes
+        # the partial-buffer layout carried between merge passes and over
+        # the exchange
         pnames, ptps = list(knames), list(ktypes)
         for a in self._bound_aggs:
             for j, pt in enumerate(a.func.partial_types()):
                 pnames.append(f"{a.name}__p{j}")
                 ptps.append(pt)
         self._partial_schema = Schema(tuple(pnames), tuple(ptps))
+        self._schema = self._partial_schema if mode == "partial" else \
+            self._final_schema
 
     @property
     def output(self) -> Schema:
@@ -113,7 +137,8 @@ class TpuHashAggregateExec(UnaryTpuExec):
         for a, v in zip(self._bound_aggs, sbufs):
             out_vecs.append(self._agg_one(a.func, v, gid, cap, sorted_mask,
                                           input_partial))
-        schema = self._partial_schema if output_partial else self._schema
+        schema = self._partial_schema if output_partial else \
+            self._final_schema
         return vecs_to_batch(schema, out_vecs, ng)
 
     @staticmethod
@@ -143,10 +168,27 @@ class TpuHashAggregateExec(UnaryTpuExec):
     def do_execute(self) -> Iterator[ColumnarBatch]:
         batches = list(self.child.execute())
         if not batches:
-            if self.group_exprs:
+            if self.group_exprs or self.mode == "partial":
+                # a partial side may emit nothing: the final side makes the
+                # global aggregate's one row
                 return
             # a global aggregate over no input still emits its one row
             batches = [empty_batch(self.child.output, self.device)]
+        if self.mode == "partial":
+            # map-side aggregation: one partial batch per input batch, no
+            # merge across batches (that is the final side's work)
+            for b in batches:
+                if len(batches) > 1 and b.row_count() == 0:
+                    continue
+                yield self.aggregate(b, output_partial=True)
+            return
+        if self.mode == "final":
+            # key-partitioned input: each shard finalises on its own
+            for b in batches:
+                if b.row_count() == 0:
+                    continue
+                yield self.aggregate(b, input_partial=True)
+            return
         if len(batches) == 1:
             yield self.aggregate(batches[0])
             return
@@ -158,5 +200,5 @@ class TpuHashAggregateExec(UnaryTpuExec):
         yield self.aggregate(pending[0], input_partial=True)
 
     def _arg_string(self):
-        return (f"[complete, keys={[repr(e) for e in self.group_exprs]}, "
+        return (f"[{self.mode}, keys={[repr(e) for e in self.group_exprs]}, "
                 f"aggs={[a.name for a in self.aggs]}]")

@@ -1,7 +1,8 @@
 """Whole-stage fused execution (`spark_rapids_tpu/exec/fused.py`).
 
 `plan/fusion.py` replaces a maximal chain of filter / project / broadcast
-join probe operators with one `TpuFusedStageExec`. The JAX engine traces
+join probe / stage-terminal partial aggregate operators with one
+`TpuFusedStageExec`. The JAX engine traces
 the members into one XLA program per batch; this engine runs eagerly, so
 the members' own per-batch functions run back to back on each batch and
 their intermediates never leave the device. Results are identical to the
@@ -11,13 +12,18 @@ What fusion keeps from the JAX engine:
 
   * Join expand needs an output capacity. The stage computes each join's
     exact slot total on the device and reads all totals in ONE host sync
-    per batch after the chain ran; a total above its capacity re-runs the
-    batch at a grown, grow-only capacity.
+    per batch after the members up to the last join ran; a total above its
+    capacity re-runs them at a grown, grow-only capacity. The members after
+    the last join run once, after that sync.
   * The join sizing hash runs through the hand-written murmur3 kernel
     (ops/pallas_probe.py) when `spark.rapids.tpu.fusion.pallas.mode` is
     auto on a CUDA session, or force. The expand step still recomputes the
     plain hash, as the JAX engine does, so the kernel feeds only the sizing
     total and must match `_probe_counts` bit for bit.
+  * Under the same switch the partial aggregate member's int64 segmented
+    sums run through the hand-written kernel of ops/pallas_groupby.py: the
+    `ops.rowops._FUSED_SEGMENT_SUM` seam is set while that member runs, and
+    only then. Integer sums are exact, so the result is the same bits.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, Schema
 from ..columnar.padding import row_bucket
+from .aggregate import TpuHashAggregateExec
 from .base import TpuExec, batch_vecs, vecs_to_batch
 from .basic import TpuProjectExec
 from .joins import TpuBroadcastHashJoinExec, _expand_join, _probe_counts
@@ -49,6 +56,14 @@ class TpuFusedStageExec(TpuExec):
         self._schema = members[-1].output
         self._join_members = [m for m in members
                               if isinstance(m, TpuBroadcastHashJoinExec)]
+        # members up to the last join rerun when a join outgrows its
+        # capacity; the rest (the partial aggregate included) run once per
+        # batch, after the sizing sync
+        last_join = max((i for i, m in enumerate(members)
+                         if isinstance(m, TpuBroadcastHashJoinExec)),
+                        default=-1)
+        self._sized, self._tail = (self._members[:last_join + 1],
+                                   self._members[last_join + 1:])
         # grow-only expand capacity per join member (None = size off the
         # first batch)
         self._join_caps: list = [None] * len(self._join_members)
@@ -80,9 +95,25 @@ class TpuFusedStageExec(TpuExec):
         slot = torch.clamp(counts, min=1) if m.join_type == "left" else counts
         return torch.where(probe.row_mask(), slot, 0).sum(dtype=torch.int64)
 
-    def _run_chain(self, batch: ColumnarBatch, builds, caps):
+    def _agg_member(self, m: TpuHashAggregateExec,
+                    batch: ColumnarBatch) -> ColumnarBatch:
+        """The terminal partial aggregate on one batch; with the kernels
+        engaged, the exact int64 segmented sum (ops/pallas_groupby) serves
+        this member's group-by for its run only."""
+        if not self._pallas:
+            return m.aggregate(batch, output_partial=True)
+        from ..ops import rowops
+        from ..ops.pallas_groupby import fused_segment_sum
+        prev = rowops._FUSED_SEGMENT_SUM
+        rowops._FUSED_SEGMENT_SUM = fused_segment_sum
+        try:
+            return m.aggregate(batch, output_partial=True)
+        finally:
+            rowops._FUSED_SEGMENT_SUM = prev
+
+    def _run_chain(self, members, batch: ColumnarBatch, builds=(), caps=()):
         out, totals, ji = batch, [], 0
-        for m in self._members:
+        for m in members:
             if isinstance(m, TpuBroadcastHashJoinExec):
                 totals.append(self._probe_total(m, out, builds[ji]))
                 out_vecs, n = _expand_join(out, builds[ji], m._lk_ix,
@@ -91,6 +122,8 @@ class TpuFusedStageExec(TpuExec):
                 ji += 1
             elif isinstance(m, TpuProjectExec):
                 out = m.project(out)
+            elif isinstance(m, TpuHashAggregateExec):  # stage-terminal
+                out = self._agg_member(m, out)
             else:  # TpuFilterExec
                 out = m.filter(out)
         return out, totals
@@ -115,7 +148,7 @@ class TpuFusedStageExec(TpuExec):
         for b in self.children[0].execute():
             while True:
                 caps = self._caps_for(b)
-                out, totals = self._run_chain(b, builds, caps)
+                out, totals = self._run_chain(self._sized, b, builds, caps)
                 if not totals:
                     break
                 grown = False
@@ -126,6 +159,7 @@ class TpuFusedStageExec(TpuExec):
                         grown = True
                 if not grown:
                     break
+            out, _ = self._run_chain(self._tail, out)
             if self._join_members and out.row_count() == 0:
                 continue  # unfused joins drop empty outputs too
             yield out

@@ -9,13 +9,16 @@ Equi-joins run as a hash-sorted probe:
   4. gather both sides, check true key equality (hash collisions, null
      keys), compact away false positives.
 Left-outer rows come from the unmatched masks; semi/anti reduce the
-matches instead of expanding. The build side is the right child.
+matches instead of expanding. The build side is the right child. Under the
+distribution pass (exec/requirements.py) both children are co-partitioned
+key-exchanges and the join zips them: batch p against batch p.
 Right/full outer joins, join conditions and the sub-partition path for
 oversized builds wait for a later slice.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, List, Sequence, Tuple
 
 import torch
@@ -142,6 +145,10 @@ class TpuShuffledHashJoinExec(TpuExec):
         self.join_type = join_type
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        # set by the distribution pass when both children are
+        # co-partitioned key-exchanges: join batch p with batch p instead
+        # of concatenating the build stream (per-shard join)
+        self.zip_partitions = False
         self._schema = join_output_schema(left.output, right.output,
                                           join_type)
         self._lk_ix = tuple(self._key_ordinal(e, left.output)
@@ -178,6 +185,9 @@ class TpuShuffledHashJoinExec(TpuExec):
         return empty_batch(self.children[1].output, self.device, 1)
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
+        if self.zip_partitions:
+            yield from self._zipped_execute()
+            return
         build = self.build_batch()
         if build is None:
             if self.join_type in ("inner", "semi"):
@@ -186,6 +196,33 @@ class TpuShuffledHashJoinExec(TpuExec):
         for probe in self.children[0].execute():
             if probe.row_count() == 0:
                 continue
+            out = self.join_pair(probe, build)
+            if out.row_count() > 0:
+                yield out
+
+    def _zipped_execute(self) -> Iterator[ColumnarBatch]:
+        """Co-partitioned per-shard join: matching keys land in the same
+        positional batch of the two exchanges, so batch p joins batch p,
+        one probe and one build batch at a time."""
+        _end = object()
+        threshold = self.conf.get("spark.rapids.sql.join.subPartition.rows")
+        for probe, build in itertools.zip_longest(
+                self.children[0].execute(), self.children[1].execute(),
+                fillvalue=_end):
+            if probe is _end or build is _end:
+                raise RuntimeError(
+                    "zip_partitions requires positionally-aligned exchange "
+                    "outputs (one stream ended early)")
+            n_probe, n_build = probe.row_count(), build.row_count()
+            if n_build == 0 and self.join_type in ("inner", "semi"):
+                continue
+            if n_probe == 0:
+                continue
+            if n_build > threshold:
+                raise NotImplementedError(
+                    f"a build shard of {n_build} rows exceeds "
+                    "spark.rapids.sql.join.subPartition.rows; the "
+                    "sub-partition join is not in spark_rapids_tpu_torch yet")
             out = self.join_pair(probe, build)
             if out.row_count() > 0:
                 yield out

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build", "load", "library_path"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("murmur3_rows", "segment_sum_f64")
+SOURCES = ("murmur3_rows", "segment_sum_f64", "segment_sum_i64")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

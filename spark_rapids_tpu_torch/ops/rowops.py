@@ -19,7 +19,8 @@ from .. import types as T
 from ..expr.base import Vec
 
 __all__ = ["gather_vecs", "compact_vecs", "sort_keys_for", "lexsort_indices",
-           "key_change_flags", "group_ids_from_sorted", "segment_reduce"]
+           "key_change_flags", "group_ids_from_sorted", "segment_sum",
+           "segment_reduce"]
 
 
 def gather_vecs(vecs: Sequence[Vec], idx: torch.Tensor) -> List[Vec]:
@@ -97,6 +98,22 @@ def _neutral(op: str, dtype: torch.dtype):
     return info.max if op == "min" else info.min
 
 
+# Whole-stage fusion hook (exec/fused.py): while a fused stage runs its
+# partial aggregate member with the kernels engaged, this holds
+# ops.pallas_groupby.fused_segment_sum (exact, and plain outside int64).
+# None (always, outside that member) means the plain paths below run.
+_FUSED_SEGMENT_SUM = None
+
+
+def segment_sum(contrib: torch.Tensor, gid: torch.Tensor,
+                cap: int) -> torch.Tensor:
+    """Plain segmented sum into `cap` groups. Ids are range-checked in their
+    own width and rows outside [0, cap) go to a spare slot that is cut off."""
+    idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
+    out = torch.zeros(cap + 1, dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, idx, contrib)[:cap]
+
+
 def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
                    valid: torch.Tensor = None) -> torch.Tensor:
     """Segmented reduction over rows with group ids; invalid rows are
@@ -104,16 +121,19 @@ def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
     length cap. Ids outside [0, cap) contribute nothing."""
     if valid is None:
         valid = torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
-    idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
     if op == "count":
-        out = torch.zeros(cap + 1, dtype=torch.int64, device=data.device)
-        return out.index_add_(0, idx, valid.to(torch.int64))[:cap]
+        ones = valid.to(torch.int64)
+        if _FUSED_SEGMENT_SUM is not None:
+            return _FUSED_SEGMENT_SUM(ones, gid, cap)
+        return segment_sum(ones, gid, cap)
     if op == "sum":
         contrib = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
                                                        device=data.device))
-        out = torch.zeros(cap + 1, dtype=data.dtype, device=data.device)
-        return out.index_add_(0, idx, contrib)[:cap]
+        if _FUSED_SEGMENT_SUM is not None and contrib.dim() == 1:
+            return _FUSED_SEGMENT_SUM(contrib, gid, cap)
+        return segment_sum(contrib, gid, cap)
     if op in ("min", "max"):
+        idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
         is_bool = data.dtype == torch.bool
         work = data.to(torch.int32) if is_bool else data
         neutral = int(op == "min") if is_bool else _neutral(op, work.dtype)

@@ -5,14 +5,17 @@ batch-shape-compatible operators:
 
   * `TpuProjectExec` / `TpuFilterExec`,
   * the probe side of a `TpuBroadcastHashJoinExec` whose build child is a
-    `TpuBroadcastExchangeExec` (inner/left/semi/anti, no condition),
+    `TpuBroadcastExchangeExec` (inner/left/semi/anti, no condition, not
+    zipped),
+  * a stage-TERMINAL partial `TpuHashAggregateExec`, which the distribution
+    pass (exec/requirements.py) creates under a mesh,
 
 and replaces each chain of at least `fusion.minOps` members with one
-`exec/fused.py TpuFusedStageExec`. Everything else breaks the chain, the
-aggregate above a join included: a complete aggregate merges across the
-whole batch stream. The JAX engine also fuses a stage-terminal PARTIAL
-aggregate, which only its mesh planner creates; that member comes with the
-multi-GPU slice.
+`exec/fused.py TpuFusedStageExec`. Everything else breaks the chain:
+complete and final aggregates merge across the whole batch stream, and
+exchanges move rows between positions. A chain directly under an exchange
+marked `mesh_resident_out` (the sharded plan, not in this engine) is never
+fused.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ def _schema_sig(schema) -> str:
 
 
 def _member_sig(m) -> str:
+    from ..exec.aggregate import TpuHashAggregateExec
     from ..exec.basic import TpuFilterExec, TpuProjectExec
     from ..exec.joins import TpuBroadcastHashJoinExec
     if isinstance(m, TpuProjectExec):
@@ -59,6 +63,10 @@ def _member_sig(m) -> str:
         return (f"BroadcastHashJoin[{m.join_type}, lk={m._lk_ix!r}, "
                 f"rk={m._rk_ix!r}, build={_schema_sig(m.children[1].output)}, "
                 f"out={_schema_sig(m.output)}]")
+    if isinstance(m, TpuHashAggregateExec):
+        aggs = [(repr(a.func), a.name) for a in m._bound_aggs]
+        return (f"PartialAgg[keys={m._bound_groups!r}, aggs={aggs!r}, "
+                f"out={_schema_sig(m.output)}]")
     raise TypeError(f"not a fusible member: {type(m).__name__}")
 
 
@@ -68,18 +76,19 @@ def apply_fusion(root, conf):
     return _walk(root, conf)
 
 
-def _walk(node, conf):
-    fused = _try_fuse(node, conf)
+def _walk(node, conf, parent=None):
+    fused = _try_fuse(node, conf, parent)
     if fused is not None:
         # recurse BELOW the stage only (source + build exchanges)
-        fused.children = [_walk(c, conf) for c in fused.children]
+        fused.children = [_walk(c, conf, fused) for c in fused.children]
         return fused
     if node.children:
-        node.children = [_walk(c, conf) for c in node.children]
+        node.children = [_walk(c, conf, node) for c in node.children]
     return node
 
 
-def _fusible(node) -> bool:
+def _fusible(node, head: bool) -> bool:
+    from ..exec.aggregate import TpuHashAggregateExec
     from ..exec.basic import TpuFilterExec, TpuProjectExec
     from ..exec.broadcast import TpuBroadcastExchangeExec
     from ..exec.joins import TpuBroadcastHashJoinExec
@@ -87,16 +96,22 @@ def _fusible(node) -> bool:
         return True
     if isinstance(node, TpuBroadcastHashJoinExec):
         return (node.join_type in FUSIBLE_JOIN_TYPES
+                and not node.zip_partitions
                 and isinstance(node.children[1], TpuBroadcastExchangeExec))
+    if isinstance(node, TpuHashAggregateExec):
+        return head and node.mode == "partial"
     return False
 
 
-def _try_fuse(node, conf):
+def _try_fuse(node, conf, parent):
     """Replace the maximal fusible chain headed at `node` (if >= minOps
     members) with a TpuFusedStageExec; None when nothing fuses."""
+    if getattr(parent, "mesh_resident_out", False):
+        # a shard-wise consumer needs the exact per-member batch alignment
+        return None
     chain = []
     cur = node
-    while _fusible(cur):
+    while _fusible(cur, head=cur is node):
         chain.append(cur)
         cur = cur.children[0]  # the probe/stream child for every member
     if len(chain) < max(2, int(conf.get(KEY_MIN_OPS))):

@@ -1,6 +1,7 @@
 """Logical-physical plan nodes the DataFrame frontend builds
 (`spark_rapids_tpu/plan/nodes.py`: scan, project, filter, hash aggregate,
-hash join).
+hash join, and the hash partition spec of the distributed plan's
+exchanges).
 
 In the JAX package these nodes also carry a numpy interpreter, the CPU
 oracle its tests compare against. This engine only rewrites them into
@@ -11,14 +12,15 @@ the tests run both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, List, Sequence
 
 from ..columnar.batch import Schema, join_output_schema
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Expression, bind_references, output_name
 
 __all__ = ["PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
-           "AggExpr", "CpuHashAggregateExec", "CpuHashJoinExec"]
+           "AggExpr", "CpuHashAggregateExec", "CpuHashJoinExec",
+           "HashPartitionSpec"]
 
 
 class PhysicalPlan:
@@ -150,3 +152,14 @@ class CpuHashJoinExec(PhysicalPlan):
         cond = "" if self.condition is None else f", cond={self.condition!r}"
         return f"[{self.join_type}, keys={[repr(e) for e in self.left_keys]}" \
                f"{cond}]"
+
+
+@dataclasses.dataclass
+class HashPartitionSpec:
+    """Plan-level hash partitioning; lowered to a device partitioner by
+    exec/exchange.make_partitioner."""
+    keys: List[Any]
+    num_partitions: int
+
+    def __repr__(self):
+        return f"hashpartitioning({self.keys}, {self.num_partitions})"

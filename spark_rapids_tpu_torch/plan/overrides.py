@@ -1,6 +1,8 @@
 """Plan rewrite: plan nodes -> device execs (`spark_rapids_tpu/plan/overrides.py`
 rules `_c_scan` ... `_c_join`, with the broadcast choice by estimated
-build size).
+build size). After conversion the distribution pass
+(exec/requirements.py) and then fusion (plan/fusion.py) rewrite the device
+plan, in the JAX package's order.
 
 This slice has no CPU engine to fall back to, so the JAX engine's per-node
 "will not work" tags become errors: every type, expression, aggregate, join
@@ -74,7 +76,8 @@ def _estimated_bytes(plan: N.PhysicalPlan) -> float:
 
 
 class Overrides:
-    """Entry point (reference GpuOverrides.apply): check, convert, fuse."""
+    """Entry point (reference GpuOverrides.apply): check, convert,
+    distribute over the mesh, fuse."""
 
     def __init__(self, conf: TpuConf, device: torch.device):
         self.conf = conf
@@ -86,7 +89,15 @@ class Overrides:
             _unsupported("spark.rapids.sql.enabled=false (the CPU engine)")
         if self.conf.is_ansi:
             _unsupported("ANSI mode")
+        if self.conf.get("spark.rapids.tpu.mesh.enabled"):
+            _unsupported("spark.rapids.tpu.mesh.enabled=true (the sharded "
+                         "plan)")
         result = self._convert(plan)
+        # the distribution pass first (partial -> key-exchange -> final,
+        # zipped joins), then fusion, which takes the partial aggregate as
+        # its stage-terminal member
+        from ..exec.requirements import ensure_distribution
+        result = ensure_distribution(result, self.conf)
         from .fusion import apply_fusion
         return apply_fusion(result, self.conf)
 

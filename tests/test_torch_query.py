@@ -305,6 +305,12 @@ class TestBoundaries:
             "m.startswith('jax.') or m == 'spark_rapids_tpu' or "
             "m.startswith('spark_rapids_tpu.')]\n"
             "assert not bad, bad\n"
+            "new = ['parallel.mesh', 'parallel.partitioning', "
+            "'parallel.collective', 'exec.exchange', 'exec.requirements', "
+            "'ops.pallas_groupby']\n"
+            "missing = [m for m in new if p.__name__ + '.' + m not in "
+            "sys.modules]\n"
+            "assert not missing, missing\n"
             "print('clean')\n")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
