@@ -417,25 +417,40 @@ def main() -> int:
             torch.from_numpy(gen.integers(0, N_GROUPS, cap).astype(np.int32)
                              ).to(dev), N_GROUPS),
     }
+    c_err = 0.0
+
+    def i64_err(got, plain):
+        # the wrapped int64 difference is 0 exactly where the two agree, and
+        # a non-zero int64 never rounds to 0.0 as a double
+        if got.numel() == 0:
+            return 0.0
+        return float((got - plain).to(torch.float64).abs().max())
+
     for name, (v, i, gg) in c_cases.items():
         got = segment_sum_i64(v, i, gg)
         again = segment_sum_i64(v, i, gg)
         plain = segment_sum_i64_plain(v, i, gg)
         torch.cuda.synchronize()
-        if not torch.equal(got, plain):
+        err = i64_err(got, plain)
+        if err != 0:
             raise AssertionError(f"segment_sum_i64 differs from its plain "
-                                 f"twin ({name})")
+                                 f"twin ({name}) by up to {err}")
+        c_err = max(c_err, err)
         if not torch.equal(got, again):
             raise AssertionError(f"segment_sum_i64 is not bit-identical on "
                                  f"repeat ({name})")
 
     def seg64(v, i, gg):
+        nonlocal c_err
         v = torch.tensor(v, dtype=torch.int64, device=dev)
         i = torch.as_tensor(i, device=dev)
         got = segment_sum_i64(v, i, gg)
-        if not torch.equal(got, segment_sum_i64_plain(v, i, gg)):
+        err = i64_err(got, segment_sum_i64_plain(v, i, gg))
+        if err != 0:
             raise AssertionError("segment_sum_i64 differs from its plain twin "
-                                 f"on an edge case: {got.tolist()}")
+                                 f"on an edge case by up to {err}: "
+                                 f"{got.tolist()}")
+        c_err = max(c_err, err)
         return got.tolist()
 
     rand = gen.integers(-2 ** 40, 2 ** 40, 200_000)
@@ -466,7 +481,7 @@ def main() -> int:
     emit({"phase": "kernel_segment_sum_i64", "rows": cap, "groups": cap,
           "live_rows": int((ids_np < cap - 1).sum()),
           "live_groups": int(ids_np[ids_np < cap - 1].max()) + 1,
-          "bit_identical_vs_plain": True, "repeat_bit_identical": True,
+          "max_abs_err_vs_plain": c_err, "repeat_bit_identical": True,
           "edge_cases": c_edge, "ms": c_ms, "plain_ms": c_plain,
           "library_ms": c_lib, "bound_ms": c_bound})
 
@@ -546,7 +561,7 @@ def main() -> int:
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
          "path": "distributed_query", "launches": c_launches,
-         "max_abs_err": 0, "ms": c_ms, "plain_ms": c_plain,
+         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain,
          "bound_ms": c_bound, "bound_by": "bytes", "library_ms": c_lib},
     ]})
     print(smi, flush=True)

@@ -105,13 +105,11 @@ register("spark.rapids.shuffle.ici.slotRows", "int", 0,
 register("spark.rapids.tpu.mesh.shape", "string", "",
          "Logical mesh as 'name=N' (empty or 1 = single position, no "
          "mesh). Position i lives on cuda:(i % device_count) on a CUDA "
-         "session, on the CPU on a CPU session.")
+         "session, on the CPU on a CPU session; a mesh over more than one "
+         "card raises at plan time.")
 register("spark.rapids.tpu.mesh.enabled", "bool", False,
          "Sharded execution (the JAX package's mesh/plan.py): not in "
          "spark_rapids_tpu_torch yet, so true raises at plan time.")
-register("spark.rapids.tpu.mesh.resizeExchanges", "bool", True,
-         "With sharded execution, resize plan-level hash exchanges to the "
-         "mesh size. Read only with spark.rapids.tpu.mesh.enabled.")
 
 
 class TpuConf:

@@ -50,11 +50,6 @@ class TpuShuffleExchangeExec(UnaryTpuExec):
     """Repartition the child's stream over the mesh: one output batch per
     position, on that position's device."""
 
-    # the sharded plan (mesh/plan.py) marks exchanges whose consumer reads
-    # per-position shards in place; that plan is not in this engine, so
-    # this stays False
-    mesh_resident_out = False
-
     def __init__(self, spec, child, conf=None):
         super().__init__([child], conf)
         self.spec = spec

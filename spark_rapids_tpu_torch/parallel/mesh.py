@@ -7,6 +7,10 @@ position i lives on `cuda:(i % torch.cuda.device_count())` in a CUDA
 session and on the CPU in a CPU session. On one card every position shares
 `cuda:0`; the exchange (`parallel/collective.py`) runs the same steps
 either way, and only its copy between positions becomes a no-op.
+
+Moving rows between two or more cards is not in this engine yet: the plan
+above the exchange concatenates batches of every position, so a mesh whose
+positions span more than one card raises at plan time.
 """
 
 from __future__ import annotations
@@ -15,10 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["SHUFFLE_AXIS", "Mesh", "make_mesh", "mesh_from_conf",
-           "invalidate_cache"]
-
-SHUFFLE_AXIS = "shuffle"
+__all__ = ["Mesh", "make_mesh", "mesh_from_conf"]
 
 Mesh = Tuple[torch.device, ...]
 
@@ -33,14 +34,6 @@ def make_mesh(n_positions: int, device: torch.device) -> Mesh:
     return tuple(device for _ in range(n_positions))
 
 
-_CONF_MESH: dict = {}
-
-
-def invalidate_cache() -> None:
-    """Drop the (shape, device) -> mesh memo."""
-    _CONF_MESH.clear()
-
-
 def mesh_from_conf(conf, device: torch.device) -> Optional[Mesh]:
     """The session's mesh from `spark.rapids.tpu.mesh.shape` ('shuffle=4'
     or just '4'; empty or 1 = no mesh), over `device`'s type."""
@@ -50,7 +43,10 @@ def mesh_from_conf(conf, device: torch.device) -> Optional[Mesh]:
     n = int(shape.split(",")[0].strip().split("=")[-1])
     if n <= 1:
         return None
-    key = (shape, torch.device(device).type)
-    if key not in _CONF_MESH:
-        _CONF_MESH[key] = make_mesh(n, device)
-    return _CONF_MESH[key]
+    mesh = make_mesh(n, device)
+    if len(set(mesh)) > 1:
+        raise NotImplementedError(
+            f"a mesh of {n} positions over {len(set(mesh))} cards: moving "
+            "rows between cards is not supported by spark_rapids_tpu_torch "
+            "yet (every position must share one card)")
+    return mesh

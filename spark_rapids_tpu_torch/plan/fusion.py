@@ -13,9 +13,7 @@ batch-shape-compatible operators:
 and replaces each chain of at least `fusion.minOps` members with one
 `exec/fused.py TpuFusedStageExec`. Everything else breaks the chain:
 complete and final aggregates merge across the whole batch stream, and
-exchanges move rows between positions. A chain directly under an exchange
-marked `mesh_resident_out` (the sharded plan, not in this engine) is never
-fused.
+exchanges move rows between positions.
 """
 
 from __future__ import annotations
@@ -76,14 +74,14 @@ def apply_fusion(root, conf):
     return _walk(root, conf)
 
 
-def _walk(node, conf, parent=None):
-    fused = _try_fuse(node, conf, parent)
+def _walk(node, conf):
+    fused = _try_fuse(node, conf)
     if fused is not None:
         # recurse BELOW the stage only (source + build exchanges)
-        fused.children = [_walk(c, conf, fused) for c in fused.children]
+        fused.children = [_walk(c, conf) for c in fused.children]
         return fused
     if node.children:
-        node.children = [_walk(c, conf, node) for c in node.children]
+        node.children = [_walk(c, conf) for c in node.children]
     return node
 
 
@@ -103,12 +101,9 @@ def _fusible(node, head: bool) -> bool:
     return False
 
 
-def _try_fuse(node, conf, parent):
+def _try_fuse(node, conf):
     """Replace the maximal fusible chain headed at `node` (if >= minOps
     members) with a TpuFusedStageExec; None when nothing fuses."""
-    if getattr(parent, "mesh_resident_out", False):
-        # a shard-wise consumer needs the exact per-member batch alignment
-        return None
     chain = []
     cur = node
     while _fusible(cur, head=cur is node):

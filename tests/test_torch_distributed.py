@@ -402,6 +402,22 @@ class TestModuleParity:
         assert mesh.mesh_from_conf(TpuConf(), "cpu") is None
         assert len(mesh.mesh_from_conf(TpuConf(MESH), "cpu")) == 4
 
+    def test_mesh_over_several_cards_raises_at_plan_time(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert mesh.mesh_from_conf(TpuConf(MESH), "cuda") == \
+            (torch.device("cuda", 0),) * 4
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(NotImplementedError):
+            mesh.mesh_from_conf(TpuConf(MESH), "cuda")
+        from spark_rapids_tpu_torch.exec.requirements import \
+            ensure_distribution
+
+        class CudaRoot:
+            device = torch.device("cuda", 0)
+            children = []
+        with pytest.raises(NotImplementedError):
+            ensure_distribution(CudaRoot(), TpuConf(MESH))
+
 
 # --------------------------------------------------------------------------
 def _segsum_cases():
