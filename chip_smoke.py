@@ -16,7 +16,10 @@ beside this file) it exits 2 and prints no result. It imports nothing of
 JAX.
 
 Kernel times are device times from CUDA events (see time_ms), the median
-of 10 rounds after warm-up. Each query's warm collect() is timed
+of 10 rounds after warm-up, back to back on one input. Kernel B is also
+timed cold, over 4 copies of its input in turns (201 MB, 4x the L2), and
+per CUDA kernel from a torch.profiler trace; its bound share is taken from
+the cold time. Each query's warm collect() is timed
 WALL_ROUNDS times with pallas.mode auto and off in turns, and the bench
 step WALL_ROUNDS times with CUDA events; each is reported as its median,
 min and max. Bounds are bytes moved (each input read once, each output
@@ -27,7 +30,9 @@ read just after.
 
 from __future__ import annotations
 
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +90,98 @@ def time_ms(torch, fn, warmup: int = 3, rounds: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def rotating(fn, copies):
+    """A call of fn on the argument tuples of `copies` in turn. With copies
+    that together hold three L2 caches or more, each call reads its inputs
+    from device memory, as a caller that streams fresh data does."""
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
+
+
+def cuda_kernel_ms(torch, fn, calls: int = 20) -> dict:
+    """Device time that each CUDA kernel of one call of fn adds: the median
+    over `calls` calls, by kernel name, from a torch.profiler trace. A
+    kernel counts from the later of its start and the end of the kernels
+    before it to its own end, since a kernel launched as a programmatic
+    dependent starts its blocks before the kernel before it has ended."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per, busy_to = {}, None
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        own = end - (start if busy_to is None else max(start, busy_to))
+        busy_to = end if busy_to is None else max(busy_to, end)
+        # "void (anonymous namespace)::segsum_partials<int>(...)" ->
+        # "segsum_partials"
+        name = re.split(r"[<(]", e.name.replace(
+            "(anonymous namespace)::", ""), maxsplit=1)[0]
+        name = name.split("::")[-1].removeprefix("void ").strip()
+        per.setdefault(name, []).append(max(own, 0) / 1e3)
+    return {k: statistics.median(v) for k, v in sorted(per.items())}
+
+
+def segsum_inputs(gen, n: int, groups: int):
+    """Kernel B's inputs at the bench step's shape: f64 values U(0.5, 1.5)
+    with 30 % zeros (the unmatched rows) and int32 ids uniform in
+    [0, groups), as numpy arrays."""
+    vals = np.where(gen.random(n) < 0.3, 0.0, gen.uniform(0.5, 1.5, n))
+    return vals, gen.integers(0, groups, n).astype(np.int32)
+
+
+def bench_step_runs(torch, dev, counters):
+    """WALL_ROUNDS timed calls of the bench step (benchstep.many_steps at
+    bench.py's shapes, K_STEPS steps a call) after one warm-up, each
+    checked against numpy (rtol 1e-9), bit for bit against the warm-up and
+    for its matched row count. The launch counts of the kernel wrappers in
+    `counters` are set to 0 before each call. Returns the ms per step of
+    each call, the set of launch-count tuples seen and the matched rows."""
+    from spark_rapids_tpu_torch import benchstep
+    data = benchstep.make_data(N_FACT, N_DIM, N_GROUPS, KEY_SPACE, seed=0)
+    fk, fg, fv, dk, dw = data
+    tens = [torch.from_numpy(a).to(dev) for a in data]
+    ix = np.clip(np.searchsorted(dk, fk), 0, len(dk) - 1)
+    matched = (dk[ix] == fk) & (fv > 0.6)
+    want_sums = np.bincount(fg, weights=np.where(matched, fv * dw[ix], 0.0),
+                            minlength=N_GROUPS)
+
+    def step():
+        return benchstep.many_steps(*tens, n_groups=N_GROUPS,
+                                    key_space=KEY_SPACE, k_steps=K_STEPS)
+
+    first, _ = step()
+    step_ms, counts = [], set()
+    for _ in range(WALL_ROUNDS):
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sums, rows = step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end) / K_STEPS)
+        counts.add(tuple(fn.launches for fn in counters))
+        if not np.allclose(sums.cpu().numpy(), want_sums, rtol=1e-9,
+                           atol=0.0):
+            raise AssertionError("bench step sums differ from the oracle")
+        if not torch.equal(sums, first):
+            raise AssertionError("bench step sums are not bit-identical "
+                                 "on repeat")
+        if int(rows) != int(matched.sum()):
+            raise AssertionError("bench step matched rows differ from the "
+                                 "oracle")
+    return step_ms, counts, int(rows)
 
 
 def query_tables(pa, n_fact: int, n_dim: int, key_space: int, n_groups: int,
@@ -169,7 +266,6 @@ def main() -> int:
     try:
         import pyarrow as pa
 
-        from spark_rapids_tpu_torch import benchstep
         from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
         from spark_rapids_tpu_torch.exec import exchange
         from spark_rapids_tpu_torch.exec.base import batch_vecs
@@ -250,34 +346,81 @@ def main() -> int:
           "live_probe_rows": probe.row_count(), "ms": a_ms,
           "plain_ms": a_plain, "bound_ms": a_bound})
 
-    # ---- 3. kernel B (segment_sum_f64) against its plain twin and numpy
+    # ---- 3. kernel B (segment_sum_f64) against its plain twin and numpy,
+    # at the bench step's shape and at the seams of its row split
     nb, g = N_FACT, N_GROUPS
-    vals_np = np.where(gen.random(nb) < 0.3, 0.0, gen.uniform(0.5, 1.5, nb))
-    ids_np = gen.integers(0, g, nb).astype(np.int32)
+    vals_np, ids_np = segsum_inputs(gen, nb, g)
     vals = torch.from_numpy(vals_np).to(dev)
     ids = torch.from_numpy(ids_np).to(dev)
-    out1 = segment_sum_f64(vals, ids, g)
-    out2 = segment_sum_f64(vals, ids, g)
-    plain = segment_sum_f64_plain(vals, ids, g)
-    torch.cuda.synchronize()
-    if not torch.equal(out1, out2):
-        raise AssertionError("segment_sum_f64 is not bit-identical on repeat")
-    exact = np.bincount(ids_np, weights=vals_np, minlength=g)
-    mass = np.bincount(ids_np, weights=np.abs(vals_np), minlength=g)
-    err = np.abs(out1.cpu().numpy() - exact)
-    if not np.all(err <= 1e-9 * mass):
-        raise AssertionError(f"segment_sum_f64 error {err.max()} above "
-                             "1e-9 x L1 mass")
-    twin_err = (out1 - plain).abs().cpu().numpy()
-    if not np.all(twin_err <= 1e-9 * mass):
-        raise AssertionError(f"segment_sum_f64 differs from its plain twin "
-                             f"by {twin_err.max()}, above 1e-9 x L1 mass")
-    b_err = float(twin_err.max())
+    b_err = 0.0
+
+    def check_b(case, v, i, gg):
+        """B on one input, twice: bit-identical, and within 1e-9 x each
+        segment's L1 mass of numpy and of the plain twin (a non-finite sum
+        must be the same non-finite value). Returns B's result."""
+        nonlocal b_err
+        v = torch.as_tensor(v, dtype=torch.float64).to(dev)
+        i = torch.as_tensor(i).to(dev)
+        got = segment_sum_f64(v, i, gg)
+        again = segment_sum_f64(v, i, gg)
+        plain = segment_sum_f64_plain(v, i, gg)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int64), again.view(torch.int64)):
+            raise AssertionError(f"segment_sum_f64 is not bit-identical on "
+                                 f"repeat ({case})")
+        v_np, i_np = v.cpu().numpy(), i.cpu().numpy()
+        keep = (i_np >= 0) & (i_np < gg)
+        exact = np.bincount(i_np[keep], weights=v_np[keep], minlength=gg)
+        mass = np.bincount(i_np[keep], weights=np.abs(v_np[keep]),
+                           minlength=gg)
+        got = got.cpu().numpy()
+        for ref, what in ((exact, "numpy"), (plain.cpu().numpy(), "twin")):
+            fin = np.isfinite(ref)
+            with np.errstate(invalid="ignore"):  # inf - inf where not fin
+                diff = np.abs(got - ref)
+            ok = np.where(fin, diff <= 1e-9 * mass,
+                          (got == ref) | (np.isnan(got) & np.isnan(ref)))
+            if not ok.all():
+                raise AssertionError(
+                    f"segment_sum_f64 ({case}) differs from {what} beyond "
+                    f"1e-9 x L1 mass in {int((~ok).sum())} segments")
+            if what == "twin" and fin.any():
+                b_err = max(b_err, float(diff[fin].max()))
+        return got
+
+    check_b("bench_shape", vals, ids, g)
+    n_odd = nb + 7
+    odd_v, odd_i = segsum_inputs(gen, n_odd, g)
+    signed = gen.normal(0, 100, 100_000)
+    signed[gen.random(100_000) < 0.2] = -0.0
+    signed_ids = gen.integers(0, 64, 100_000).astype(np.int32)
+    signed_ids[:6] = [3, 5, 7, 7, 9, 9]
+    signed[:6] = [np.inf, -np.inf, np.inf, -np.inf, -0.0, -0.0]
+    signed[signed_ids == 9] = -0.0  # segment 9 holds -0.0 alone
+    ids64 = gen.integers(-2 ** 40, 2 ** 40, nb)
+    ids64[::3] = gen.integers(0, g, len(ids64[::3]))
+    ids64[:4] = [2 ** 31, 2 ** 32 + 2, -1, g]
+    seams = {
+        "g_1": (vals, torch.zeros_like(ids), 1),
+        "g_4096": (vals, torch.from_numpy(
+            gen.integers(0, MAX_SEGMENTS, nb).astype(np.int32)),
+            MAX_SEGMENTS),
+        f"n_{n_odd}": (odd_v, odd_i, g),
+        "all_rows_one_id": (vals, torch.full_like(ids, 517), g),
+        "sorted_ids": (vals, torch.sort(ids).values, g),
+        "int64_ids": (vals, torch.from_numpy(ids64), g),
+        "signed_zero_inf": (signed, signed_ids, 64),
+        "unaligned_view": (vals[1:], ids[1:], g),
+    }
+    for n_small in (1, 2, 3, 63, 65, 255, 257):
+        seams[f"n_{n_small}"] = (odd_v[:n_small], odd_i[:n_small], g)
+    seam_out = {case: check_b(case, v, i, gg)
+                for case, (v, i, gg) in seams.items()}
+    zeros_out = seam_out["signed_zero_inf"]
 
     def seg(v, i, gg):
-        return segment_sum_f64(torch.tensor(v, dtype=torch.float64,
-                                            device=dev),
-                               torch.tensor(i, device=dev), gg).tolist()
+        return check_b("small", np.array(v, np.float64), np.array(i),
+                       gg).tolist()
 
     edge = {
         "beyond_f32": seg([1e300, 1.0, 2.0, 3.0], [0, 1, 1, 2], 4)
@@ -286,6 +429,10 @@ def main() -> int:
         == [1.0, 2.0, 0.0, 0.0],
         "int64_ids_beyond_int32": seg([5.0, 1.0], [2 ** 32 + 2, 0], 4)
         == [1.0, 0.0, 0.0, 0.0],
+        "inf_and_nan_sums": bool(zeros_out[3] == np.inf
+                                 and zeros_out[5] == -np.inf
+                                 and np.isnan(zeros_out[7])
+                                 and zeros_out[9] == 0.0),
     }
     nan_out = seg([float("nan"), 1.0, 2.0], [0, 1, 2], 3)
     edge["nan_confined"] = bool(np.isnan(nan_out[0])) and \
@@ -297,16 +444,27 @@ def main() -> int:
         edge["rejects_oversized"] = True
     if not all(edge.values()):
         raise AssertionError(f"segment_sum_f64 edge cases failed: {edge}")
-    ids64 = ids.to(torch.int64)
+    # timing at the bench step's shape: warm (back to back on one input)
+    # and cold (over 4 copies, 201 MB, 4x the L2 cache, in turns)
+    b_copies = [(vals, ids, g)] + [
+        tuple(torch.from_numpy(a).to(dev) for a in segsum_inputs(gen, nb, g))
+        + (g,) for _ in range(3)]
+    b_cold = rotating(segment_sum_f64, b_copies)
     b_ms = time_ms(torch, lambda: segment_sum_f64(vals, ids, g))
+    b_cold_ms = time_ms(torch, b_cold)
+    b_split = cuda_kernel_ms(torch, b_cold)
     b_plain = time_ms(torch, lambda: segment_sum_f64_plain(vals, ids, g))
+    ids64 = ids.to(torch.int64)
     b_lib = time_ms(torch, lambda: torch.zeros(
         g, dtype=torch.float64, device=dev).index_add_(0, ids64, vals))
     b_bound = (nb * (8 + 4) + g * 8) / rate * 1e3
+    del b_copies, b_cold
     emit({"phase": "kernel_segment_sum_f64", "rows": nb, "groups": g,
-          "repeat_bit_identical": True, "max_err_vs_numpy": float(err.max()),
-          "max_abs_err_vs_plain": b_err, "edge_cases": edge, "ms": b_ms,
-          "plain_ms": b_plain, "library_ms": b_lib, "bound_ms": b_bound})
+          "repeat_bit_identical": True, "max_abs_err_vs_plain": b_err,
+          "seams": sorted(seams), "edge_cases": edge, "ms": b_ms,
+          "cold_ms": b_cold_ms, "cuda_kernels_cold_ms": b_split,
+          "plain_ms": b_plain, "library_ms": b_lib, "bound_ms": b_bound,
+          "bound_share": b_bound / b_cold_ms})
 
     # ---- 4. the engine query through a session, fusion on, on the card;
     # the join is sized through kernel A (pallas.mode auto) and through its
@@ -363,45 +521,13 @@ def main() -> int:
           "launches_per_collect": launches})
 
     # ---- 5. the bench step at bench.py's shapes
-    data = benchstep.make_data(N_FACT, N_DIM, N_GROUPS, KEY_SPACE, seed=0)
-    fk, fg, fv, dk, dw = data
-    tens = [torch.from_numpy(a).to(dev) for a in data]
-    ix = np.clip(np.searchsorted(dk, fk), 0, len(dk) - 1)
-    matched = (dk[ix] == fk) & (fv > 0.6)
-    want_sums = np.bincount(fg, weights=np.where(matched, fv * dw[ix], 0.0),
-                            minlength=N_GROUPS)
-
-    def step():
-        return benchstep.many_steps(*tens, n_groups=N_GROUPS,
-                                    key_space=KEY_SPACE, k_steps=K_STEPS)
-
-    first, _ = step()  # warm-up
-    step_ms, bench_counts = [], set()
-    for _ in range(WALL_ROUNDS):
-        torch.cuda.synchronize()
-        murmur3_rows.launches = segment_sum_f64.launches = 0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        sums, rows = step()
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end) / K_STEPS)
-        bench_counts.add((murmur3_rows.launches, segment_sum_f64.launches))
-        if not np.allclose(sums.cpu().numpy(), want_sums, rtol=1e-9,
-                           atol=0.0):
-            raise AssertionError("bench step sums differ from the oracle")
-        if not torch.equal(sums, first):
-            raise AssertionError("bench step sums are not bit-identical "
-                                 "on repeat")
-        if int(rows) != int(matched.sum()):
-            raise AssertionError("bench step matched rows differ from the "
-                                 "oracle")
+    step_ms, bench_counts, rows = bench_step_runs(
+        torch, dev, (murmur3_rows, segment_sum_f64))
     if bench_counts != {(0, K_STEPS)}:
         raise AssertionError(f"bench step launches {sorted(bench_counts)}")
     bench_launches = {"murmur3_rows": 0, "segment_sum_f64": K_STEPS}
     emit({"phase": "bench_step", "fact_rows": N_FACT, "k_steps": K_STEPS,
-          "step_ms": spread(step_ms), "matched_rows": int(rows),
+          "step_ms": spread(step_ms), "matched_rows": rows,
           "rtol": 1e-9, "repeat_bit_identical": True,
           "launches_per_call": bench_launches})
 
@@ -555,7 +681,9 @@ def main() -> int:
          "path": "bench_step",
          "launches": bench_launches["segment_sum_f64"],
          "cuda_kernels_per_launch": 2,
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         "max_abs_err": b_err, "ms": b_ms, "cold_ms": b_cold_ms,
+         "bound_share": b_bound / b_cold_ms,
+         "cuda_kernels_cold_ms": b_split, "plain_ms": b_plain,
          "bound_ms": b_bound, "bound_by": "bytes", "library_ms": b_lib},
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",

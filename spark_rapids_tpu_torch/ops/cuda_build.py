@@ -72,6 +72,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     for name, out, tmp, proc in started:
         logs[name], _ = proc.communicate()
         if proc.returncode == 0:
+            # kept for a later reader of -Xptxas -v (registers, spills)
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
         else:
             tmp.unlink(missing_ok=True)

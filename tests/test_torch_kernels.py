@@ -165,3 +165,47 @@ class TestSegmentSum:
                 torch.zeros(8, dtype=torch.float64),
                 torch.zeros(8, dtype=torch.int32),
                 pallas_segsum.MAX_SEGMENTS + 1)
+
+
+class TestSegmentSumGeometry:
+    """The kernel's row split and grid (pallas_segsum.launch_geometry,
+    step_rows), checked in pure Python: the CUDA kernel reads rows exactly
+    as step_rows lists them."""
+
+    @pytest.mark.parametrize("n, g", [
+        (0, 1), (1, 1), (3, 4096), (63, 7), (64, 1024), (65, 4096),
+        (1000, 3), (12_295, 1024), (262_151, 1), (300_007, 4096)])
+    def test_every_row_has_exactly_one_owner(self, n, g):
+        rows = pallas_segsum.step_rows(pallas_segsum.launch_geometry(n, g), n)
+        live = rows[rows >= 0]
+        assert live.size == n
+        assert np.array_equal(np.sort(live), np.arange(n))
+
+    def test_split_depends_only_on_rows_and_segments(self, monkeypatch):
+        want = [pallas_segsum.launch_geometry(n, g)
+                for n in (1, 4_194_304) for g in (1, 1024, 4096)]
+
+        def no_card(*a, **k):
+            raise AssertionError("the split asked about the card")
+
+        for name in ("device_count", "get_device_properties",
+                     "current_device", "is_available"):
+            monkeypatch.setattr(torch.cuda, name, no_card)
+        assert [pallas_segsum.launch_geometry(n, g)
+                for n in (1, 4_194_304) for g in (1, 1024, 4096)] == want
+
+    def test_fits_shared_memory_and_block_cap(self):
+        limit = 227 * 1024  # shared memory one block may use on Hopper
+        for g in range(1, pallas_segsum.MAX_SEGMENTS + 1):
+            for n in (0, 1, 63, 65, 4097, 1_000_003, 4_194_304, 4_194_311):
+                geom = pallas_segsum.launch_geometry(n, g)
+                assert geom.smem_bytes == geom.warps * g * 9 <= limit
+                assert 1 <= geom.warps <= pallas_segsum.MAX_WARPS
+                assert 0 <= geom.blocks <= pallas_segsum.MAX_BLOCKS
+                span = geom.warps * geom.units_per_warp * 64
+                # every row is covered, and no block is left without rows
+                assert geom.blocks * span >= n > (geom.blocks - 1) * span
+
+    def test_bench_shape_is_one_wave(self):
+        geom = pallas_segsum.launch_geometry(4_194_304, 1024)
+        assert geom == pallas_segsum.Geometry(131, 24, 21, 221_184)
