@@ -6,9 +6,12 @@
 Builds the hand-written CUDA kernels from the checkout (one nvcc per source,
 all at once), holds each kernel against its plain PyTorch twin on the card,
 runs the engine's main query through a session at 16,777,216 fact rows, the
-benchmark step at bench.py's shapes, and the main query again under the
+benchmark step at bench.py's shapes, the main query again under the
 distributed plan (partial aggregate -> key exchange over a 4-position mesh
--> per-shard final aggregate), and checks each against numpy oracles. Each
+-> per-shard final aggregate), and three string-keyed star-schema reports
+(TPC-DS q3/q7/q36 shapes over 16,777,216 sales and SF10 dimensions) on one
+device and Q7 under the distributed plan, and checks each against numpy
+oracles. Each
 phase prints one JSON line; then a `kernels` line, the card's `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
 exits non-zero without that last line. Without CUDA (or without the package
@@ -20,9 +23,11 @@ of 10 rounds after warm-up, back to back on one input. Kernel B is also
 timed cold, over 4 copies of its input in turns (201 MB, 4x the L2), and
 per CUDA kernel from a torch.profiler trace; its bound share is taken from
 the cold time. Each query's warm collect() is timed
-WALL_ROUNDS times with pallas.mode auto and off in turns, and the bench
-step WALL_ROUNDS times with CUDA events; each is reported as its median,
-min and max. Bounds are bytes moved (each input read once, each output
+WALL_ROUNDS times with pallas.mode auto and off in turns, each star
+report's STAR_ROUNDS times with pallas.mode auto, and the bench step
+WALL_ROUNDS times with CUDA events; each is reported as its median, min
+and max, and each star report's device idle share comes from one traced
+collect. Bounds are bytes moved (each input read once, each output
 written once) over the H100's published memory rate. Launch counts are
 read per path: every count is set to 0 just before a run of the path and
 read just after.
@@ -37,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -90,6 +96,38 @@ def time_ms(torch, fn, warmup: int = 3, rounds: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def device_busy_s(torch, prof) -> float:
+    """Seconds in which the card ran a kernel or a copy, from a
+    torch.profiler trace: the union of the device events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in spans:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e6
+
+
+def idle_share(torch, fn) -> float:
+    """The card's idle share of one traced call of fn (which ends in a
+    synchronize): 1 - device busy time / wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return 1.0 - device_busy_s(torch, prof) / wall
 
 
 def rotating(fn, copies):
@@ -252,6 +290,339 @@ def segsum_path_inputs(fact, dim, cap: int):
     ids[:len(gid)] = gid
     vals[:len(gid)] = (c[hit] + w[hit])[by_g]
     return vals, ids
+
+
+# ---- the star-schema reports (TPC-DS q3/q7/q36 shapes)
+# dimension rows of TPC-DS at scale factor 10 (specification v3.2.0, Table
+# 3-2); the fact table is cut from about 28.8 M rows to the engine query's
+# 16 batches of 1,048,576
+STAR_SALES_ROWS = 16_777_216
+STAR_DIMS = {"date_dim": 73_049, "item": 102_000, "store": 102}
+STAR_SYLLABLES = ("amalg", "edu pack", "exporti", "importo", "scholar",
+                  "univ", "corp", "maxi", "brand", "nameless")
+STAR_CATEGORIES = ("Books", "Children", "Electronics", "Home", "Jewelry",
+                   "Men", "Music", "Shoes", "Sports", "Women")
+STAR_STATES = ("TN", "GA", "AL", "SD", "MI", "OH", "TX", "LA", "NC")
+STAR_ROUNDS = 5
+
+
+def star_tables(pa, n_sales: int, n_dates: int, n_items: int, n_stores: int,
+                seed: int = 11) -> dict:
+    """store_sales, date_dim, item and store as Arrow tables, from one
+    numpy seed. Surrogate keys are aranges. Brands are TPC-DS style
+    "<syllable><syllable> #<1..10>" (1,000 possible); categories are
+    TPC-DS's ten, 0.5 % null; the sales price is in cents, 3 % null."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_dates)
+    date_dim = pa.table({
+        "d_date_sk": i.astype(np.int64),
+        "d_year": (1900 + i // 365).astype(np.int32),
+        "d_moy": (i % 365 // 31 + 1).astype(np.int32),
+        "d_dow": (i % 7).astype(np.int32),
+    })
+    syl = np.array(STAR_SYLLABLES, dtype=object)
+    b = rng.integers(0, 1000, n_items)
+    brand = syl[b // 100] + syl[b // 10 % 10] + " #" + \
+        (b % 10 + 1).astype(str).astype(object)
+    cats = np.array(STAR_CATEGORIES, dtype=object)
+    item = pa.table({
+        "i_item_sk": np.arange(n_items, dtype=np.int64),
+        "i_brand": pa.array(brand.tolist(), pa.string()),
+        "i_category": pa.array(cats[rng.integers(0, len(cats), n_items)]
+                               .tolist(), pa.string(),
+                               mask=rng.random(n_items) < 0.005),
+        "i_price": rng.uniform(1, 200, n_items).round(2),
+    })
+    states = np.array(STAR_STATES, dtype=object)
+    store = pa.table({
+        "s_store_sk": np.arange(n_stores, dtype=np.int64),
+        "s_state": pa.array(states[np.arange(n_stores) % len(states)]
+                            .tolist(), pa.string()),
+    })
+    store_sales = pa.table({
+        "ss_sold_date_sk": rng.integers(0, n_dates, n_sales, dtype=np.int64),
+        "ss_item_sk": rng.integers(0, n_items, n_sales, dtype=np.int64),
+        "ss_store_sk": rng.integers(0, n_stores, n_sales, dtype=np.int64),
+        "ss_quantity": rng.integers(1, 101, n_sales, dtype=np.int32),
+        "ss_sales_price": pa.array(rng.uniform(0, 200, n_sales).round(2),
+                                   mask=rng.random(n_sales) < 0.03),
+    })
+    return {"store_sales": store_sales, "date_dim": date_dim, "item": item,
+            "store": store}
+
+
+def star_queries(sess, m, t: dict) -> dict:
+    """Q3, Q7 and Q36 as DataFrames of `sess`, written with the
+    constructors of namespace `m` (col, lit, Sum, Average, Count, Max, Min,
+    Coalesce, CaseWhen, IsNotNull), which both engines share. Each
+    dimension renames its key to the fact's in a select, and the joins use
+    on=."""
+    c = m.col
+    ss = sess.from_arrow(t["store_sales"], label="store_sales")
+    dd = sess.from_arrow(t["date_dim"], label="date_dim").select(
+        "d_year", "d_moy", ss_sold_date_sk=c("d_date_sk"))
+    it = sess.from_arrow(t["item"], label="item").select(
+        "i_brand", "i_category", "i_price", ss_item_sk=c("i_item_sk"))
+    st = sess.from_arrow(t["store"], label="store").select(
+        "s_state", ss_store_sk=c("s_store_sk"))
+    q3 = ss.join(dd, on="ss_sold_date_sk") \
+        .filter((c("d_moy") == m.lit(11))
+                & m.IsNotNull(c("ss_sales_price"))) \
+        .join(it, on="ss_item_sk") \
+        .group_by("d_year", "i_brand") \
+        .agg(sum_agg=m.Sum(c("ss_sales_price")))
+    q7 = ss.join(it, on="ss_item_sk").join(st, on="ss_store_sk") \
+        .filter(c("s_state") == m.lit("TN")) \
+        .group_by("i_category") \
+        .agg(q=m.Average(c("ss_quantity")), p=m.Average(c("ss_sales_price")),
+             n=m.Count(m.lit(1)))
+    q36 = ss.join(it, on="ss_item_sk") \
+        .select(cat=m.Coalesce(c("i_category"), m.lit("unknown")),
+                bucket=m.CaseWhen(
+                    [(c("ss_sales_price") > m.lit(150.0), m.lit("lux")),
+                     (c("ss_sales_price") > m.lit(50.0), m.lit("mid"))],
+                    m.lit("base")),
+                margin=c("ss_sales_price") - c("i_price")) \
+        .group_by("cat", "bucket") \
+        .agg(m=m.Average(c("margin")), n=m.Count(m.lit(1)),
+             hi=m.Max(c("margin")), lo=m.Min(c("margin")))
+    return {"q3": q3, "q7": q7, "q36": q36}
+
+
+def star_namespace() -> SimpleNamespace:
+    """The port's constructors that star_queries uses."""
+    from spark_rapids_tpu_torch import expr as E
+    return SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "Sum", "Average", "Count", "Max", "Min", "Coalesce",
+        "CaseWhen", "IsNotNull")})
+
+
+# key columns, and the columns compared with rtol 1e-9 (f64 sums and
+# averages); every other column is compared exactly
+STAR_KEYS = {"q3": ("d_year", "i_brand"), "q7": ("i_category",),
+             "q36": ("cat", "bucket")}
+STAR_APPROX = {"q3": ("sum_agg",), "q7": ("q", "p"), "q36": ("m",)}
+
+
+def _codes(vals, valid=None):
+    """Dense codes of a small host array in sorted order, and the sorted
+    values (None, sorting last, for the null rows)."""
+    valid = np.ones(len(vals), bool) if valid is None else valid
+    vocab, code = np.unique(vals[valid], return_inverse=True)
+    codes = np.full(len(vals), len(vocab), np.int64)
+    codes[valid] = code
+    return codes, list(vocab) + [None]
+
+
+def _strings(col):
+    return np.array(col.to_pylist(), dtype=object)
+
+
+def _grouped(pa, keys, cols):
+    """numpy group-by. `keys` maps each key name to (codes, values) from
+    _codes; `cols` maps each output name to (op, values, valid) with op
+    sum, mean, count, max or min over the valid rows. Groups come out
+    sorted by key, nulls last (Arrow's order); an empty sum, mean, max or
+    min is null."""
+    combined = np.zeros(len(next(iter(cols.values()))[1]), np.int64)
+    for codes, vocab in keys.values():
+        combined = combined * len(vocab) + codes
+    groups, gid = np.unique(combined, return_inverse=True)
+    ng = len(groups)
+    out, rest = {}, groups
+    for name, (_, vocab) in reversed(list(keys.items())):
+        out[name] = [vocab[k] for k in rest % len(vocab)]
+        rest = rest // len(vocab)
+    out = {name: out[name] for name in keys}
+    for name, (op, vals, valid) in cols.items():
+        cnt = np.bincount(gid[valid], minlength=ng)
+        if op == "count":
+            out[name] = cnt.tolist()
+            continue
+        if op in ("sum", "mean"):
+            r = np.bincount(gid[valid], weights=vals[valid].astype(np.float64),
+                            minlength=ng)
+            if op == "mean":
+                r = r / np.maximum(cnt, 1)
+        else:  # sort by (group, value): each group's last or first row
+            g, v = gid[valid], vals[valid]
+            order = np.lexsort((v, g))
+            g, v = g[order], v[order]
+            edge = g[1:] != g[:-1]
+            pick = np.r_[edge, True] if op == "max" else np.r_[True, edge]
+            r = np.zeros(ng)
+            r[g[pick]] = v[pick]
+        out[name] = [float(x) if c else None for x, c in zip(r, cnt)]
+    return pa.table(out)
+
+
+def star_oracle(pa, t: dict) -> dict:
+    """numpy answers to Q3, Q7 and Q36, independent of the engine: the
+    dimension keys are aranges, so each join is a gather."""
+    ss, it = t["store_sales"], t["item"]
+    date = ss.column("ss_sold_date_sk").to_numpy()
+    item = ss.column("ss_item_sk").to_numpy()
+    store = ss.column("ss_store_sk").to_numpy()
+    qty = ss.column("ss_quantity").to_numpy()
+    pcol = ss.column("ss_sales_price")
+    price = pcol.fill_null(0).to_numpy()
+    pvalid = pcol.is_valid().to_numpy(zero_copy_only=False)
+    cat = _strings(it.column("i_category"))
+    cvalid = it.column("i_category").is_valid().to_numpy(zero_copy_only=False)
+    iprice = it.column("i_price").to_numpy()
+    tn = _strings(t["store"].column("s_state")) == "TN"
+    year_c, years = _codes(t["date_dim"].column("d_year").to_numpy())
+    moy = t["date_dim"].column("d_moy").to_numpy()[date]
+    brand_c, brands = _codes(_strings(it.column("i_brand")))
+    cat_c, cats = _codes(cat, cvalid)
+    cat36_c, cats36 = _codes(np.where(cvalid, cat, "unknown"))
+    ones = np.ones(len(date), bool)
+
+    k = (moy == 11) & pvalid
+    q3 = _grouped(pa, {"d_year": (year_c[date][k], years),
+                       "i_brand": (brand_c[item][k], brands)},
+                  {"sum_agg": ("sum", price[k], ones[k])})
+    k = tn[store]
+    q7 = _grouped(pa, {"i_category": (cat_c[item][k], cats)},
+                  {"q": ("mean", qty[k], ones[k]),
+                   "p": ("mean", price[k], pvalid[k]),
+                   "n": ("count", qty[k], ones[k])})
+    # CASE order: lux, then mid, else base (a null price is neither)
+    bucket = np.where(pvalid & (price > 150.0), 1,
+                      np.where(pvalid & (price > 50.0), 2, 0))
+    margin = price - iprice[item]
+    q36 = _grouped(pa, {"cat": (cat36_c[item], cats36),
+                        "bucket": (bucket, ["base", "lux", "mid", None])},
+                   {"m": ("mean", margin, pvalid),
+                    "n": ("count", margin, ones),
+                    "hi": ("max", margin, pvalid),
+                    "lo": ("min", margin, pvalid)})
+    return {"q3": q3, "q7": q7, "q36": q36}
+
+
+def check_star(name: str, out, want) -> None:
+    """Raise unless `out` (a collect() result) equals the oracle table
+    `want`: keys, counts, MIN and MAX exactly, sums and averages within
+    rtol 1e-9, nulls in the same places."""
+    out = out.sort_by([(k, "ascending") for k in STAR_KEYS[name]])
+    if out.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {out.num_rows} groups, oracle "
+                             f"{want.num_rows}")
+    for col in want.column_names:
+        got, exp = out.column(col).to_pylist(), want.column(col).to_pylist()
+        if col not in STAR_APPROX[name]:
+            ok = got == exp
+        else:
+            ok = [g is None for g in got] == [e is None for e in exp] and \
+                np.allclose([g for g in got if g is not None],
+                            [e for e in exp if e is not None],
+                            rtol=1e-9, atol=0.0)
+        if not ok:
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+
+
+def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
+                dims=STAR_DIMS, conf=None, device=None):
+    """Phases 8 and 9: Q3, Q7 and Q36 on one device, then Q7 under the
+    distributed plan (`mesh_conf`), each checked against star_oracle, timed
+    and traced. `counters` are the kernel wrappers A, B and C, whose
+    launch counts are set to 0 around each run; `conf` is added to every
+    session's settings. Returns the counts of the two paths' runs."""
+    from spark_rapids_tpu_torch.exec import exchange
+    from spark_rapids_tpu_torch.plugin import TpuSession
+    conf = dict(conf or {})
+    # ---- 8. the star-schema reports (Q3, Q7, Q36) on one device, fusion
+    # on, pallas.mode auto: kernel A sizes every fused probe, C never runs
+    ns = star_namespace()
+
+    def counted(fn):
+        """fn() with every launch count set to 0 just before it; returns
+        (fn's result, the counts of A, B and C just after)."""
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}
+
+    def timed_collects(name, q, expect):
+        """STAR_ROUNDS warm collects, each checked against the oracle and
+        for its launches: A > 0 and C as `expect` says."""
+        walls, seen = [], set()
+        for _ in range(STAR_ROUNDS):
+            t0 = time.perf_counter()
+            out, n = counted(q.collect)
+            walls.append(time.perf_counter() - t0)
+            check_star(name, out, star_want[name])
+            seen.add(tuple(sorted(n.items())))
+        if len(seen) != 1 or n["murmur3_rows"] == 0 or \
+                not expect(n["segment_sum_i64"]):
+            raise AssertionError(f"{name} launched {sorted(seen)} per "
+                                 "collect")
+        return walls, n
+
+    t0 = time.monotonic()
+    star = star_tables(pa, n_sales, *dims.values())
+    star_want = star_oracle(pa, star)
+    star_setup_s = time.monotonic() - t0
+    sess = TpuSession(dict(conf, **{"spark.rapids.tpu.fusion.enabled": True}),
+                      device)
+    sq = star_queries(sess, ns, star)
+    for name, q in sq.items():
+        plan = q.explain()
+        if "TpuFusedStageExec" not in plan or "TpuShuffled" in plan:
+            raise AssertionError(f"{name}: not the fused broadcast plan:\n"
+                                 f"{plan}")
+        check_star(name, q.collect(), star_want[name])  # warm-up
+    # the path's run: one collect of each query between the counter reads
+    outs, star_launches = counted(lambda: [q.collect() for q in sq.values()])
+    for name, out in zip(sq, outs):
+        check_star(name, out, star_want[name])
+    if star_launches["segment_sum_i64"] or \
+            star_launches["murmur3_rows"] == 0:
+        raise AssertionError(f"the star path launched {star_launches}")
+    per_query = {}
+    for name, q in sq.items():
+        walls, n = timed_collects(name, q, lambda c: c == 0)
+        per_query[name] = {
+            "groups": star_want[name].num_rows,
+            "warm_collect_s": spread(walls), "launches_per_collect": n,
+            "device_idle_share": idle_share(torch, q.collect)}
+    emit({"phase": "star_query", "fact_rows": n_sales, "dim_rows": dims,
+          "setup_s": star_setup_s,
+          "rtol_sums_averages": 1e-9, "exact": "keys, counts, min, max",
+          "queries": per_query, "launches_per_path_run": star_launches})
+
+    # ---- 9. Q7 under the distributed plan: fused [probes, filter, partial
+    # aggregate] -> key exchange on the string key -> per-shard final
+    dsess = TpuSession(dict(mesh_conf, **conf), device)
+    q7 = star_queries(dsess, ns, star)["q7"]
+    plan = q7.explain()
+    if not (plan.startswith("TpuHashAggregateExec[final")
+            and "TpuShuffleExchangeExec" in plan and "PartialAgg[" in plan):
+        raise AssertionError(f"q7: not the distributed plan:\n{plan}")
+    check_star("q7", q7.collect(), star_want["q7"])  # warm-up
+    before = exchange.MESH_EXCHANGES
+    out, dstar_launches = counted(q7.collect)
+    check_star("q7", out, star_want["q7"])
+    if exchange.MESH_EXCHANGES < before + 1 or \
+            dstar_launches["murmur3_rows"] == 0 or \
+            dstar_launches["segment_sum_i64"] == 0:
+        raise AssertionError(f"distributed q7 launched {dstar_launches}, "
+                             f"{exchange.MESH_EXCHANGES - before} exchanges")
+    before = exchange.MESH_EXCHANGES
+    dwalls7, _ = timed_collects("q7", q7, lambda c: c > 0)
+    emit({"phase": "star_query_distributed", "fact_rows": n_sales,
+          "query": "q7", "mesh_positions": MESH_POSITIONS,
+          "groups": star_want["q7"].num_rows,
+          "mesh_exchanges_per_collect":
+              (exchange.MESH_EXCHANGES - before) / STAR_ROUNDS,
+          "warm_collect_s": spread(dwalls7),
+          "device_idle_share": idle_share(torch, q7.collect),
+          "launches_per_path_run": dstar_launches})
+
+    return star_launches, dstar_launches
 
 
 def main() -> int:
@@ -666,13 +1037,18 @@ def main() -> int:
           "launches_per_collect": {"segment_sum_i64": c_launches,
                                    "murmur3_rows": a_dist_launches}})
 
-    # ---- 8. every kernel the run launched; launches are per run of the
-    # path named beside them (one collect, one many_steps call)
+    # ---- 8, 9. the star-schema reports, one device and distributed
+    star_launches, dstar_launches = star_phases(
+        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
+
+    # ---- 10. every kernel the run launched; launches are per run of the
+    # path named beside them (one collect of each star query, one
+    # many_steps call, one distributed Q7 collect)
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "engine_query", "launches": launches["murmur3_rows"],
+         "path": "star_query", "launches": star_launches["murmur3_rows"],
          "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "segment_sum_f64", "route": "cuda",
@@ -688,7 +1064,8 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "distributed_query", "launches": c_launches,
+         "path": "star_query_distributed",
+         "launches": dstar_launches["segment_sum_i64"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain,
          "bound_ms": c_bound, "bound_by": "bytes", "library_ms": c_lib},
     ]})

@@ -20,7 +20,7 @@ from .column import Column, from_arrow as col_from_arrow, \
 from .padding import row_bucket
 
 __all__ = ["Schema", "ColumnarBatch", "batch_from_arrow", "batch_to_arrow",
-           "empty_batch", "join_output_schema"]
+           "empty_column", "empty_batch", "join_output_schema"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,20 +92,21 @@ class ColumnarBatch:
             cap = t.shape[0]
             if new_cap <= cap:
                 return t[:new_cap]
-            return torch.cat([t, torch.zeros(new_cap - cap, dtype=t.dtype,
-                                             device=t.device)])
+            return torch.cat([t, t.new_zeros((new_cap - cap,) + t.shape[1:])])
 
         return ColumnarBatch(self.schema, tuple(
-            Column(c.dtype, fit(c.data), fit(c.validity))
+            Column(c.dtype, *[fit(t) for t in c.leaves()])
             for c in self.columns), self.num_rows)
 
 
 def batch_from_arrow(table, device: torch.device,
-                     capacity: Optional[int] = None) -> ColumnarBatch:
+                     capacity: Optional[int] = None,
+                     max_string_width: Optional[int] = None) -> ColumnarBatch:
     """pyarrow Table -> device ColumnarBatch (the H2D boundary)."""
     n = table.num_rows
     cap = capacity or row_bucket(n)
-    cols: List[Column] = [col_from_arrow(table.column(i), device, cap)[0]
+    cols: List[Column] = [col_from_arrow(table.column(i), device, cap,
+                                         max_string_width)[0]
                           for i in range(table.num_columns)]
     return ColumnarBatch(Schema.from_arrow(table.schema), tuple(cols),
                          torch.tensor(n, dtype=torch.int32, device=device))
@@ -119,14 +120,23 @@ def batch_to_arrow(batch: ColumnarBatch):
     return pa.Table.from_arrays(arrays, schema=batch.schema.to_arrow())
 
 
+def empty_column(dt: T.DataType, cap: int, device: torch.device) -> Column:
+    """An all-null column of `cap` rows (a string column is 8 bytes wide,
+    the narrowest bucket, as in the JAX package)."""
+    valid = torch.zeros(cap, dtype=torch.bool, device=device)
+    if isinstance(dt, T.StringType):
+        return Column(dt, torch.zeros((cap, 8), dtype=torch.uint8,
+                                      device=device), valid,
+                      torch.zeros(cap, dtype=torch.int32, device=device))
+    return Column(dt, torch.zeros(cap, dtype=torch_dtype(dt), device=device),
+                  valid)
+
+
 def empty_batch(schema: Schema, device: torch.device,
                 capacity: int = 0) -> ColumnarBatch:
     cap = row_bucket(max(capacity, 1))
-    cols = tuple(Column(dt, torch.zeros(cap, dtype=torch_dtype(dt),
-                                        device=device),
-                        torch.zeros(cap, dtype=torch.bool, device=device))
-                 for dt in schema.types)
-    return ColumnarBatch(schema, cols,
+    return ColumnarBatch(schema, tuple(empty_column(dt, cap, device)
+                                       for dt in schema.types),
                          torch.tensor(0, dtype=torch.int32, device=device))
 
 

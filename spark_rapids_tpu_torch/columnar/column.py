@@ -1,14 +1,22 @@
 """Device column vectors (`spark_rapids_tpu/columnar/column.py`, fixed-width
-types only).
+types and flat strings).
 
-A `Column` is a plain dataclass of two torch tensors on one device: a data
+A `Column` is a plain dataclass of torch tensors on one device: a data
 buffer and a bool validity mask, both padded to a capacity bucket (see
-padding.py). Rows at or beyond the batch's logical row count are padding
-whose data AND validity contents are unspecified; kernels mask with the
-batch row mask wherever padding could leak into results. Data under null
-rows is unspecified too.
+padding.py), plus int32 lengths for a STRING column. Rows at or beyond the
+batch's logical row count are padding whose data AND validity contents are
+unspecified; kernels mask with the batch row mask wherever padding could
+leak into results. Data under null rows is unspecified too.
 
-This slice carries BOOLEAN, INT, LONG, DOUBLE and DATE. Strings, decimals,
+A STRING column is the JAX package's flat layout: data uint8[cap, w] with
+w = width_bucket(longest value) and lengths int32[cap]. The bytes past each
+row's length are zero, so equality, the hash and the sort keys may read the
+whole row. Every operation that builds a byte matrix keeps that invariant.
+A value longer than `spark.rapids.tpu.string.headWidth` needs the JAX
+package's long-string overflow layout, which is not ported: it raises
+NotImplementedError.
+
+This slice carries BOOLEAN, INT, LONG, DOUBLE, DATE and STRING. Decimals,
 timestamps, the narrow integers, FLOAT and nested types wait for later
 slices and raise NotImplementedError here, at plan time.
 """
@@ -16,16 +24,17 @@ slices and raise NotImplementedError here, at plan time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import types as T
-from .padding import row_bucket
+from ..config import get_default_conf
+from .padding import row_bucket, width_bucket
 
-__all__ = ["Column", "torch_dtype", "check_supported",
-           "from_arrow", "to_arrow"]
+__all__ = ["Column", "torch_dtype", "check_supported", "head_width",
+           "check_string_widths", "from_arrow", "to_arrow"]
 
 _TORCH_DTYPES = {
     T.BooleanType: torch.bool,
@@ -33,6 +42,7 @@ _TORCH_DTYPES = {
     T.LongType: torch.int64,
     T.DoubleType: torch.float64,
     T.DateType: torch.int32,
+    T.StringType: torch.uint8,
 }
 
 
@@ -41,12 +51,42 @@ def check_supported(dt: T.DataType, what: str = "column") -> None:
         raise NotImplementedError(
             f"{what} type {dt.simple_string()} is not supported by "
             "spark_rapids_tpu_torch yet (this slice carries boolean, int, "
-            "long, double and date)")
+            "long, double, date and string)")
 
 
 def torch_dtype(dt: T.DataType) -> torch.dtype:
+    """The element type of the data buffer (uint8 bytes for STRING)."""
     check_supported(dt)
     return _TORCH_DTYPES[type(dt)]
+
+
+def head_width(conf=None) -> int:
+    """Widest flat string row: the width bucket of
+    spark.rapids.tpu.string.headWidth (256 by default)."""
+    conf = conf or get_default_conf()
+    return width_bucket(int(conf.get("spark.rapids.tpu.string.headWidth")))
+
+
+def _raise_too_long(longest: int, limit: int) -> None:
+    raise NotImplementedError(
+        f"a string of {longest} bytes exceeds "
+        f"spark.rapids.tpu.string.headWidth ({limit}); the long-string "
+        "overflow layout is not supported by spark_rapids_tpu_torch yet")
+
+
+def check_string_widths(table, conf=None) -> None:
+    """Raise NotImplementedError when a string column of an Arrow table holds
+    a value longer than the flat layout's head width (the plan-time form of
+    the check `from_arrow` makes)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    limit = head_width(conf)
+    for col in table.columns:
+        if len(col) and (pa.types.is_string(col.type)
+                         or pa.types.is_large_string(col.type)):
+            longest = pc.max(pc.binary_length(col)).as_py() or 0
+            if longest > limit:
+                _raise_too_long(longest, limit)
 
 
 @dataclasses.dataclass
@@ -54,23 +94,63 @@ class Column:
     dtype: T.DataType
     data: torch.Tensor
     validity: torch.Tensor
+    lengths: Optional[torch.Tensor] = None  # int32[cap], STRING only
 
     @property
     def capacity(self) -> int:
         return int(self.data.shape[0])
 
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.dtype, T.StringType)
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The row-aligned buffers: data, validity (, lengths)."""
+        out = [self.data, self.validity]
+        if self.lengths is not None:
+            out.append(self.lengths)
+        return out
+
 
 def _pad_to(arr: np.ndarray, cap: int) -> np.ndarray:
-    """Pad to the capacity; always a writable array that torch may own
-    (Arrow's zero-copy buffers are read-only)."""
+    """Pad the leading dim to the capacity; always a writable array that
+    torch may own (Arrow's zero-copy buffers are read-only)."""
     if arr.shape[0] == cap:
         return arr if arr.flags.writeable else arr.copy()
-    return np.pad(arr, (0, cap - arr.shape[0]))
+    return np.pad(arr, [(0, cap - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1))
 
 
-def from_arrow(arr, device: torch.device,
-               capacity: Optional[int] = None) -> Tuple[Column, int]:
-    """Arrow array -> device Column; returns (column, num_rows)."""
+def _string_matrix(arr, cap: int, limit: int):
+    """Arrow string array -> (uint8[cap, w] zero-tailed bytes, int32[cap]
+    lengths), w the width bucket of the longest value."""
+    import pyarrow as pa
+    if pa.types.is_string(arr.type):
+        arr = arr.cast(pa.large_string())
+    n = len(arr)
+    offsets = np.frombuffer(arr.buffers()[1], dtype=np.int64, count=n + 1,
+                            offset=arr.offset * 8)
+    lens = np.diff(offsets)
+    if arr.null_count:  # a null slot's bytes are not part of the matrix
+        lens = np.where(np.asarray(arr.is_valid()), lens, 0)
+    longest = int(lens.max()) if n else 0
+    if longest > limit:
+        _raise_too_long(longest, limit)
+    w = width_bucket(max(longest, 1))
+    chars = np.zeros((cap, w), dtype=np.uint8)
+    total = int(lens.sum())
+    if total:
+        databuf = np.frombuffer(arr.buffers()[2], dtype=np.uint8)
+        row_id = np.repeat(np.arange(n), lens)
+        out_starts = np.cumsum(lens) - lens
+        within = np.arange(total) - np.repeat(out_starts, lens)
+        chars[row_id, within] = databuf[np.repeat(offsets[:-1], lens) + within]
+    return chars, _pad_to(lens.astype(np.int32), cap)
+
+
+def from_arrow(arr, device: torch.device, capacity: Optional[int] = None,
+               max_string_width: Optional[int] = None) -> Tuple[Column, int]:
+    """Arrow array -> device Column; returns (column, num_rows). A string
+    longer than `max_string_width` (default: head_width()) raises."""
     import pyarrow as pa
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
@@ -80,6 +160,12 @@ def from_arrow(arr, device: torch.device,
     cap = capacity or row_bucket(n)
     valid = np.ones(n, dtype=bool) if arr.null_count == 0 else \
         np.asarray(arr.is_valid())
+    valid_t = torch.from_numpy(_pad_to(valid, cap)).to(device)
+    if isinstance(dtype, T.StringType):
+        chars, lens = _string_matrix(arr, cap,
+                                     max_string_width or head_width())
+        return Column(dtype, torch.from_numpy(chars).to(device), valid_t,
+                      torch.from_numpy(lens).to(device)), n
     if isinstance(dtype, T.DateType):
         # fill nulls BEFORE to_numpy: a nullable int array otherwise
         # converts via float64
@@ -91,14 +177,25 @@ def from_arrow(arr, device: torch.device,
         vals = arr.to_numpy(zero_copy_only=False)
     vals = np.ascontiguousarray(vals, dtype=dtype.np_dtype)
     return Column(dtype, torch.from_numpy(_pad_to(vals, cap)).to(device),
-                  torch.from_numpy(_pad_to(valid, cap)).to(device)), n
+                  valid_t), n
 
 
 def to_arrow(col: Column, num_rows: int):
     """Device Column -> Arrow array (host boundary)."""
     import pyarrow as pa
     valid = col.validity[:num_rows].cpu().numpy()
-    vals = col.data[:num_rows].cpu().numpy()
     mask = ~valid
+    if col.is_string:
+        lens = np.where(valid, col.lengths[:num_rows].cpu().numpy(), 0)
+        chars = col.data[:num_rows].cpu().numpy()
+        keep = np.arange(chars.shape[1])[None, :] < lens[:, None]
+        offsets = np.concatenate(([0], np.cumsum(lens, dtype=np.int64)))
+        return pa.Array.from_buffers(
+            pa.large_string(), num_rows,
+            [pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()),
+             pa.py_buffer(offsets.tobytes()),
+             pa.py_buffer(chars[keep].tobytes())],
+            null_count=int(mask.sum())).cast(pa.string())
+    vals = col.data[:num_rows].cpu().numpy()
     return pa.array(vals, type=T.to_arrow(col.dtype),
                     mask=mask if mask.any() else None)

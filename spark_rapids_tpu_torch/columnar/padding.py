@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from ..config import get_default_conf
 
-__all__ = ["LANE", "row_bucket"]
+__all__ = ["LANE", "row_bucket", "width_bucket"]
 
 LANE = 128
 
@@ -28,4 +28,18 @@ def row_bucket(n: int, min_rows: int = 0) -> int:
     cap = max(min_rows, LANE)
     while cap < n:
         cap = ((int(cap * growth) + LANE - 1) // LANE) * LANE
+    return cap
+
+
+def width_bucket(w: int) -> int:
+    """String byte-matrix width bucket: multiples of 8 up to a lane, then
+    powers of two. Every bucket is a multiple of 8, so a row packs into
+    whole int64 words (ops/rowops.sort_keys_for)."""
+    if w <= 8:
+        return 8
+    if w <= LANE:
+        return (w + 7) & ~7
+    cap = LANE
+    while cap < w:
+        cap <<= 1
     return cap

@@ -4,7 +4,10 @@ Grouping is sort-by-keys + boundary detection + segmented reductions. One
 input batch aggregates in one pass; several are aggregated per batch into
 partial buffers, merged pairwise, and finalised, which is the JAX engine's
 merge-pass structure (without its spill and OOM-retry machinery). Sum,
-Count, Min and Max carry one partial buffer each.
+Count, Min and Max carry one partial buffer each; Average carries two, a
+DOUBLE sum and a LONG count. Group keys may be strings: they sort by their
+packed words (ops/rowops.sort_keys_for). MIN and MAX over strings wait for
+a later slice and raise at plan time.
 
 Modes, as in the JAX engine: complete (raw rows -> final values), partial
 (raw rows -> partial buffers, one output per input batch, no merge across
@@ -25,7 +28,8 @@ import torch
 from .. import types as T
 from ..columnar.batch import ColumnarBatch, Schema, empty_batch
 from ..columnar.column import torch_dtype
-from ..expr.aggregates import AggregateFunction, Count, Max, Min, Sum
+from ..expr.aggregates import AggregateFunction, Average, Count, Max, Min, \
+    Sum
 from ..expr.base import Expression, Vec, bind_references, output_name
 from ..ops.rowops import (compact_vecs, gather_vecs, group_ids_from_sorted,
                           lexsort_indices, segment_reduce, sort_keys_for)
@@ -35,7 +39,7 @@ from .coalesce import concat_batches
 
 __all__ = ["TpuHashAggregateExec", "SUPPORTED_AGGREGATES"]
 
-SUPPORTED_AGGREGATES = (Sum, Count, Min, Max)
+SUPPORTED_AGGREGATES = (Sum, Count, Min, Max, Average)
 
 
 def _sorted_by_keys(key_vecs: List[Vec], all_vecs: List[Vec], row_mask):
@@ -72,7 +76,8 @@ class TpuHashAggregateExec(UnaryTpuExec):
             if not isinstance(a.func, SUPPORTED_AGGREGATES):
                 raise NotImplementedError(
                     f"aggregate {type(a.func).__name__} is not supported by "
-                    "spark_rapids_tpu_torch yet (sum, count, min, max)")
+                    "spark_rapids_tpu_torch yet (sum, count, min, max, "
+                    "average)")
             f = a.func
             if f.child is not None:
                 f = f.with_children([bind_references(f.child, bind_schema)])
@@ -107,14 +112,10 @@ class TpuHashAggregateExec(UnaryTpuExec):
         mask = ctx.row_mask
         cap = batch.capacity
         nk = len(self._bound_groups)
-        if input_partial:
+        if input_partial:  # keys, then each aggregate's partial buffers
             keys = list(vecs[:nk])
-            buf_vecs, off = [], nk
-            for a in self._bound_aggs:
-                k = len(a.func.partial_types())
-                buf_vecs.extend(vecs[off:off + k])
-                off += k
-        else:
+            buf_vecs = list(vecs[nk:])
+        else:  # one value per aggregate (count(*) counts live rows)
             keys = [e.eval(ctx, vecs) for e in self._bound_groups]
             buf_vecs = [Vec(T.LONG, torch.ones(cap, dtype=torch.int64,
                                                device=mask.device), mask)
@@ -134,36 +135,50 @@ class TpuHashAggregateExec(UnaryTpuExec):
         out_vecs: List[Vec] = []
         if skeys:  # representative key rows: group starts to the front
             out_vecs.extend(compact_vecs(skeys, starts)[0])
-        for a, v in zip(self._bound_aggs, sbufs):
-            out_vecs.append(self._agg_one(a.func, v, gid, cap, sorted_mask,
-                                          input_partial))
+        bi = 0
+        for a in self._bound_aggs:
+            k = len(a.func.partial_types()) if input_partial else 1
+            out_vecs.extend(self._agg_one(a.func, sbufs[bi:bi + k], gid, cap,
+                                          sorted_mask, input_partial,
+                                          output_partial))
+            bi += k
         schema = self._partial_schema if output_partial else \
             self._final_schema
         return vecs_to_batch(schema, out_vecs, ng)
 
     @staticmethod
-    def _agg_one(func: AggregateFunction, v: Vec, gid, cap: int, row_mask,
-                 merging: bool) -> Vec:
-        valid = v.validity & row_mask
-
-        def seg(op, acc_dtype=None):
+    def _agg_one(func: AggregateFunction, bufs: List[Vec], gid, cap: int,
+                 row_mask, merging: bool, output_partial: bool) -> List[Vec]:
+        """One aggregate's output: its partial buffers when output_partial,
+        else its final value. `bufs` holds its partial buffers when
+        merging, else its one input value."""
+        def reduce(op, v: Vec, acc_dtype=None):
             data = v.data if acc_dtype is None else v.data.to(acc_dtype)
-            out = segment_reduce(op, data, gid, cap, valid)
-            return out, segment_reduce("count", data, gid, cap, valid) > 0
+            return segment_reduce(op, data, gid, cap, v.validity & row_mask)
+
+        def has(v: Vec):  # the group holds a valid row
+            return reduce("count", v) > 0
 
         ones = torch.ones(cap, dtype=torch.bool, device=row_mask.device)
+        v = bufs[0]
         if isinstance(func, Count):
-            data = seg("sum", torch.int64)[0] if merging else \
-                segment_reduce("count", v.data, gid, cap, valid)
-            return Vec(T.LONG, data, ones)
+            data = reduce("sum", v, torch.int64) if merging else \
+                reduce("count", v)
+            return [Vec(T.LONG, data, ones)]
+        if isinstance(func, Average):
+            s = reduce("sum", v, torch.float64)
+            c = reduce("sum", bufs[1], torch.int64) if merging else \
+                reduce("count", v)
+            if output_partial:
+                return [Vec(T.DOUBLE, s, c > 0), Vec(T.LONG, c, ones)]
+            return [Vec(T.DOUBLE, s / torch.clamp(c, min=1), c > 0)]
         if isinstance(func, Sum):
             out_t = func.data_type
             acc = torch.float64 if T.is_floating(out_t) else torch.int64
-            data, has = seg("sum", acc)
-            return Vec(out_t, data.to(torch_dtype(out_t)), has)
-        op = "min" if isinstance(func, Min) else "max"
-        data, has = seg(op)
-        return Vec(v.dtype, data.to(torch_dtype(v.dtype)), has)
+            data = reduce("sum", v, acc)
+            return [Vec(out_t, data.to(torch_dtype(out_t)), has(v))]
+        data = reduce("min" if isinstance(func, Min) else "max", v)
+        return [Vec(v.dtype, data.to(torch_dtype(v.dtype)), has(v))]
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         batches = list(self.child.execute())

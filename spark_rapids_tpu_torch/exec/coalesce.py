@@ -2,7 +2,10 @@
 
 Concatenation drops inter-batch padding: concatenate the padded columns,
 stable-compact on the concatenated live-row mask, then cut to the output
-bucket the host chose from the summed row counts.
+bucket the host chose from the summed row counts. String columns of
+unequal width buckets concatenate at the widest, zero-padded; the
+`rebucket_string_widths` narrowing of the JAX package is not ported, so a
+column never narrows here.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.padding import row_bucket
-from ..expr.base import Vec
+from ..expr.base import Vec, pad_width
 from ..ops.rowops import compact_vecs
 from .base import batch_vecs, vecs_to_batch
 
@@ -29,12 +32,18 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     schema = batches[0].schema
     masks = torch.cat([b.row_mask() for b in batches])
     per_batch = [batch_vecs(b) for b in batches]
-    merged = [Vec(schema.types[i],
-                  torch.cat([vs[i].data for vs in per_batch]),
-                  torch.cat([vs[i].validity for vs in per_batch]))
-              for i in range(len(schema.types))]
+    merged = []
+    for i, dt in enumerate(schema.types):
+        vs = [b[i] for b in per_batch]
+        datas = [v.data for v in vs]
+        lengths = None
+        if vs[0].is_string:
+            w = max(d.shape[1] for d in datas)
+            datas = [pad_width(d, w) for d in datas]
+            lengths = torch.cat([v.lengths for v in vs])
+        merged.append(Vec(dt, torch.cat(datas),
+                          torch.cat([v.validity for v in vs]), lengths))
     compacted, total = compact_vecs(merged, masks)
     # like the JAX engine: the capacity is min(bucket, summed capacities)
-    out = [Vec(v.dtype, v.data[:out_cap], v.validity[:out_cap])
-           for v in compacted]
+    out = [v.gather(slice(0, out_cap)) for v in compacted]
     return vecs_to_batch(schema, out, total)

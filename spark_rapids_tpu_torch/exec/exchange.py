@@ -7,7 +7,9 @@ least two positions, so the exec carries the mesh path `_exchange_via_mesh`
 alone: the child's batches are concatenated, split into one shard per
 position, and moved by `parallel/collective.py`. It yields exactly one
 batch per position, empties included, so the zipped join and the per-shard
-final aggregate downstream stay aligned position by position. The
+final aggregate downstream stay aligned position by position. A string
+column crosses as two leaves, its byte matrix and its lengths, and a string
+key partitions by its murmur3 like any other. The
 MULTITHREADED and CACHE_ONLY shuffle managers, the slicing path for an
 exchange off the mesh, the sharded plan's aligned input, and range,
 round-robin and single partitioning wait for later slices and raise at plan
@@ -86,7 +88,8 @@ class TpuShuffleExchangeExec(UnaryTpuExec):
         cap = row_bucket(max(-(-batch.row_count() // ndev), 1))
         g = batch.repadded(ndev * cap)
         pid = self.partitioner.ids_for_batch(g)
-        leaves = [t for c in g.columns for t in (c.data, c.validity)]
+        per_col = [len(c.leaves()) for c in g.columns]
+        leaves = [t for c in g.columns for t in c.leaves()]
         shards = [[l[s * cap:(s + 1) * cap].to(mesh[s]) for l in leaves]
                   for s in range(ndev)]
         pids = [pid[s * cap:(s + 1) * cap].to(mesh[s]) for s in range(ndev)]
@@ -103,8 +106,9 @@ class TpuShuffleExchangeExec(UnaryTpuExec):
             slot_cap = min(slot_cap * 2, cap)
         MESH_EXCHANGES += 1
         for out_leaves, total in outs:
-            cols = tuple(Column(dt, out_leaves[2 * i], out_leaves[2 * i + 1])
-                         for i, dt in enumerate(schema.types))
+            it = iter(out_leaves)
+            cols = tuple(Column(dt, *[next(it) for _ in range(k)])
+                         for dt, k in zip(schema.types, per_col))
             yield ColumnarBatch(schema, cols, total)
 
     def _arg_string(self):

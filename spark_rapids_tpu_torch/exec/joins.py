@@ -12,8 +12,10 @@ Left-outer rows come from the unmatched masks; semi/anti reduce the
 matches instead of expanding. The build side is the right child. Under the
 distribution pass (exec/requirements.py) both children are co-partitioned
 key-exchanges and the join zips them: batch p against batch p.
-Right/full outer joins, join conditions and the sub-partition path for
-oversized builds wait for a later slice.
+Payload columns of any carried type, strings included, ride the gathers.
+Join keys are the int and long families. Right/full outer joins, join
+conditions and the sub-partition path for oversized builds wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -127,7 +129,7 @@ def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
     left_out = gather_vecs(pvecs, pi)
     right_out = gather_vecs(bvecs, bi)
     if outer_left:  # null out the right side where no match
-        right_out = [Vec(v.dtype, v.data, v.validity & matched)
+        right_out = [v.with_validity(v.validity & matched)
                      for v in right_out]
     return compact_vecs(left_out + right_out, keep)
 

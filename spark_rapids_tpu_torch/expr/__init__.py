@@ -4,8 +4,11 @@ from .base import (Expression, LeafExpression, Literal,  # noqa: F401
 from .arithmetic import Add, Subtract, Multiply  # noqa: F401
 from .predicates import (EqualTo, LessThan, LessThanOrEqual,  # noqa: F401
                          GreaterThan, GreaterThanOrEqual, And, Or, Not)
+from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401
+from .conditional import If, CaseWhen, Least, Greatest  # noqa: F401
 from .hashing import hash_vecs  # noqa: F401
-from .aggregates import AggregateFunction, Sum, Count, Min, Max  # noqa: F401
+from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
+                         Max, Average)
 
 
 def col(name):  # convenience constructors for tests / DataFrame API

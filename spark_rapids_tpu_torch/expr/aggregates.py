@@ -1,9 +1,10 @@
 """Aggregate function descriptors (`spark_rapids_tpu/expr/aggregates.py`:
-Sum, Count, Min, Max).
+Sum, Count, Min, Max, Average).
 
 Each aggregate declares its partial-buffer types; the hash-aggregate exec
 lowers them to sort-based segmented reductions. `Sum` over integrals widens
-to LONG.
+to LONG. `Average` carries two partial buffers, a DOUBLE sum and a LONG
+count, and divides at the end.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import List, Optional
 from .. import types as T
 from .base import Expression
 
-__all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max"]
+__all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average"]
 
 
 class AggregateFunction(Expression):
@@ -65,3 +66,15 @@ class Max(AggregateFunction):
     @property
     def data_type(self):
         return self.child.data_type
+
+
+class Average(AggregateFunction):
+    @property
+    def data_type(self):
+        ct = self.child.data_type
+        if isinstance(ct, T.DecimalType):
+            return T.DecimalType.bounded(ct.precision + 4, ct.scale + 4)
+        return T.DOUBLE
+
+    def partial_types(self) -> List[T.DataType]:
+        return [T.DOUBLE, T.LONG]

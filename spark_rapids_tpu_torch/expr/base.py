@@ -15,28 +15,78 @@ from typing import List, Optional, Sequence
 import torch
 
 from .. import types as T
-from ..columnar.column import Column, torch_dtype
+from ..columnar.column import Column, head_width, torch_dtype
+from ..columnar.padding import width_bucket
 
 __all__ = ["Vec", "EvalContext", "Expression", "LeafExpression", "Literal",
            "AttributeReference", "BoundReference", "Alias",
-           "bind_references", "output_name", "and_validity"]
+           "bind_references", "output_name", "and_validity",
+           "require_flat_strings", "pad_common_width", "pad_width"]
 
 
 @dataclasses.dataclass
 class Vec:
+    """dtype + data + validity, plus int32 lengths for a STRING value (data
+    is then the uint8[cap, w] byte matrix, zero past each row's length)."""
     dtype: T.DataType
     data: torch.Tensor
     validity: torch.Tensor
+    lengths: Optional[torch.Tensor] = None
+
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.dtype, T.StringType)
 
     @staticmethod
     def from_column(col: Column) -> "Vec":
-        return Vec(col.dtype, col.data, col.validity)
+        return Vec(col.dtype, col.data, col.validity, col.lengths)
 
     def to_column(self) -> Column:
-        return Column(self.dtype, self.data, self.validity)
+        return Column(self.dtype, self.data, self.validity, self.lengths)
 
     def gather(self, idx: torch.Tensor) -> "Vec":
-        return Vec(self.dtype, self.data[idx], self.validity[idx])
+        return Vec(self.dtype, self.data[idx], self.validity[idx],
+                   None if self.lengths is None else self.lengths[idx])
+
+    def with_validity(self, validity: torch.Tensor) -> "Vec":
+        return Vec(self.dtype, self.data, validity, self.lengths)
+
+
+def require_flat_strings(v: Vec, op: str) -> Vec:
+    """Gate for the kernels that read every byte of a string (equality,
+    ordering, hashing, sort keys, merges): the value must be the flat byte
+    matrix, no wider than the head width. The JAX package moves wider
+    values to its overflow layout and sends such an op to the CPU; this
+    engine has neither, so it raises."""
+    if not v.is_string:
+        return v
+    if v.lengths is None or v.data.dim() != 2 or v.data.dtype != torch.uint8:
+        raise TypeError(f"{op}: a string value must be a uint8 byte matrix "
+                        "with lengths")
+    if v.data.shape[1] > head_width():
+        raise NotImplementedError(
+            f"{op} over strings wider than spark.rapids.tpu.string.headWidth "
+            "needs the long-string overflow layout, which is not supported "
+            "by spark_rapids_tpu_torch yet")
+    return v
+
+
+def pad_common_width(a: Vec, b: Vec):
+    """The byte matrices of two string values zero-padded to one width
+    (`spark_rapids_tpu/expr/strings.py` pad_common_width). Every string
+    compare and merge goes through here; zero padding keeps the bytes past
+    each row's length zero."""
+    require_flat_strings(a, "string byte-matrix op")
+    require_flat_strings(b, "string byte-matrix op")
+    w = max(a.data.shape[1], b.data.shape[1])
+    return pad_width(a.data, w), pad_width(b.data, w)
+
+
+def pad_width(data: torch.Tensor, w: int) -> torch.Tensor:
+    """uint8[cap, v] -> uint8[cap, w] (w >= v), zeros on the right."""
+    if data.shape[1] == w:
+        return data
+    return torch.nn.functional.pad(data, (0, w - data.shape[1]))
 
 
 @dataclasses.dataclass
@@ -197,6 +247,8 @@ def _infer_literal_type(v) -> T.DataType:
         return T.INT if -2**31 <= v < 2**31 else T.LONG
     if isinstance(v, float):
         return T.DOUBLE
+    if isinstance(v, str):
+        return T.STRING
     raise NotImplementedError(f"literal {v!r} of type {type(v).__name__} is "
                               "not supported by spark_rapids_tpu_torch yet")
 
@@ -217,14 +269,21 @@ class Literal(LeafExpression):
 
     def _compute(self, ctx: EvalContext, *children: Vec) -> Vec:
         n = ctx.row_mask.shape[0]
-        tdt = torch_dtype(self._dtype)
+        dev = ctx.device
         if self.value is None:
-            return Vec(self._dtype,
-                       torch.zeros(n, dtype=tdt, device=ctx.device),
-                       torch.zeros(n, dtype=torch.bool, device=ctx.device))
-        return Vec(self._dtype,
-                   torch.full((n,), self.value, dtype=tdt, device=ctx.device),
-                   torch.ones(n, dtype=torch.bool, device=ctx.device))
+            from ..columnar.batch import empty_column
+            return Vec.from_column(empty_column(self._dtype, n, dev))
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        if isinstance(self._dtype, T.StringType):
+            b = self.value.encode("utf-8")
+            row = torch.zeros(width_bucket(max(len(b), 1)), dtype=torch.uint8)
+            row[:len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+            return Vec(self._dtype, row.to(dev).expand(n, -1).contiguous(),
+                       ones, torch.full((n,), len(b), dtype=torch.int32,
+                                        device=dev))
+        return Vec(self._dtype, torch.full((n,), self.value,
+                                           dtype=torch_dtype(self._dtype),
+                                           device=dev), ones)
 
     def __repr__(self):
         if self._dtype == _infer_literal_type(self.value):

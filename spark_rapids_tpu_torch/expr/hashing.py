@@ -1,5 +1,5 @@
-"""Spark-exact Murmur3 hashing for the int and long families
-(`spark_rapids_tpu/expr/hashing.py`).
+"""Spark-exact Murmur3 hashing for the int and long families, doubles and
+strings (`spark_rapids_tpu/expr/hashing.py`).
 
 Spark's murmur3_x86_32 is uint32 arithmetic with wraparound. torch's
 uint32 lacks most operations, so every value here is an int32 holding the
@@ -9,7 +9,11 @@ keeps the sign), the same translation `ops/pallas_probe.py` of the JAX
 package uses. This is also the plain version that the hand-written CUDA
 kernel in ops/pallas_probe.py is held against, bit for bit.
 
-Strings, floats and decimals wait for a later slice.
+A double hashes as the long of its IEEE bits (Java doubleToLongBits:
+-0.0 as 0.0, every NaN as the canonical NaN). A string hashes its bytes
+as Spark's variant does: whole little-endian 4-byte words, then each byte
+of the tail as its own sign-extended block, then the length. FLOAT and
+decimals wait for a later slice.
 """
 
 from __future__ import annotations
@@ -17,10 +21,10 @@ from __future__ import annotations
 import torch
 
 from .. import types as T
-from .base import Vec
+from .base import Vec, require_flat_strings
 
-__all__ = ["hash_vec", "hash_vecs", "hash_int", "hash_long", "INT_FAMILY",
-           "LONG_FAMILY"]
+__all__ = ["hash_vec", "hash_vecs", "hash_int", "hash_long", "hash_double",
+           "hash_string", "INT_FAMILY", "LONG_FAMILY"]
 
 INT_FAMILY = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
               T.DateType)
@@ -54,7 +58,7 @@ def _mix_h1(h1, k1):
     return _rotl(h1 ^ k1, 13) * 5 + _M5
 
 
-def _fmix(h1, length: int):
+def _fmix(h1, length):
     h1 = h1 ^ length
     h1 = h1 ^ _srl(h1, 16)
     h1 = h1 * _F1
@@ -75,6 +79,37 @@ def hash_long(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _fmix(_mix_h1(_mix_h1(seed, _mix_k1(low)), _mix_k1(high)), 8)
 
 
+_CANONICAL_NAN = 0x7FF8000000000000
+
+
+def hash_double(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """murmur3 of one float64 per row, through its doubleToLongBits."""
+    v = torch.where(v == 0.0, torch.zeros_like(v), v)  # -0.0 -> 0.0
+    bits = torch.where(torch.isnan(v), _CANONICAL_NAN, v.view(torch.int64))
+    return hash_long(bits, seed)
+
+
+def hash_string(chars: torch.Tensor, lengths: torch.Tensor,
+                seed: torch.Tensor) -> torch.Tensor:
+    """murmur3 of one zero-tailed uint8[n, w] row per string (w a multiple
+    of 4), Spark's tail variant."""
+    w = chars.shape[1]
+    lens = lengths.to(torch.int32)
+    aligned = lens - lens % 4
+    words = chars.contiguous().view(torch.int32)  # little-endian words
+    h1 = seed
+    for i in range(w // 4):
+        h1 = torch.where(4 * i + 4 <= aligned,
+                         _mix_h1(h1, _mix_k1(words[:, i])), h1)
+    # the tail: at most 3 bytes, each a sign-extended int block
+    for t in range(3):
+        pos = aligned + t
+        byte = chars.gather(1, pos.clamp(max=w - 1).to(torch.int64)[:, None])
+        block = byte[:, 0].view(torch.int8).to(torch.int32)
+        h1 = torch.where(pos < lens, _mix_h1(h1, _mix_k1(block)), h1)
+    return _fmix(h1, lens)
+
+
 def hash_vec(v: Vec, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the int32 running hash; null rows pass the seed
     through (Spark)."""
@@ -82,10 +117,16 @@ def hash_vec(v: Vec, seed: torch.Tensor) -> torch.Tensor:
         h = hash_int(v.data.to(torch.int32), seed)
     elif isinstance(v.dtype, LONG_FAMILY):
         h = hash_long(v.data.to(torch.int64), seed)
+    elif isinstance(v.dtype, T.DoubleType):
+        h = hash_double(v.data, seed)
+    elif isinstance(v.dtype, T.StringType):
+        require_flat_strings(v, "murmur3")
+        h = hash_string(v.data, v.lengths, seed)
     else:
         raise NotImplementedError(
             f"murmur3 over {v.dtype.simple_string()} is not supported by "
-            "spark_rapids_tpu_torch yet (int and long families only)")
+            "spark_rapids_tpu_torch yet (int and long families, double and "
+            "string)")
     return torch.where(v.validity, h, seed)
 
 

@@ -1,8 +1,12 @@
 """Comparison and boolean predicates with Spark semantics
-(`spark_rapids_tpu/expr/predicates.py`, numeric and boolean operands).
+(`spark_rapids_tpu/expr/predicates.py`: numeric, boolean and string
+operands).
 
 NaN equals NaN and sorts greater than everything; And/Or use Kleene
-three-valued logic (false AND null = false, true OR null = true).
+three-valued logic (false AND null = false, true OR null = true). Strings
+compare bytewise on the zero-padded byte matrix, so a prefix sorts before
+its extensions, which is UTF-8 byte order; equal byte images tie-break on
+length (UTF8String.compareTo).
 """
 
 from __future__ import annotations
@@ -11,10 +15,33 @@ import torch
 
 from .. import types as T
 from .arithmetic import BinaryExpression, promote_args
-from .base import EvalContext, Expression, Vec, and_validity
+from .base import EvalContext, Expression, Vec, and_validity, \
+    pad_common_width
 
 __all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual", "And", "Or", "Not"]
+           "GreaterThanOrEqual", "And", "Or", "Not", "string_equal",
+           "string_compare"]
+
+
+def string_equal(a: Vec, b: Vec) -> torch.Tensor:
+    da, db = pad_common_width(a, b)
+    return (da == db).all(dim=1) & (a.lengths == b.lengths)
+
+
+def string_compare(a: Vec, b: Vec) -> torch.Tensor:
+    """int32 -1/0/1 per row: the first differing byte decides (zero-padded
+    tails make a prefix smaller than its extensions); equal byte images
+    tie-break on length, so a trailing NUL byte still orders after its
+    prefix."""
+    da, db = pad_common_width(a, b)
+    diff = da != db
+    first = diff.to(torch.uint8).argmax(dim=1, keepdim=True)
+    a_byte = da.gather(1, first).squeeze(1)
+    b_byte = db.gather(1, first).squeeze(1)
+    one = torch.ones((), dtype=torch.int32, device=da.device)
+    by_byte = torch.where(a_byte < b_byte, -one, one)
+    by_len = torch.sign(a.lengths.to(torch.int32) - b.lengths.to(torch.int32))
+    return torch.where(diff.any(dim=1), by_byte, by_len.to(torch.int32))
 
 
 class BinaryComparison(BinaryExpression):
@@ -24,7 +51,9 @@ class BinaryComparison(BinaryExpression):
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         validity = and_validity(l.validity, r.validity)
-        if T.is_numeric(l.dtype) or T.is_numeric(r.dtype):
+        if l.is_string:
+            data = self._cmp_string(l, r)
+        elif T.is_numeric(l.dtype) or T.is_numeric(r.dtype):
             l2, r2, dt = promote_args(l, r)
             if T.is_floating(dt):
                 data = self._cmp_float(l2.data, r2.data)
@@ -40,6 +69,9 @@ class BinaryComparison(BinaryExpression):
     def _cmp_float(self, a, b):
         return self._cmp(a, b)
 
+    def _cmp_string(self, l: Vec, r: Vec):
+        return self._cmp(string_compare(l, r), 0)
+
 
 class EqualTo(BinaryComparison):
     def _cmp(self, a, b):
@@ -47,6 +79,9 @@ class EqualTo(BinaryComparison):
 
     def _cmp_float(self, a, b):
         return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+    def _cmp_string(self, l: Vec, r: Vec):
+        return string_equal(l, r)
 
 
 class LessThan(BinaryComparison):

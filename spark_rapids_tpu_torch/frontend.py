@@ -53,13 +53,16 @@ class DataFrame:
         return GroupedData(self, []).agg(**named_aggs)
 
     def join(self, other: "DataFrame", on: Union[str, Sequence[str]] = None,
-             how: str = "inner") -> "DataFrame":
-        """Equi join on the `on` key columns."""
+             how: str = "inner", condition: Expression = None) -> "DataFrame":
+        """Equi join on the `on` key columns. The JAX package's signature:
+        a `condition`, or no keys, is planned and then refused at plan time
+        (plan/overrides.py), since join conditions and nested-loop joins are
+        not in this engine yet."""
         keys = [] if on is None else ([on] if isinstance(on, str)
                                       else list(on))
         return DataFrame(self.session, N.CpuHashJoinExec(
             self.plan, other.plan, [_as_expr(k) for k in keys],
-            [_as_expr(k) for k in keys], how))
+            [_as_expr(k) for k in keys], how, condition=condition))
 
     def collect(self):
         """Execute and return a pyarrow Table."""

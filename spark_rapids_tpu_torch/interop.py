@@ -26,27 +26,41 @@ def batch_from_numpy(schema_fields: Sequence[Tuple[str, Union[str,
                      validities: Sequence[np.ndarray], num_rows: int,
                      device) -> ColumnarBatch:
     """schema_fields: (name, type) pairs, the type a DataType of this
-    package or its simple string ("long", "date", ...). datas/validities:
-    one padded array per field, all of one capacity. num_rows: the logical
-    row count (<= capacity)."""
+    package or its simple string ("long", "date", "string", ...).
+    datas/validities: one padded array per field, all of one capacity; a
+    string field's data is a (uint8[cap, w] byte matrix, int32[cap]
+    lengths) pair. num_rows: the logical row count (<= capacity)."""
     device = torch.device(device)
     names = tuple(n for n, _ in schema_fields)
     types = tuple(T.parse_type(t) if isinstance(t, str) else t
                   for _, t in schema_fields)
     if not (len(names) == len(datas) == len(validities)):
         raise ValueError("one data and one validity array per field")
-    caps = {len(a) for a in datas} | {len(a) for a in validities}
+
+    def host(a, dtype):
+        return torch.from_numpy(np.require(a, dtype, ["C", "W"]))
+
+    cols = []
+    for dt, d, v in zip(types, datas, validities):
+        valid = host(v, bool)
+        if isinstance(dt, T.StringType):
+            chars, lens = d
+            chars, lens = host(chars, np.uint8), host(lens, np.int32)
+            if chars.dim() != 2 or lens.shape != chars.shape[:1]:
+                raise ValueError("a string field takes (uint8[cap, w], "
+                                 "int32[cap])")
+            cols.append(Column(dt, chars.to(device), valid.to(device),
+                               lens.to(device)))
+        else:
+            data = host(d, dt.np_dtype)
+            cols.append(Column(dt, data.to(device=device,
+                                           dtype=torch_dtype(dt)),
+                               valid.to(device)))
+    caps = {c.capacity for c in cols} | {len(v) for v in validities}
     if len(caps) != 1:
         raise ValueError(f"all buffers must share one capacity, got {caps}")
     if not 0 <= num_rows <= caps.pop():
         raise ValueError(f"num_rows {num_rows} outside [0, capacity]")
-    cols = []
-    for dt, d, v in zip(types, datas, validities):
-        tdt = torch_dtype(dt)
-        data = torch.from_numpy(np.require(d, dt.np_dtype, ["C", "W"]))
-        valid = torch.from_numpy(np.require(v, bool, ["C", "W"]))
-        cols.append(Column(dt, data.to(device=device, dtype=tdt),
-                           valid.to(device)))
     return ColumnarBatch(Schema(names, types), tuple(cols),
                          torch.tensor(num_rows, dtype=torch.int32,
                                       device=device))

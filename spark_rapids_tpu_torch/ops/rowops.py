@@ -4,7 +4,10 @@ stable compaction, gather, multi-key sort, group ids, segmented reduction.
 Compaction keeps the padded capacity and returns a new logical count as a
 device scalar: a stable sort on the keep flags, no host sync. torch has no
 lexsort, so `lexsort_indices` chains stable sorts from the least
-significant key up, which gives the same permutation. torch's
+significant key up, which gives the same permutation. The JAX package
+sorts a string key by one key per byte column; here each 8 bytes pack into
+one int64 word, big-endian with the top bit flipped (torch sorts signed
+values), which is the same order in an eighth of the sorts. torch's
 `index_add_` and `scatter_reduce_` raise on out-of-range indices where JAX
 drops them, so `segment_reduce` sends such rows to a spare slot.
 """
@@ -16,9 +19,10 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import types as T
-from ..expr.base import Vec
+from ..expr.base import Vec, require_flat_strings
 
-__all__ = ["gather_vecs", "compact_vecs", "sort_keys_for", "lexsort_indices",
+__all__ = ["gather_vecs", "compact_vecs", "string_sort_words",
+           "sort_keys_for", "lexsort_indices",
            "key_change_flags", "group_ids_from_sorted", "segment_sum",
            "segment_reduce"]
 
@@ -36,13 +40,28 @@ def compact_vecs(vecs: Sequence[Vec],
     return gather_vecs(vecs, order), new_count
 
 
+def string_sort_words(chars: torch.Tensor) -> List[torch.Tensor]:
+    """uint8[n, w] (w a multiple of 8) -> w/8 int64 keys, most significant
+    first, whose signed order is the unsigned bytewise order of the rows."""
+    n, w = chars.shape
+    words = chars.reshape(n, w // 8, 8).flip(-1).contiguous() \
+        .view(torch.int64).reshape(n, w // 8)  # big-endian words
+    words = words ^ torch.iinfo(torch.int64).min  # flip the top bit
+    return list(words.unbind(1))
+
+
 def sort_keys_for(v: Vec) -> List:
     """Sort key tensors for an ascending, nulls-first order over a column
     (the grouping order), MOST significant first: [null position,
-    (NaN position), value]. Descending and nulls-last orders come with the
-    sort exec."""
+    (NaN position), value]. A string's value keys are its packed words,
+    then its length (the tie-break of string_compare). Descending and
+    nulls-last orders come with the sort exec."""
     keys: List = [v.validity.to(torch.int8)]  # null (0) before valid (1)
-    if T.is_floating(v.dtype):
+    if v.is_string:
+        require_flat_strings(v, "sort key over string")
+        keys.extend(string_sort_words(v.data))
+        keys.append(v.lengths)
+    elif T.is_floating(v.dtype):
         nan = torch.isnan(v.data)
         zero = torch.zeros((), dtype=v.data.dtype, device=v.data.device)
         keys.append(nan.to(torch.int8))  # NaN sorts greatest
@@ -71,7 +90,11 @@ def key_change_flags(key_vecs: Sequence[Vec], n: int) -> torch.Tensor:
     change = torch.zeros(n, dtype=torch.bool, device=device)
     for v in key_vecs:
         both_valid = v.validity[1:] & v.validity[:-1]
-        neq = v.data[1:] != v.data[:-1]
+        if v.is_string:  # zero-tailed rows: equal strings, equal bytes
+            neq = (v.data[1:] != v.data[:-1]).any(dim=1) | \
+                (v.lengths[1:] != v.lengths[:-1])
+        else:
+            neq = v.data[1:] != v.data[:-1]
         if v.data.is_floating_point():
             neq = neq & ~(torch.isnan(v.data[1:]) & torch.isnan(v.data[:-1]))
         neq = (neq & both_valid) | (v.validity[1:] != v.validity[:-1])

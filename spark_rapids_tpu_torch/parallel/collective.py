@@ -9,7 +9,9 @@ positions moves each slot block with `Tensor.to(destination)`, which is a
 no-op where two positions share a card. Slots smaller than a position's
 capacity can overflow on a skewed partition: the exchange reports that as
 an on-device flag, and the caller reruns with doubled slots rather than
-ever dropping rows.
+ever dropping rows. A leaf is any row-aligned buffer: 1-D, or 2-D like a
+string column's byte matrix, whose rows move whole; empty slot rows are
+zeros, so a string row keeps its zero tail.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ __all__ = ["bucketize_by_partition", "compact_received",
 
 def bucketize_by_partition(leaves: Sequence[torch.Tensor], pid: torch.Tensor,
                            ndev: int, slot_cap: int):
-    """Group one position's rows by destination into [ndev, slot_cap] slot
-    buffers. pid is int32[cap] with -1 for padding and values in [-1, ndev).
+    """Group one position's rows by destination into [ndev, slot_cap, ...]
+    slot buffers. pid is int32[cap] with -1 for padding and values in
+    [-1, ndev).
     Returns (slotted leaves, send_counts int32[ndev], overflowed bool[])."""
     cap = pid.shape[0]
     key = torch.where(pid >= 0, pid, ndev).to(torch.int64)
@@ -42,21 +45,21 @@ def bucketize_by_partition(leaves: Sequence[torch.Tensor], pid: torch.Tensor,
                              ndev * slot_cap)
     slotted = []
     for leaf in leaves:
-        out = torch.zeros(ndev * slot_cap + 1, dtype=leaf.dtype,
-                          device=leaf.device)
+        out = leaf.new_zeros((ndev * slot_cap + 1,) + leaf.shape[1:])
         out[slot_index] = leaf[order]
-        slotted.append(out[:ndev * slot_cap].reshape(ndev, slot_cap))
+        slotted.append(out[:ndev * slot_cap].reshape(
+            (ndev, slot_cap) + leaf.shape[1:]))
     return slotted, torch.clamp(counts, max=slot_cap), \
         (counts > slot_cap).any()
 
 
 def compact_received(leaves: Sequence[torch.Tensor], recv_counts: torch.Tensor
                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """[ndev, slot_cap] received slots -> one compacted local shard. Row j
-    of source block s is live iff j < recv_counts[s]. Returns (leaves of
-    ndev * slot_cap rows, total int32)."""
+    """[ndev, slot_cap, ...] received slots -> one compacted local shard.
+    Row j of source block s is live iff j < recv_counts[s]. Returns (leaves
+    of ndev * slot_cap rows, total int32)."""
     ndev, slot_cap = leaves[0].shape[0], leaves[0].shape[1]
-    flat = [l.reshape(ndev * slot_cap) for l in leaves]
+    flat = [l.reshape((ndev * slot_cap,) + l.shape[2:]) for l in leaves]
     j = torch.arange(ndev * slot_cap, device=recv_counts.device)
     live = (j % slot_cap) < recv_counts[j // slot_cap]
     order = torch.sort((~live).to(torch.int8), stable=True).indices

@@ -17,11 +17,13 @@ from typing import List
 import torch
 
 from .. import types as T
-from ..columnar.column import check_supported
+from ..columnar.column import check_string_widths, check_supported
 from ..config import TpuConf
 from ..expr import arithmetic as A
+from ..expr import conditional as C
+from ..expr import nullexprs as NE
 from ..expr import predicates as P
-from ..expr.aggregates import Sum
+from ..expr.aggregates import Average, Max, Min, Sum
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
 from ..expr.hashing import INT_FAMILY, LONG_FAMILY
@@ -32,7 +34,8 @@ __all__ = ["Overrides"]
 _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     A.Add, A.Subtract, A.Multiply, P.EqualTo, P.LessThan,
                     P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
-                    P.And, P.Or, P.Not)
+                    P.And, P.Or, P.Not, NE.IsNull, NE.IsNotNull, NE.IsNaN,
+                    NE.Coalesce, C.If, C.CaseWhen, C.Least, C.Greatest)
 _ARITH_TYPES = (T.IntegerType, T.LongType, T.DoubleType)
 # join types whose build (right) side may be broadcast
 _BROADCASTABLE = ("inner", "left", "semi", "anti")
@@ -41,6 +44,22 @@ _BROADCASTABLE = ("inner", "left", "semi", "anti")
 def _unsupported(what: str):
     raise NotImplementedError(f"{what} is not supported by "
                               "spark_rapids_tpu_torch yet")
+
+
+def _value_children(node: Expression):
+    """The children whose values a node compares or merges: both sides of
+    a comparison, every argument of Coalesce/Least/Greatest, the branches
+    (not the predicates) of If and CaseWhen."""
+    ch = node.children
+    if isinstance(node, C.If):
+        return ch[1:]
+    if isinstance(node, C.CaseWhen):
+        return ch[1::2] + [ch[-1]]
+    if isinstance(node, (P.EqualTo, P.LessThan, P.LessThanOrEqual,
+                         P.GreaterThan, P.GreaterThanOrEqual, NE.Coalesce,
+                         C.Least, C.Greatest)):
+        return ch
+    return []
 
 
 def _check_expr(e: Expression) -> None:
@@ -52,6 +71,13 @@ def _check_expr(e: Expression) -> None:
                 isinstance(c.data_type, _ARITH_TYPES) for c in node.children):
             _unsupported("arithmetic over " + ", ".join(
                 c.data_type.simple_string() for c in node.children))
+        strings = [isinstance(c.data_type, T.StringType)
+                   for c in _value_children(node)]
+        if any(strings) and not all(strings):
+            _unsupported(f"{type(node).__name__} over a string and another "
+                         "type")
+        if any(strings) and isinstance(node, (C.Least, C.Greatest)):
+            _unsupported(f"{type(node).__name__} over strings")
 
 
 def _estimated_rows(plan: N.PhysicalPlan) -> float:
@@ -70,8 +96,11 @@ def _estimated_rows(plan: N.PhysicalPlan) -> float:
 
 
 def _estimated_bytes(plan: N.PhysicalPlan) -> float:
-    """Cardinality x row width (data bytes + one validity byte a column)."""
-    width = sum(dt.np_dtype.itemsize + 1 for dt in plan.output.types)
+    """Cardinality x row width: data bytes + one validity byte a column,
+    and 20 bytes for a column without a fixed width (a string), as the JAX
+    package counts."""
+    width = sum(20 if dt.np_dtype is None else dt.np_dtype.itemsize + 1
+                for dt in plan.output.types)
     return _estimated_rows(plan) * max(width, 1)
 
 
@@ -110,6 +139,7 @@ class Overrides:
         if isinstance(plan, N.CpuScanExec):
             for dt in plan.output.types:
                 check_supported(dt, "scan column")
+            check_string_widths(plan.table, conf)
             from ..exec.basic import TpuScanExec
             out = TpuScanExec(plan.table, self.device, conf)
         elif isinstance(plan, N.CpuProjectExec):
@@ -142,11 +172,16 @@ class Overrides:
             if not isinstance(a.func, SUPPORTED_AGGREGATES):
                 _unsupported(f"aggregate {type(a.func).__name__}")
             if a.func.child is not None:
+                ct = a.func.child.data_type
+                what = f"{type(a.func).__name__.lower()} over " \
+                    f"{ct.simple_string()}"
+                if isinstance(a.func, (Sum, Average)) and \
+                        not isinstance(ct, _ARITH_TYPES):
+                    _unsupported(what)
+                if isinstance(a.func, (Min, Max)) and \
+                        isinstance(ct, T.StringType):
+                    _unsupported(what)
                 _check_expr(a.func.child)
-                if isinstance(a.func, Sum) and not isinstance(
-                        a.func.child.data_type, _ARITH_TYPES):
-                    _unsupported("sum over "
-                                 f"{a.func.child.data_type.simple_string()}")
             check_supported(a.func.data_type,
                             f"{type(a.func).__name__} result")
         return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],

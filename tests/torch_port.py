@@ -14,10 +14,12 @@ from spark_rapids_tpu_torch.interop import batch_from_numpy
 
 def port_batch(jb, device="cpu"):
     """The identical padded batch in the port: same capacity, padding
-    contents and masks."""
+    contents and masks (a string column's byte matrix and lengths)."""
     fields = [(n, t.simple_string())
               for n, t in zip(jb.schema.names, jb.schema.types)]
-    return batch_from_numpy(fields, [np.asarray(c.data) for c in jb.columns],
+    datas = [np.asarray(c.data) if c.lengths is None else
+             (np.asarray(c.data), np.asarray(c.lengths)) for c in jb.columns]
+    return batch_from_numpy(fields, datas,
                             [np.asarray(c.validity) for c in jb.columns],
                             int(jb.num_rows), device)
 
