@@ -138,6 +138,32 @@ def rotating(fn, copies):
     return lambda: fn(*next(turn))
 
 
+def first_call_args(torch, module, name: str, fn) -> tuple:
+    """Run fn() with `module.<name>` (a kernel wrapper the path calls through
+    its module) wrapped, and return copies of the arguments of its first
+    call: the inputs the path gives the kernel. The wrapper counts its
+    launches through its module name, so the stand-in carries the count
+    and hands it back."""
+    real, seen = getattr(module, name), []
+
+    def keep(*args):
+        if not seen:
+            seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return real(*args)
+
+    keep.launches = real.launches
+    setattr(module, name, keep)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+        real.launches = keep.launches
+    if not seen:
+        raise AssertionError(f"{name} was not called")
+    return seen[0]
+
+
 def cuda_kernel_ms(torch, fn, calls: int = 20) -> dict:
     """Device time that each CUDA kernel of one call of fn adds: the median
     over `calls` calls, by kernel name, from a torch.profiler trace. A
@@ -528,8 +554,11 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
     distributed plan (`mesh_conf`), each checked against star_oracle, timed
     and traced. `counters` are the kernel wrappers A, B and C, whose
     launch counts are set to 0 around each run; `conf` is added to every
-    session's settings. Returns the counts of the two paths' runs."""
+    session's settings. Returns the counts of the two paths' runs, and the
+    arguments of A's first call in a one-device Q7 collect and of C's first
+    call in a distributed Q7 collect (outside the counted runs)."""
     from spark_rapids_tpu_torch.exec import exchange
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
     from spark_rapids_tpu_torch.plugin import TpuSession
     conf = dict(conf or {})
     # ---- 8. the star-schema reports (Q3, Q7, Q36) on one device, fusion
@@ -589,6 +618,8 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
             "groups": star_want[name].num_rows,
             "warm_collect_s": spread(walls), "launches_per_collect": n,
             "device_idle_share": idle_share(torch, q.collect)}
+    a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                             sq["q7"].collect)
     emit({"phase": "star_query", "fact_rows": n_sales, "dim_rows": dims,
           "setup_s": star_setup_s,
           "rtol_sums_averages": 1e-9, "exact": "keys, counts, min, max",
@@ -621,8 +652,9 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
           "warm_collect_s": spread(dwalls7),
           "device_idle_share": idle_share(torch, q7.collect),
           "launches_per_path_run": dstar_launches})
-
-    return star_launches, dstar_launches
+    c_args = first_call_args(torch, pallas_groupby, "segment_sum_i64",
+                             q7.collect)
+    return star_launches, dstar_launches, a_args, c_args
 
 
 def main() -> int:
@@ -1038,19 +1070,70 @@ def main() -> int:
                                    "murmur3_rows": a_dist_launches}})
 
     # ---- 8, 9. the star-schema reports, one device and distributed
-    star_launches, dstar_launches = star_phases(
+    star_launches, dstar_launches, a_args, c_args = star_phases(
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
 
-    # ---- 10. every kernel the run launched; launches are per run of the
+    # ---- 10. A and C on the inputs their star paths gave them (A: the first
+    # fused probe's keys of a one-device Q7 collect; C: the first fused
+    # partial count of a distributed Q7 collect), bit for bit against their
+    # twins, and timed there; the kernels line takes these times
+    got, again = murmur3_rows(*a_args), murmur3_rows(*a_args)
+    err = int((got.to(torch.int64) - murmur3_rows_plain(*a_args)
+               .to(torch.int64)).abs().max())
+    if err != 0 or not torch.equal(got, again):
+        raise AssertionError(f"murmur3_rows differs from its plain twin on "
+                             f"the star path's keys by up to {err}")
+    a_err = max(a_err, err)
+    a_star = {"path": "star_query", "query": "q7",
+              "rows": a_args[0].shape[0], "key_dtype": str(a_args[0].dtype),
+              "live_rows": int(a_args[1].sum()),
+              "bit_identical_to_plain": True,
+              "ms": time_ms(torch, lambda: murmur3_rows(*a_args)),
+              "plain_ms": time_ms(torch, lambda: murmur3_rows_plain(*a_args)),
+              "bound_ms": a_args[0].shape[0] * (
+                  sum(t.element_size() for t in a_args) + 4) / rate * 1e3}
+    s_vals, s_ids, s_g = c_args
+    got, again = segment_sum_i64(*c_args), segment_sum_i64(*c_args)
+    err = i64_err(got, segment_sum_i64_plain(*c_args))
+    if err != 0 or not torch.equal(got, again):
+        raise AssertionError(f"segment_sum_i64 differs from its plain twin "
+                             f"on the star path's counts by up to {err}")
+    c_err = max(c_err, err)
+    # the library call: index_add_ into the groups, with any id outside
+    # [0, groups) sent to one spare slot (index_add_ raises on them)
+    in_range = (s_ids >= 0) & (s_ids < s_g)
+    lib_ids = torch.where(in_range, s_ids, s_g).to(torch.int64)
+    c_star = {"path": "star_query_distributed", "query": "q7",
+              "rows": s_vals.shape[0], "groups": s_g,
+              "id_dtype": str(s_ids.dtype),
+              "ids_out_of_range": int((~in_range).sum()),
+              "groups_nonzero": int((got != 0).sum()),
+              "sum_of_values": int(got.sum()),
+              "bit_identical_to_plain": True,
+              "ms": time_ms(torch, lambda: segment_sum_i64(*c_args)),
+              "plain_ms": time_ms(torch,
+                                  lambda: segment_sum_i64_plain(*c_args)),
+              "library_ms": time_ms(torch, lambda: torch.zeros(
+                  s_g + 1, dtype=torch.int64, device=dev).index_add_(
+                      0, lib_ids, s_vals)),
+              "bound_ms": (s_vals.shape[0] * (s_vals.element_size()
+                                              + s_ids.element_size())
+                           + s_g * 8) / rate * 1e3}
+    emit({"phase": "kernels_on_star_paths", "murmur3_rows": a_star,
+          "segment_sum_i64": c_star})
+
+    # ---- 11. every kernel the run launched; launches are per run of the
     # path named beside them (one collect of each star query, one
-    # many_steps call, one distributed Q7 collect)
+    # many_steps call, one distributed Q7 collect); A's and C's times are
+    # those of phase 10, on that path's inputs
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
          "path": "star_query", "launches": star_launches["murmur3_rows"],
-         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
-         "bound_ms": a_bound, "bound_by": "bytes", "library_ms": None},
+         "max_abs_err": a_err, "ms": a_star["ms"],
+         "plain_ms": a_star["plain_ms"], "bound_ms": a_star["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "segment_sum_f64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_f64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_segsum.py:162",
@@ -1066,8 +1149,9 @@ def main() -> int:
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
          "path": "star_query_distributed",
          "launches": dstar_launches["segment_sum_i64"],
-         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain,
-         "bound_ms": c_bound, "bound_by": "bytes", "library_ms": c_lib},
+         "max_abs_err": c_err, "ms": c_star["ms"],
+         "plain_ms": c_star["plain_ms"], "bound_ms": c_star["bound_ms"],
+         "bound_by": "bytes", "library_ms": c_star["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -100,13 +100,11 @@ class ColumnarBatch:
 
 
 def batch_from_arrow(table, device: torch.device,
-                     capacity: Optional[int] = None,
-                     max_string_width: Optional[int] = None) -> ColumnarBatch:
+                     capacity: Optional[int] = None) -> ColumnarBatch:
     """pyarrow Table -> device ColumnarBatch (the H2D boundary)."""
     n = table.num_rows
     cap = capacity or row_bucket(n)
-    cols: List[Column] = [col_from_arrow(table.column(i), device, cap,
-                                         max_string_width)[0]
+    cols: List[Column] = [col_from_arrow(table.column(i), device, cap)[0]
                           for i in range(table.num_columns)]
     return ColumnarBatch(Schema.from_arrow(table.schema), tuple(cols),
                          torch.tensor(n, dtype=torch.int32, device=device))

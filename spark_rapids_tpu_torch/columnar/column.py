@@ -12,9 +12,10 @@ A STRING column is the JAX package's flat layout: data uint8[cap, w] with
 w = width_bucket(longest value) and lengths int32[cap]. The bytes past each
 row's length are zero, so equality, the hash and the sort keys may read the
 whole row. Every operation that builds a byte matrix keeps that invariant.
-A value longer than `spark.rapids.tpu.string.headWidth` needs the JAX
-package's long-string overflow layout, which is not ported: it raises
-NotImplementedError.
+A value longer than MAX_STRING_WIDTH (256) bytes needs the JAX package's
+long-string overflow layout, which is not ported: it raises
+NotImplementedError, at plan time for scanned tables and literals and again
+at scan conversion.
 
 This slice carries BOOLEAN, INT, LONG, DOUBLE, DATE and STRING. Decimals,
 timestamps, the narrow integers, FLOAT and nested types wait for later
@@ -30,11 +31,15 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..config import get_default_conf
 from .padding import row_bucket, width_bucket
 
-__all__ = ["Column", "torch_dtype", "check_supported", "head_width",
-           "check_string_widths", "from_arrow", "to_arrow"]
+__all__ = ["Column", "torch_dtype", "check_supported", "MAX_STRING_WIDTH",
+           "check_string_length", "check_string_widths", "from_arrow",
+           "to_arrow"]
+
+# widest row of the flat string layout, in bytes (the JAX package's default
+# spark.rapids.tpu.string.headWidth, past which it uses its overflow layout)
+MAX_STRING_WIDTH = 256
 
 _TORCH_DTYPES = {
     T.BooleanType: torch.bool,
@@ -60,33 +65,25 @@ def torch_dtype(dt: T.DataType) -> torch.dtype:
     return _TORCH_DTYPES[type(dt)]
 
 
-def head_width(conf=None) -> int:
-    """Widest flat string row: the width bucket of
-    spark.rapids.tpu.string.headWidth (256 by default)."""
-    conf = conf or get_default_conf()
-    return width_bucket(int(conf.get("spark.rapids.tpu.string.headWidth")))
+def check_string_length(longest: int) -> None:
+    """Raise NotImplementedError for a string the flat layout cannot hold."""
+    if longest > MAX_STRING_WIDTH:
+        raise NotImplementedError(
+            f"a string of {longest} bytes exceeds the flat string layout's "
+            f"{MAX_STRING_WIDTH} bytes; the long-string overflow layout is "
+            "not supported by spark_rapids_tpu_torch yet")
 
 
-def _raise_too_long(longest: int, limit: int) -> None:
-    raise NotImplementedError(
-        f"a string of {longest} bytes exceeds "
-        f"spark.rapids.tpu.string.headWidth ({limit}); the long-string "
-        "overflow layout is not supported by spark_rapids_tpu_torch yet")
-
-
-def check_string_widths(table, conf=None) -> None:
+def check_string_widths(table) -> None:
     """Raise NotImplementedError when a string column of an Arrow table holds
-    a value longer than the flat layout's head width (the plan-time form of
-    the check `from_arrow` makes)."""
+    a value longer than MAX_STRING_WIDTH (the plan-time form of the check
+    `from_arrow` makes)."""
     import pyarrow as pa
     import pyarrow.compute as pc
-    limit = head_width(conf)
     for col in table.columns:
         if len(col) and (pa.types.is_string(col.type)
                          or pa.types.is_large_string(col.type)):
-            longest = pc.max(pc.binary_length(col)).as_py() or 0
-            if longest > limit:
-                _raise_too_long(longest, limit)
+            check_string_length(pc.max(pc.binary_length(col)).as_py() or 0)
 
 
 @dataclasses.dataclass
@@ -120,7 +117,7 @@ def _pad_to(arr: np.ndarray, cap: int) -> np.ndarray:
     return np.pad(arr, [(0, cap - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1))
 
 
-def _string_matrix(arr, cap: int, limit: int):
+def _string_matrix(arr, cap: int):
     """Arrow string array -> (uint8[cap, w] zero-tailed bytes, int32[cap]
     lengths), w the width bucket of the longest value."""
     import pyarrow as pa
@@ -133,8 +130,7 @@ def _string_matrix(arr, cap: int, limit: int):
     if arr.null_count:  # a null slot's bytes are not part of the matrix
         lens = np.where(np.asarray(arr.is_valid()), lens, 0)
     longest = int(lens.max()) if n else 0
-    if longest > limit:
-        _raise_too_long(longest, limit)
+    check_string_length(longest)
     w = width_bucket(max(longest, 1))
     chars = np.zeros((cap, w), dtype=np.uint8)
     total = int(lens.sum())
@@ -147,10 +143,10 @@ def _string_matrix(arr, cap: int, limit: int):
     return chars, _pad_to(lens.astype(np.int32), cap)
 
 
-def from_arrow(arr, device: torch.device, capacity: Optional[int] = None,
-               max_string_width: Optional[int] = None) -> Tuple[Column, int]:
+def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
+               ) -> Tuple[Column, int]:
     """Arrow array -> device Column; returns (column, num_rows). A string
-    longer than `max_string_width` (default: head_width()) raises."""
+    longer than MAX_STRING_WIDTH raises."""
     import pyarrow as pa
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
@@ -162,8 +158,7 @@ def from_arrow(arr, device: torch.device, capacity: Optional[int] = None,
         np.asarray(arr.is_valid())
     valid_t = torch.from_numpy(_pad_to(valid, cap)).to(device)
     if isinstance(dtype, T.StringType):
-        chars, lens = _string_matrix(arr, cap,
-                                     max_string_width or head_width())
+        chars, lens = _string_matrix(arr, cap)
         return Column(dtype, torch.from_numpy(chars).to(device), valid_t,
                       torch.from_numpy(lens).to(device)), n
     if isinstance(dtype, T.DateType):

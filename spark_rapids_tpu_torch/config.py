@@ -74,11 +74,6 @@ register("spark.rapids.tpu.padding.minRows", "int", 128,
          "Minimum padded row bucket (lane-aligned).")
 register("spark.rapids.tpu.padding.growth", "double", 2.0,
          "Row bucket growth factor (powers of this between min and max).")
-register("spark.rapids.tpu.string.headWidth", "int", 256,
-         "Longest string, in bytes, that the flat byte-matrix layout holds. "
-         "The JAX package moves longer strings to its overflow layout; this "
-         "engine has no overflow layout yet, so a longer string raises at "
-         "plan time.")
 register("spark.rapids.tpu.fusion.enabled", "bool", False,
          "Whole-stage fusion: a planner pass (plan/fusion.py) replaces "
          "maximal chains of project/filter/broadcast-join-probe operators "

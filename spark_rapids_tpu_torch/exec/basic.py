@@ -7,7 +7,6 @@ from typing import Sequence
 import torch
 
 from ..columnar.batch import ColumnarBatch, Schema, batch_from_arrow
-from ..columnar.column import head_width
 from ..expr.base import Expression, bind_references, output_name
 from ..ops.rowops import compact_vecs
 from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
@@ -35,8 +34,7 @@ class TpuScanExec(TpuExec):
         for off in range(0, max(n, 1), step):
             chunk = self.table.slice(off, min(step, n - off)) if n else \
                 self.table
-            yield batch_from_arrow(chunk, self.device,
-                                   max_string_width=head_width(self.conf))
+            yield batch_from_arrow(chunk, self.device)
             if n == 0:
                 break
 

@@ -71,9 +71,6 @@ class Max(AggregateFunction):
 class Average(AggregateFunction):
     @property
     def data_type(self):
-        ct = self.child.data_type
-        if isinstance(ct, T.DecimalType):
-            return T.DecimalType.bounded(ct.precision + 4, ct.scale + 4)
         return T.DOUBLE
 
     def partial_types(self) -> List[T.DataType]:

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from .. import types as T
-from ..columnar.column import Column, head_width, torch_dtype
+from ..columnar.column import Column, torch_dtype
 from ..columnar.padding import width_bucket
 
 __all__ = ["Vec", "EvalContext", "Expression", "LeafExpression", "Literal",
@@ -55,19 +55,13 @@ class Vec:
 def require_flat_strings(v: Vec, op: str) -> Vec:
     """Gate for the kernels that read every byte of a string (equality,
     ordering, hashing, sort keys, merges): the value must be the flat byte
-    matrix, no wider than the head width. The JAX package moves wider
-    values to its overflow layout and sends such an op to the CPU; this
-    engine has neither, so it raises."""
+    matrix with lengths. Widths are held to the flat layout's limit at plan
+    time (plan/overrides.py), so no wider value reaches here."""
     if not v.is_string:
         return v
     if v.lengths is None or v.data.dim() != 2 or v.data.dtype != torch.uint8:
         raise TypeError(f"{op}: a string value must be a uint8 byte matrix "
                         "with lengths")
-    if v.data.shape[1] > head_width():
-        raise NotImplementedError(
-            f"{op} over strings wider than spark.rapids.tpu.string.headWidth "
-            "needs the long-string overflow layout, which is not supported "
-            "by spark_rapids_tpu_torch yet")
     return v
 
 
@@ -83,9 +77,12 @@ def pad_common_width(a: Vec, b: Vec):
 
 
 def pad_width(data: torch.Tensor, w: int) -> torch.Tensor:
-    """uint8[cap, v] -> uint8[cap, w] (w >= v), zeros on the right."""
+    """uint8[cap, v] -> uint8[cap, w] (w >= v), zeros on the right. A row
+    broadcast to every row (a string literal) stays a broadcast view."""
     if data.shape[1] == w:
         return data
+    if data.shape[0] > 1 and data.stride(0) == 0:
+        return pad_width(data[:1], w).expand(data.shape[0], -1)
     return torch.nn.functional.pad(data, (0, w - data.shape[1]))
 
 
@@ -258,6 +255,18 @@ class Literal(LeafExpression):
         super().__init__()
         self.value = value
         self._dtype = _infer_literal_type(value) if dtype is None else dtype
+        self._rows = {}  # device -> a string literal's uint8[1, w] bytes
+
+    def _string_row(self, dev: torch.device) -> torch.Tensor:
+        """The zero-tailed byte row, copied to each device once."""
+        row = self._rows.get(dev)
+        if row is None:
+            b = self.value.encode("utf-8")
+            row = torch.zeros((1, width_bucket(max(len(b), 1))),
+                              dtype=torch.uint8)
+            row[0, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+            row = self._rows[dev] = row.to(dev)
+        return row
 
     @property
     def data_type(self) -> T.DataType:
@@ -275,12 +284,11 @@ class Literal(LeafExpression):
             return Vec.from_column(empty_column(self._dtype, n, dev))
         ones = torch.ones(n, dtype=torch.bool, device=dev)
         if isinstance(self._dtype, T.StringType):
-            b = self.value.encode("utf-8")
-            row = torch.zeros(width_bucket(max(len(b), 1)), dtype=torch.uint8)
-            row[:len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
-            return Vec(self._dtype, row.to(dev).expand(n, -1).contiguous(),
-                       ones, torch.full((n,), len(b), dtype=torch.int32,
-                                        device=dev))
+            # broadcast, not materialised: compares, merges and gathers read
+            # the one row; an op that needs its own buffer copies it
+            return Vec(self._dtype, self._string_row(dev).expand(n, -1), ones,
+                       torch.full((n,), len(self.value.encode("utf-8")),
+                                  dtype=torch.int32, device=dev))
         return Vec(self._dtype, torch.full((n,), self.value,
                                            dtype=torch_dtype(self._dtype),
                                            device=dev), ones)

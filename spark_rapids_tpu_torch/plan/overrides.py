@@ -17,7 +17,8 @@ from typing import List
 import torch
 
 from .. import types as T
-from ..columnar.column import check_string_widths, check_supported
+from ..columnar.column import check_string_length, check_string_widths, \
+    check_supported
 from ..config import TpuConf
 from ..expr import arithmetic as A
 from ..expr import conditional as C
@@ -67,6 +68,8 @@ def _check_expr(e: Expression) -> None:
         if not isinstance(node, _SUPPORTED_EXPRS):
             _unsupported(f"expression {type(node).__name__}")
         check_supported(node.data_type, f"{type(node).__name__} result")
+        if isinstance(node, Literal) and isinstance(node.value, str):
+            check_string_length(len(node.value.encode("utf-8")))
         if isinstance(node, A.BinaryArithmetic) and not all(
                 isinstance(c.data_type, _ARITH_TYPES) for c in node.children):
             _unsupported("arithmetic over " + ", ".join(
@@ -139,7 +142,7 @@ class Overrides:
         if isinstance(plan, N.CpuScanExec):
             for dt in plan.output.types:
                 check_supported(dt, "scan column")
-            check_string_widths(plan.table, conf)
+            check_string_widths(plan.table)
             from ..exec.basic import TpuScanExec
             out = TpuScanExec(plan.table, self.device, conf)
         elif isinstance(plan, N.CpuProjectExec):

@@ -47,9 +47,10 @@ from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow, \
     batch_to_arrow
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.exec import aggregate, basic, coalesce, exchange
-from spark_rapids_tpu_torch.expr.base import EvalContext, Vec
+from spark_rapids_tpu_torch.expr.base import EvalContext, Vec, pad_width
 from spark_rapids_tpu_torch.expr.hashing import hash_vec
-from spark_rapids_tpu_torch.expr.predicates import string_compare
+from spark_rapids_tpu_torch.expr.predicates import string_compare, \
+    string_equal
 from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
 from spark_rapids_tpu_torch.plan import overrides
 from spark_rapids_tpu_torch.plan.nodes import AggExpr, HashPartitionSpec
@@ -177,6 +178,49 @@ class TestStarQueries:
             del calls[:]
             q.collect()
             assert calls and set(calls) == {torch.int64}, name
+
+    def test_kernel_inputs_are_captured_from_the_star_paths(self, star):
+        """chip_smoke.first_call_args hands back the arguments of the first
+        A call of a one-device Q7 and of the first C call of a distributed
+        Q7 (what the script times the kernels on), and restores the
+        wrappers."""
+        real_a, real_c = pallas_probe.murmur3_rows, \
+            pallas_groupby.segment_sum_i64
+        sess = TpuSession(dict(BASE, **{PALLAS: "force"}), device="cpu")
+        keys, valid, seed = cs.first_call_args(
+            torch, pallas_probe, "murmur3_rows",
+            cs.star_queries(sess, PORT_NS, star)["q7"].collect)
+        assert keys.dtype == torch.int64 and keys.shape == valid.shape == \
+            seed.shape == (1024,)
+        assert seed.tolist() == [42] * 1024
+        sess = TpuSession(dict(MESH, **{PALLAS: "force"}), device="cpu")
+        vals, ids, groups = cs.first_call_args(
+            torch, pallas_groupby, "segment_sum_i64",
+            cs.star_queries(sess, PORT_NS, star)["q7"].collect)
+        assert vals.dtype == torch.int64 and vals.shape == ids.shape
+        assert set(vals.tolist()) <= {0, 1} and groups == vals.shape[0]
+        assert int(pallas_groupby.segment_sum_i64_plain(
+            vals, ids, groups).sum()) == int(vals.sum())
+        assert pallas_probe.murmur3_rows is real_a
+        assert pallas_groupby.segment_sum_i64 is real_c
+
+    def test_kernel_capture_keeps_the_launch_count(self):
+        """On the card a wrapper adds to its count through its module name,
+        which points at the capturing stand-in while fn runs: the count
+        must land on the wrapper all the same."""
+        before = pallas_probe.murmur3_rows.launches
+        keys = torch.arange(8, dtype=torch.int64)
+
+        def launch_as_on_the_card():
+            pallas_probe.murmur3_rows(keys, torch.ones(8, dtype=torch.bool),
+                                      torch.full((8,), 42, dtype=torch.int32))
+            pallas_probe.murmur3_rows.launches += 1
+
+        got = cs.first_call_args(torch, pallas_probe, "murmur3_rows",
+                                 launch_as_on_the_card)
+        assert torch.equal(got[0], keys)
+        assert pallas_probe.murmur3_rows.launches == before + 1
+        pallas_probe.murmur3_rows.launches = before
 
     def test_broadcast_estimates_are_the_jax_engines(self):
         """The dims at their SF10 row counts: the same byte estimate as the
@@ -434,7 +478,8 @@ class TestBoundaries:
     @pytest.mark.parametrize("case", [
         "decimal_column", "string_over_head_width", "min_over_string",
         "max_over_string", "average_over_decimal", "least_over_strings",
-        "string_vs_int_compare"])
+        "string_vs_int_compare", "string_literal_over_256",
+        "string_over_256_under_a_wider_head_width_conf"])
     def test_out_of_slice_raises_at_plan_time(self, case):
         sess = TpuSession(device="cpu")
         t = pa.table({"k": np.arange(4, dtype=np.int64),
@@ -447,6 +492,15 @@ class TestBoundaries:
                               pa.decimal128(7, 2))))
         elif case == "string_over_head_width":
             df = sess.from_arrow(pa.table({"s": ["x" * 257]}))
+        elif case == "string_literal_over_256":
+            df = df.filter(c("s") == PE.lit("x" * 300))
+        elif case == "string_over_256_under_a_wider_head_width_conf":
+            # the JAX package's key moves its overflow boundary; this engine
+            # has no overflow layout, so 256 bytes stays the limit
+            df = TpuSession({"spark.rapids.tpu.string.headWidth": 512},
+                            device="cpu").from_arrow(
+                pa.table({"s": ["y" * 300]})).group_by("s").agg(
+                    n=PE.Count(PE.lit(1)))
         elif case == "min_over_string":
             df = df.group_by("k").agg(m=PE.Min(c("s")))
         elif case == "max_over_string":
@@ -475,3 +529,23 @@ class TestBoundaries:
         assert v.data.shape == (5, 8) and v.lengths.tolist() == [6] * 5
         assert v.data[0, 6:].tolist() == [0, 0]
         assert PE.lit(None, T.STRING).eval(ctx, []).data.shape == (5, 8)
+
+    def test_string_literal_is_one_broadcast_row(self):
+        """A string literal is copied to the device once and broadcast to
+        the batch; padding to a wider width keeps it a zero-tailed
+        broadcast, and compares against a column read it as rows."""
+        lit = PE.lit("TN")
+        ctx = EvalContext(torch.ones(6, dtype=torch.bool))
+        v = lit.eval(ctx, [])
+        assert v.data.stride(0) == 0 and v.data.shape == (6, 8)
+        assert lit.eval(ctx, []).data.data_ptr() == v.data.data_ptr()
+        wide = pad_width(v.data, 24)
+        assert wide.stride(0) == 0 and wide.shape == (6, 24)
+        assert wide[3].tolist() == [ord("T"), ord("N")] + [0] * 22
+        col = Vec(T.STRING, torch.from_numpy(np.zeros((6, 24), np.uint8)),
+                  torch.ones(6, dtype=torch.bool),
+                  torch.full((6,), 2, dtype=torch.int32))
+        col.data[::2, :2] = torch.tensor([ord("T"), ord("N")],
+                                         dtype=torch.uint8)
+        assert string_equal(col, v).tolist() == [True, False] * 3
+        assert string_equal(v, col).tolist() == [True, False] * 3
