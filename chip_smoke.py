@@ -10,8 +10,12 @@ benchmark step at bench.py's shapes, the main query again under the
 distributed plan (partial aggregate -> key exchange over a 4-position mesh
 -> per-shard final aggregate), and three string-keyed star-schema reports
 (TPC-DS q3/q7/q36 shapes over 16,777,216 sales and SF10 dimensions) on one
-device and Q7 under the distributed plan, and checks each against numpy
-oracles. Each
+device and Q7 under the distributed plan, and then the parquet scan: the
+fact table written by pyarrow (row groups of 1,048,576, snappy and
+uncompressed) decoded on the card and held against pq.read_table, the
+engine query through read_parquet on both plans (in turns with the Arrow,
+no-pruning and host-decode forms of it) and star Q7 from parquet files;
+it checks each against numpy oracles. Each
 phase prints one JSON line; then a `kernels` line, the card's `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
 exits non-zero without that last line. Without CUDA (or without the package
@@ -37,10 +41,12 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -266,12 +272,17 @@ def query_tables(pa, n_fact: int, n_dim: int, key_space: int, n_groups: int,
     return fact, dim
 
 
-def main_query(sess, fact, dim):
+def main_query(sess, fact, dim, paths: dict = None):
     """The engine's main query as a DataFrame of `sess`: filter v > 0.6,
-    inner join on k, sum(c + w) and count(v) by g."""
+    inner join on k, sum(c + w) and count(v) by g. The tables are `fact`
+    and `dim`, or read_parquet of paths["fact"] and paths["dim"]."""
     from spark_rapids_tpu_torch.expr import Count, Sum, col
-    return sess.from_arrow(fact).filter(col("v") > 0.6) \
-        .join(sess.from_arrow(dim), on="k") \
+    if paths is not None:
+        f = sess.read_parquet(paths["fact"])
+        d = sess.read_parquet(paths["dim"])
+    else:
+        f, d = sess.from_arrow(fact), sess.from_arrow(dim)
+    return f.filter(col("v") > 0.6).join(d, on="k") \
         .group_by("g").agg(total=Sum(col("c") + col("w")),
                            cnt=Count(col("v")))
 
@@ -377,19 +388,26 @@ def star_tables(pa, n_sales: int, n_dates: int, n_items: int, n_stores: int,
             "store": store}
 
 
-def star_queries(sess, m, t: dict) -> dict:
+def star_queries(sess, m, t: dict, paths: dict = None) -> dict:
     """Q3, Q7 and Q36 as DataFrames of `sess`, written with the
     constructors of namespace `m` (col, lit, Sum, Average, Count, Max, Min,
     Coalesce, CaseWhen, IsNotNull), which both engines share. Each
     dimension renames its key to the fact's in a select, and the joins use
-    on=."""
+    on=. The tables are read from `t` (Arrow tables), or with read_parquet
+    from `paths` (a parquet file of each table) when given."""
     c = m.col
-    ss = sess.from_arrow(t["store_sales"], label="store_sales")
-    dd = sess.from_arrow(t["date_dim"], label="date_dim").select(
+
+    def read(name):
+        if paths is not None:
+            return sess.read_parquet(paths[name])
+        return sess.from_arrow(t[name], label=name)
+
+    ss = read("store_sales")
+    dd = read("date_dim").select(
         "d_year", "d_moy", ss_sold_date_sk=c("d_date_sk"))
-    it = sess.from_arrow(t["item"], label="item").select(
+    it = read("item").select(
         "i_brand", "i_category", "i_price", ss_item_sk=c("i_item_sk"))
-    st = sess.from_arrow(t["store"], label="store").select(
+    st = read("store").select(
         "s_state", ss_store_sk=c("s_store_sk"))
     q3 = ss.join(dd, on="ss_sold_date_sk") \
         .filter((c("d_moy") == m.lit(11))
@@ -657,6 +675,230 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
     return star_launches, dstar_launches, a_args, c_args
 
 
+# ---- the parquet scan (slice 5): the engine query's and the star schema's
+# tables written by pyarrow in row groups of 1,048,576 rows
+PARQUET_ROW_GROUP = 1 << 20
+DECODE_ROUNDS = 5
+DPP_OFF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
+HOST_DECODE = {"spark.rapids.sql.format.parquet.deviceDecode.enabled": False}
+
+
+def check_query(out, want, what: str) -> None:
+    """Raise unless the engine query's result equals the numpy oracle
+    (groups, sums and counts exactly)."""
+    out = out.sort_by("g")
+    for name, w in zip(("g", "total", "cnt"), want):
+        if not np.array_equal(out.column(name).to_numpy(), w):
+            raise AssertionError(f"query column {name} differs from the "
+                                 f"oracle ({what})")
+
+
+def write_parquet(pq, tables: dict, d: str, compression: str = "snappy",
+                  tag: str = "") -> dict:
+    """Each table into d/<name><tag>.parquet; returns the paths."""
+    paths = {}
+    for name, t in tables.items():
+        paths[name] = os.path.join(d, f"{name}{tag}.parquet")
+        pq.write_table(t, paths[name], row_group_size=PARQUET_ROW_GROUP,
+                       compression=compression)
+    return paths
+
+
+def check_decoded(pa, batches, want, what: str) -> None:
+    """Raise unless the decoded batches hold `want` (pq.read_table of the
+    same file), value for value and validity for validity."""
+    from spark_rapids_tpu_torch.columnar.batch import batch_to_arrow
+    got = pa.concat_tables([batch_to_arrow(b) for b, _ in batches])
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} rows, pyarrow "
+                             f"{want.num_rows}")
+    for name in want.column_names:
+        if not got.column(name).equals(want.column(name)):
+            raise AssertionError(f"{what}: column {name} differs from "
+                                 "pyarrow")
+
+
+def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
+                   n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
+                   device=None, rounds=WALL_ROUNDS,
+                   decode_rounds=DECODE_ROUNDS):
+    """Phases parquet_decode, parquet_query and parquet_star_q7 (slice 5),
+    over files written to a temporary directory that is removed after.
+    `counters` are the kernel wrappers A, B and C; `conf` is added to every
+    session's settings. Returns the launch counts of each path's run."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.io import parquet_device as P
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        P.COUNTERS.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}, \
+            P.COUNTERS.snapshot()
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_") as d:
+        # ---- parquet_decode: the fact table, snappy and uncompressed, each
+        # decoded 4 row groups a packed dispatch and row group by row group,
+        # held against pq.read_table and timed against it
+        t0 = time.monotonic()
+        paths = {c: write_parquet(pq, {"fact": fact}, d, c, f"_{c}")["fact"]
+                 for c in ("snappy", "none")}
+        write_s = time.monotonic() - t0
+        raw_bytes = fact.num_rows * sum(
+            np.dtype(t.to_pandas_dtype()).itemsize for t in fact.schema.types)
+        files = {}
+        for comp, path in paths.items():
+            want = pq.read_table(path)
+            schema = Schema.from_arrow(want.schema)
+            pf = pq.ParquetFile(path)
+            row = {"file_bytes": os.path.getsize(path),
+                   "row_groups": pf.metadata.num_row_groups}
+            read_walls = []
+            for _ in range(decode_rounds):
+                t0 = time.perf_counter()
+                pq.read_table(path)
+                read_walls.append(time.perf_counter() - t0)
+            row["pq_read_table_s"] = spread(read_walls)
+            for cpd in (4, 1):
+                def run():
+                    return list(P.device_decode_file(pf, path, schema, dev,
+                                                     cpd))
+                out, _, counts = counted(run)
+                check_decoded(pa, out, want, f"{comp} file, {cpd} row "
+                              "groups a dispatch")
+                if cpd == 4 and (counts["declined_chunks"] or
+                                 counts["fused_dispatches"] * 4 !=
+                                 row["row_groups"]):
+                    raise AssertionError(f"{comp}: the packed decode was "
+                                         f"not taken everywhere: {counts}")
+                del out
+                walls = []
+                for _ in range(decode_rounds):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    del out
+                med = statistics.median(walls)
+                row[f"chunks_per_dispatch_{cpd}"] = {
+                    "wall_s": spread(walls), "batches": len(run()),
+                    "file_gb_per_s": row["file_bytes"] / med / 1e9,
+                    "raw_gb_per_s": raw_bytes / med / 1e9,
+                    "h2d_bytes": counts["h2d_bytes"],
+                    "h2d_copies": counts["h2d_copies"],
+                    "fused_dispatches": counts["fused_dispatches"],
+                    "scan_chunks": counts["scan_chunks"],
+                    "declined_chunks": counts["declined_chunks"]}
+            files[comp] = row
+        emit({"phase": "parquet_decode", "rows": fact.num_rows,
+              "row_group_rows": PARQUET_ROW_GROUP, "raw_bytes": raw_bytes,
+              "write_s": write_s, "exact_vs_pyarrow": True, "files": files})
+
+        # ---- parquet_query: the engine query through read_parquet, one
+        # device and distributed, in turns with the same query from Arrow
+        # tables, without dynamic pruning (which lets the join fuse), and
+        # with the host decode
+        want = query_oracle(fact, dim)
+        qpaths = {"fact": paths["snappy"],
+                  "dim": write_parquet(pq, {"dim": dim}, d)["dim"]}
+        variants = {"parquet": ({}, qpaths),
+                    "parquet_no_dpp": (DPP_OFF, qpaths),
+                    "from_arrow": ({}, None),
+                    "host_decode": (HOST_DECODE, qpaths)}
+        for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+            dfs = {v: main_query(TpuSession(dict(conf, **extra, **vc), dev),
+                                 fact, dim, p)
+                   for v, (vc, p) in variants.items()}
+            shapes = {v: df.explain() for v, df in dfs.items()}
+            if "TpuFusedStageExec" in shapes["parquet"] or \
+                    "TpuFusedStageExec" not in shapes["parquet_no_dpp"] or \
+                    "TpuFileScanExec(parquet)" not in shapes["parquet"]:
+                raise AssertionError(f"{plan}: unexpected plans:\n"
+                                     f"{shapes['parquet']}\n"
+                                     f"{shapes['parquet_no_dpp']}")
+            for v, df in dfs.items():
+                check_query(df.collect(), want, f"{plan} {v}")  # warm-up
+            runs = {}
+            for v, df in dfs.items():
+                out, n, scan = counted(df.collect)
+                check_query(out, want, f"{plan} {v}")
+                runs[v] = {"launches": n, "scan": scan}
+            fused = runs["parquet_no_dpp"]["launches"]
+            if fused["murmur3_rows"] == 0 or \
+                    (fused["segment_sum_i64"] > 0) != (plan == "distributed"):
+                raise AssertionError(f"{plan}: the fused parquet query "
+                                     f"launched {fused}")
+            if runs["parquet"]["scan"]["declined_chunks"] or \
+                    not runs["parquet"]["scan"]["fused_dispatches"]:
+                raise AssertionError(f"{plan}: the parquet scan did not take "
+                                     f"the packed decode: {runs['parquet']}")
+            walls = {v: [] for v in dfs}
+            order = list(dfs)
+            for i in range(rounds):
+                for v in order if i % 2 == 0 else order[::-1]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = dfs[v].collect()
+                    torch.cuda.synchronize()
+                    walls[v].append(time.perf_counter() - t0)
+                    check_query(out, want, f"{plan} {v}")
+            launches[f"parquet_query_{plan}"] = runs["parquet"]["launches"]
+            launches[f"parquet_query_{plan}_no_dpp"] = fused
+            emit({"phase": "parquet_query", "plan": plan,
+                  "fact_rows": fact.num_rows, "dim_rows": dim.num_rows,
+                  "exact": True,
+                  "warm_collect_s": {v: spread(w) for v, w in walls.items()},
+                  "device_idle_share": {
+                      v: idle_share(torch, dfs[v].collect)
+                      for v in ("parquet", "parquet_no_dpp")},
+                  "per_collect": runs})
+
+        # ---- parquet_star_q7: star Q7 over the four star tables in parquet,
+        # one device: dictionary strings, nulls, and the pruning wiring
+        t0 = time.monotonic()
+        star = star_tables(pa, n_sales, *dims.values())
+        star_want = star_oracle(pa, star)["q7"]
+        spaths = write_parquet(pq, star, d)
+        setup_s = time.monotonic() - t0
+        q7 = star_queries(TpuSession(conf, dev), star_namespace(), star,
+                          spaths)["q7"]
+        plan = q7.explain()
+        if "TpuFusedStageExec" not in plan or "TpuShuffled" in plan:
+            raise AssertionError(f"parquet q7: not the fused broadcast "
+                                 f"plan:\n{plan}")
+        check_star("q7", q7.collect(), star_want)  # warm-up
+        out, n, scan = counted(q7.collect)
+        check_star("q7", out, star_want)
+        if n["murmur3_rows"] == 0 or n["segment_sum_i64"]:
+            raise AssertionError(f"parquet q7 launched {n}")
+        walls = []
+        for _ in range(STAR_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check_star("q7", q7.collect(), star_want)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches["parquet_star_q7"] = n
+        emit({"phase": "parquet_star_q7", "fact_rows": n_sales,
+              "dim_rows": dims, "setup_s": setup_s,
+              "file_bytes": {k: os.path.getsize(v) for k, v in spaths.items()},
+              "rtol_averages": 1e-9, "exact": "keys, counts",
+              "warm_collect_s": spread(walls),
+              "device_idle_share": idle_share(torch, q7.collect),
+              "launches_per_collect": n, "scan_per_collect": scan})
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -874,13 +1116,6 @@ def main() -> int:
     # plain twin (off), timed in turns
     want = query_oracle(fact, dim)
 
-    def check_query(out, mode):
-        out = out.sort_by("g")
-        for name, w in zip(("g", "total", "cnt"), want):
-            if not np.array_equal(out.column(name).to_numpy(), w):
-                raise AssertionError(f"query column {name} differs from the "
-                                     f"oracle (pallas.mode={mode})")
-
     dfs = {}
     for mode in ("auto", "off"):
         sess = TpuSession({"spark.rapids.tpu.fusion.enabled": True,
@@ -891,7 +1126,8 @@ def main() -> int:
         plan = dfs[mode].explain()
         if "TpuFusedStageExec" not in plan:
             raise AssertionError(f"filter and probe did not fuse:\n{plan}")
-        check_query(dfs[mode].collect(), mode)  # warm-up
+        # warm-up
+        check_query(dfs[mode].collect(), want, f"pallas.mode={mode}")
     walls = {"auto": [], "off": []}
     counts = {"auto": set(), "off": set()}
     for i in range(WALL_ROUNDS):
@@ -904,7 +1140,7 @@ def main() -> int:
             walls[mode].append(time.perf_counter() - t0)
             counts[mode].add((murmur3_rows.launches,
                               segment_sum_f64.launches))
-            check_query(out, mode)
+            check_query(out, want, f"pallas.mode={mode}")
     if len(counts["auto"]) != 1 or min(counts["auto"])[0] == 0:
         raise AssertionError(f"the fused query launched murmur3_rows "
                              f"{sorted(counts['auto'])} times per collect")
@@ -1031,7 +1267,8 @@ def main() -> int:
                 and "TpuShuffleExchangeExec" in plan
                 and plan.startswith("TpuHashAggregateExec[final")):
             raise AssertionError(f"not the distributed plan:\n{plan}")
-        check_query(ddfs[mode].collect(), mode)  # warm-up
+        # warm-up
+        check_query(ddfs[mode].collect(), want, f"pallas.mode={mode}")
     dwalls = {"auto": [], "off": []}
     dcounts = {"auto": set(), "off": set()}
     for i in range(WALL_ROUNDS):
@@ -1050,7 +1287,7 @@ def main() -> int:
             dcounts[mode].add((segment_sum_i64.launches,
                                murmur3_rows.launches,
                                segment_sum_f64.launches))
-            check_query(out, mode)
+            check_query(out, want, f"pallas.mode={mode}")
     if len(dcounts["auto"]) != 1 or 0 in min(dcounts["auto"])[:2]:
         raise AssertionError(f"the distributed query launched (C, A, B) "
                              f"{sorted(dcounts['auto'])} times per collect")
@@ -1072,6 +1309,17 @@ def main() -> int:
     # ---- 8, 9. the star-schema reports, one device and distributed
     star_launches, dstar_launches, a_args, c_args = star_phases(
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
+
+    # ---- parquet_decode, parquet_query, parquet_star_q7: the parquet scan
+    pq_launches = parquet_phases(
+        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64),
+        fact, dim)
+
+    def by_path(name):
+        """A kernel's launches on each path's run, the parquet paths too."""
+        return dict({"star_query": star_launches[name],
+                     "star_query_distributed": dstar_launches[name]},
+                    **{p: n[name] for p, n in pq_launches.items()})
 
     # ---- 10. A and C on the inputs their star paths gave them (A: the first
     # fused probe's keys of a one-device Q7 collect; C: the first fused
@@ -1131,6 +1379,7 @@ def main() -> int:
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
          "path": "star_query", "launches": star_launches["murmur3_rows"],
+         "launches_by_path": by_path("murmur3_rows"),
          "max_abs_err": a_err, "ms": a_star["ms"],
          "plain_ms": a_star["plain_ms"], "bound_ms": a_star["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
@@ -1149,6 +1398,7 @@ def main() -> int:
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
          "path": "star_query_distributed",
          "launches": dstar_launches["segment_sum_i64"],
+         "launches_by_path": by_path("segment_sum_i64"),
          "max_abs_err": c_err, "ms": c_star["ms"],
          "plain_ms": c_star["plain_ms"], "bound_ms": c_star["bound_ms"],
          "bound_by": "bytes", "library_ms": c_star["library_ms"]},

@@ -110,6 +110,31 @@ register("spark.rapids.tpu.mesh.shape", "string", "",
 register("spark.rapids.tpu.mesh.enabled", "bool", False,
          "Sharded execution (the JAX package's mesh/plan.py): not in "
          "spark_rapids_tpu_torch yet, so true raises at plan time.")
+register("spark.rapids.sql.format.parquet.enabled", "bool", True,
+         "Enable the parquet scan.")
+register("spark.rapids.sql.format.parquet.deviceDecode.enabled", "bool", True,
+         "Decode parquet pages on the device (io/parquet_device.py). false "
+         "is an explicit request for pyarrow's host decode, uploaded through "
+         "the Arrow path, for comparing the two; the device decode never "
+         "falls back to it on its own.")
+register("spark.rapids.sql.dynamicFilePruning.enabled", "bool", True,
+         "Prune probe-side parquet files and row groups of a broadcast hash "
+         "join by the build side's distinct keys against the footer min/max "
+         "statistics (io/dynamic_pruning.py). A join carrying such a filter "
+         "is not fused, so it can fill the filter before the probe scan "
+         "starts.")
+register("spark.rapids.tpu.pipeline.enabled", "bool", True,
+         "Pipelined execution: a background thread prefetches file-scan "
+         "batches, and the parquet scan decodes "
+         "pipeline.scan.chunksPerDispatch row groups per packed dispatch. "
+         "Off: no thread, one row group per dispatch.")
+register("spark.rapids.tpu.pipeline.prefetch.depth", "int", 2,
+         "Batches the scan's prefetch thread may run ahead of its consumer.")
+register("spark.rapids.tpu.pipeline.scan.chunksPerDispatch", "int", 4,
+         "Row-group chunks the device parquet scan decodes per packed "
+         "dispatch: their arrays pack into one host buffer, ship in one "
+         "copy and merge into one batch. 1: row group by row group; "
+         "ignored when spark.rapids.tpu.pipeline.enabled is false.")
 
 
 class TpuConf:

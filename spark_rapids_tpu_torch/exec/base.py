@@ -4,11 +4,17 @@ An exec produces an iterator of device `ColumnarBatch`es: the pull loop.
 Every kernel is an eager function on torch tensors, so there is no compile
 service and no jit; host code between kernels handles iteration and the
 few host syncs (join capacities) the engine pays on purpose.
+
+`PrefetchIterator` / `maybe_prefetch` run a file scan's decode one or two
+batches ahead of its consumer on a background thread (the scan seam of the
+JAX package's pipelined execution).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+import queue
+import threading
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 
@@ -17,7 +23,7 @@ from ..config import TpuConf, get_default_conf
 from ..expr.base import EvalContext, Vec
 
 __all__ = ["TpuExec", "UnaryTpuExec", "batch_vecs", "vecs_to_batch",
-           "device_ctx"]
+           "device_ctx", "PrefetchIterator", "maybe_prefetch"]
 
 
 class TpuExec:
@@ -80,3 +86,111 @@ def vecs_to_batch(schema: Schema, vecs: Sequence[Vec],
     return ColumnarBatch(schema, tuple(v.to_column() for v in vecs),
                          torch.as_tensor(num_rows, dtype=torch.int32,
                                          device=device))
+
+
+_END = object()
+
+
+class _Failure:
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class PrefetchIterator:
+    """Bounded-depth prefetch of an upstream batch iterator on a background
+    thread, so the host half of the next batch's decode (page walks, packing,
+    the copy) overlaps the consumer's device work.
+
+      * At most `depth` batches wait in the queue.
+      * Every exception the producer raises reaches the consumer with its
+        own type, and the producer thread always ends.
+      * A consumer that stops early (an error downstream, a closed
+        generator) stops the producer, drains the queue and joins the
+        thread.
+      * The producer builds its tensors on the device the scan names; the
+        thread's current CUDA device plays no part.
+    """
+
+    _PUT_POLL_S = 0.02
+
+    def __init__(self, inner: Iterator[ColumnarBatch], depth: int,
+                 name: str = "prefetch"):
+        self._inner = inner
+        self._name = name
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._produce,
+                                        name=f"srtpu-{name}", daemon=True)
+        self._thread.start()
+
+    def _produce(self) -> None:
+        try:
+            for batch in self._inner:
+                if not self._put(batch):
+                    return  # the consumer is gone
+            self._put(_END)
+        except BaseException as e:  # noqa: BLE001 -- crosses the queue
+            self._put(_Failure(e))
+
+    def _put(self, item) -> bool:
+        """A put that gives up once the consumer has stopped."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=self._PUT_POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _get(self):
+        """A get that notices a producer that died without its end token."""
+        while True:
+            try:
+                return self._q.get(timeout=1.0)
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    try:
+                        return self._q.get_nowait()
+                    except queue.Empty:
+                        raise RuntimeError(
+                            f"prefetch producer '{self._name}' died without "
+                            "a result") from None
+
+    def __iter__(self) -> Iterator[ColumnarBatch]:
+        try:
+            while True:
+                item = self._get()
+                if item is _END:
+                    return
+                if isinstance(item, _Failure):
+                    raise item.exc
+                yield item
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the producer, drop what it parked, and join it; drain once
+        more after the join for an item put while the first drain ran."""
+        self._stop.set()
+        for _ in range(2):
+            while True:
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    break
+            self._thread.join(timeout=10.0)
+
+
+def maybe_prefetch(inner: Iterator[ColumnarBatch], conf: Optional[TpuConf],
+                   name: str = "prefetch") -> Iterator[ColumnarBatch]:
+    """`inner` behind a PrefetchIterator when pipelined execution is on
+    (`spark.rapids.tpu.pipeline.enabled`, depth
+    `spark.rapids.tpu.pipeline.prefetch.depth`); otherwise `inner` itself,
+    with no thread."""
+    conf = conf or get_default_conf()
+    depth = conf.get("spark.rapids.tpu.pipeline.prefetch.depth")
+    if not conf.get("spark.rapids.tpu.pipeline.enabled") or depth < 1:
+        return inner
+    return iter(PrefetchIterator(inner, depth, name))

@@ -28,6 +28,7 @@ import torch
 from .. import types as T
 from ..columnar.batch import ColumnarBatch, Schema, empty_batch, \
     join_output_schema
+from ..columnar.column import to_arrow as col_to_arrow
 from ..columnar.padding import row_bucket
 from ..expr.base import BoundReference, Expression, Vec, bind_references
 from ..expr.hashing import hash_vecs
@@ -157,6 +158,10 @@ class TpuShuffledHashJoinExec(TpuExec):
                             for e in self.left_keys)
         self._rk_ix = tuple(self._key_ordinal(e, right.output)
                             for e in self.right_keys)
+        # (build key ordinal, DynamicKeyFilter) pairs the planner wires for
+        # probe-side scan pruning; filled with the build side's distinct
+        # keys after the build, strictly before the probe stream is pulled
+        self.dpp_filters: list = []
 
     @staticmethod
     def _key_ordinal(e: Expression, schema: Schema) -> int:
@@ -195,12 +200,24 @@ class TpuShuffledHashJoinExec(TpuExec):
             if self.join_type in ("inner", "semi"):
                 return
             build = self.empty_build()
+        if self.dpp_filters:
+            self._fill_dpp_filters(build)
         for probe in self.children[0].execute():
             if probe.row_count() == 0:
                 continue
             out = self.join_pair(probe, build)
             if out.row_count() > 0:
                 yield out
+
+    def _fill_dpp_filters(self, build: ColumnarBatch) -> None:
+        """The build side's key values (nulls dropped) into each filter: one
+        copy of each key column to the host."""
+        n = build.row_count()
+        for ordinal, filt in self.dpp_filters:
+            arr = col_to_arrow(build.columns[ordinal], n).drop_null()
+            filt.set_values(arr.to_pylist() if isinstance(
+                build.schema.types[ordinal], T.StringType)
+                else arr.to_numpy())
 
     def _zipped_execute(self) -> Iterator[ColumnarBatch]:
         """Co-partitioned per-shard join: matching keys land in the same

@@ -12,8 +12,9 @@ batch-shape-compatible operators:
 
 and replaces each chain of at least `fusion.minOps` members with one
 `exec/fused.py TpuFusedStageExec`. Everything else breaks the chain:
-complete and final aggregates merge across the whole batch stream, and
-exchanges move rows between positions.
+complete and final aggregates merge across the whole batch stream,
+exchanges move rows between positions, and a join carrying dynamic-pruning
+filters fills them from its build before its probe scan starts.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def _fusible(node, head: bool) -> bool:
         return True
     if isinstance(node, TpuBroadcastHashJoinExec):
         return (node.join_type in FUSIBLE_JOIN_TYPES
-                and not node.zip_partitions
+                and not node.zip_partitions and not node.dpp_filters
                 and isinstance(node.children[1], TpuBroadcastExchangeExec))
     if isinstance(node, TpuHashAggregateExec):
         return head and node.mode == "partial"

@@ -28,6 +28,7 @@ from ..expr.aggregates import Average, Max, Min, Sum
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
 from ..expr.hashing import INT_FAMILY, LONG_FAMILY
+from ..io.scanbase import CpuFileScanExec, TpuFileScanExec
 from . import nodes as N
 
 __all__ = ["Overrides"]
@@ -83,13 +84,67 @@ def _check_expr(e: Expression) -> None:
             _unsupported(f"{type(node).__name__} over strings")
 
 
+def _selectivity(cond, stats: dict) -> float:
+    """Predicate selectivity from footer column min/max, uniform between
+    them as Spark's FilterEstimation assumes; 0.5 when it cannot be known
+    (`plan/cbo.py` `_selectivity`)."""
+    def attr_lit(e):
+        a, b = e.children
+        if isinstance(a, AttributeReference) and isinstance(b, Literal):
+            return a, b.value, False
+        if isinstance(b, AttributeReference) and isinstance(a, Literal):
+            return b, a.value, True
+        return None
+
+    if isinstance(cond, P.And):
+        return _selectivity(cond.children[0], stats) * \
+            _selectivity(cond.children[1], stats)
+    if isinstance(cond, P.Or):
+        s1 = _selectivity(cond.children[0], stats)
+        s2 = _selectivity(cond.children[1], stats)
+        return s1 + s2 - s1 * s2
+    if isinstance(cond, P.Not):
+        return 1.0 - _selectivity(cond.children[0], stats)
+    if isinstance(cond, (P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+                         P.GreaterThanOrEqual, P.EqualTo)):
+        al = attr_lit(cond)
+        if al is None:
+            return 0.5
+        attr, v, flipped = al
+        rng = stats.get(attr.col_name)
+        try:
+            if rng is None:
+                return 0.5
+            mn, mx = float(rng[0]), float(rng[1])
+            v = float(v)
+        except (TypeError, ValueError):
+            return 0.5
+        if isinstance(cond, P.EqualTo):
+            return 0.05 if mn <= v <= mx else 0.0
+        frac_below = 1.0 if v >= mx else 0.0 if v <= mn else \
+            (v - mn) / (mx - mn)
+        less = isinstance(cond, (P.LessThan, P.LessThanOrEqual))
+        if flipped:  # lit OP attr reverses the direction
+            less = not less
+        return frac_below if less else 1.0 - frac_below
+    return 0.5
+
+
 def _estimated_rows(plan: N.PhysicalPlan) -> float:
-    """Heuristic output cardinality (`plan/cbo.py` `_estimate_from`, exact
-    at in-memory scans, without the runtime-statistics feedback)."""
+    """Heuristic output cardinality (`plan/cbo.py` `_estimate_from` without
+    the runtime-statistics feedback): exact at in-memory and file scans
+    (the footer row count), a filter straight over a file scan by its
+    footer statistics, else the fixed factors."""
     kids = [_estimated_rows(c) for c in plan.children]
     if isinstance(plan, N.CpuScanExec):
         return float(plan.table.num_rows)
+    if isinstance(plan, CpuFileScanExec):
+        return float(plan.footer_row_count())
     if isinstance(plan, N.CpuFilterExec):
+        child = plan.children[0]
+        if isinstance(child, CpuFileScanExec):
+            sel = _selectivity(plan.condition, child.column_stats())
+            return kids[0] * max(min(sel, 1.0), 0.0)
         return kids[0] * 0.5
     if isinstance(plan, N.CpuHashAggregateExec):
         return max(kids[0] / 8.0, 1.0) if plan.group_exprs else 1.0
@@ -145,6 +200,8 @@ class Overrides:
             check_string_widths(plan.table)
             from ..exec.basic import TpuScanExec
             out = TpuScanExec(plan.table, self.device, conf)
+        elif isinstance(plan, CpuFileScanExec):
+            out = self._convert_file_scan(plan)
         elif isinstance(plan, N.CpuProjectExec):
             for e in plan._bound:
                 _check_expr(e)
@@ -166,6 +223,26 @@ class Overrides:
             self.explain_log.append(f"*{plan.name} will run on "
                                     f"{self.device} as {out.name}")
         return out
+
+    def _convert_file_scan(self, plan):
+        """A parquet scan: every column of an engine type, and, for the
+        device decode, of a physical layout it decodes (the footer check
+        `columns_supported`, over every file). Pages are checked when they
+        are read: a page the decode declines raises then."""
+        from ..io.parquet_device import columns_supported
+        if plan.format_name != "parquet":
+            _unsupported(f"the {plan.format_name} scan")
+        for dt in plan.output.types:
+            check_supported(dt, "scan column")
+        if self.conf.get(
+                "spark.rapids.sql.format.parquet.deviceDecode.enabled"):
+            for path in plan.paths:
+                pf, bad = columns_supported(path, plan.output)
+                pf.close()
+                for name, reason in bad.items():
+                    _unsupported(f"parquet column {name} ({reason}) in "
+                                 f"{path}")
+        return TpuFileScanExec(plan, self.conf, self.device)
 
     def _convert_agg(self, plan: N.CpuHashAggregateExec, children):
         from ..exec.aggregate import SUPPORTED_AGGREGATES, TpuHashAggregateExec
@@ -210,9 +287,61 @@ class Overrides:
         threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
         if (threshold >= 0 and plan.join_type in _BROADCASTABLE
                 and _estimated_bytes(plan.children[1]) <= threshold):
-            return TpuBroadcastHashJoinExec(
+            join = TpuBroadcastHashJoinExec(
                 children[0], TpuBroadcastExchangeExec(children[1], self.conf),
                 plan.left_keys, plan.right_keys, plan.join_type, self.conf)
+            _wire_dynamic_pruning(join, plan, self.conf)
+            return join
         return TpuShuffledHashJoinExec(children[0], children[1],
                                        plan.left_keys, plan.right_keys,
                                        plan.join_type, self.conf)
+
+
+# join types in which a probe row without a build match never reaches the
+# output, so pruning probe row groups by the build keys cannot change a
+# result (left and anti emit unmatched probe rows)
+_DPP_SAFE = ("inner", "semi")
+
+
+def _dpp_scan_for_column(node, colname):
+    """Descend column-preserving execs from the probe root to a parquet
+    scan that provides `colname` unchanged: (scan, its column) or None."""
+    from ..exec.basic import TpuFilterExec, TpuProjectExec
+    if isinstance(node, TpuFileScanExec):
+        return (node, colname) if (node.cpu_scan.format_name == "parquet"
+                                   and colname in node.output.names) \
+            else None
+    if isinstance(node, TpuFilterExec):
+        return _dpp_scan_for_column(node.children[0], colname)
+    if isinstance(node, TpuProjectExec):
+        for e in node.exprs:
+            src = e.children[0] if isinstance(e, Alias) else e
+            name = e.alias if isinstance(e, Alias) else \
+                getattr(e, "col_name", None)
+            if name == colname and isinstance(src, AttributeReference):
+                return _dpp_scan_for_column(node.children[0], src.col_name)
+    return None
+
+
+def _wire_dynamic_pruning(join, plan, conf) -> None:
+    """Attach DynamicKeyFilters between a broadcast hash join and the probe
+    parquet scans its keys are columns of (`plan/overrides.py`
+    `_wire_dynamic_pruning`). Only integer, floating and string keys, whose
+    footer min/max compare in the value domain."""
+    if not conf.get("spark.rapids.sql.dynamicFilePruning.enabled") or \
+            plan.join_type not in _DPP_SAFE:
+        return
+    from ..io.dynamic_pruning import DynamicKeyFilter
+    for i, lk in enumerate(plan.left_keys):
+        if not isinstance(lk, AttributeReference):
+            continue
+        res = _dpp_scan_for_column(join.children[0], lk.col_name)
+        if res is None:
+            continue
+        scan, scan_col = res
+        dt = scan.output.types[scan.output.names.index(scan_col)]
+        if not (T.is_integral(dt) or T.is_floating(dt) or dt == T.STRING):
+            continue
+        filt = DynamicKeyFilter(scan_col)
+        scan.dynamic_filters.append(filt)
+        join.dpp_filters.append((join._rk_ix[i], filt))

@@ -1,5 +1,5 @@
-"""Session (`spark_rapids_tpu/plugin.py`: TpuSession.from_arrow and
-execute_plan, without the result cache, statistics, live view, scheduler
+"""Session (`spark_rapids_tpu/plugin.py`: TpuSession.from_arrow,
+read_parquet and execute_plan, without the result cache, statistics, live view, scheduler
 or telemetry hooks).
 
 The session owns the device. `TpuSession(conf)` runs on `cuda:0`; with no
@@ -48,6 +48,14 @@ class TpuSession:
         from .frontend import DataFrame
         from .plan.nodes import CpuScanExec
         return DataFrame(self, CpuScanExec(table, label))
+
+    def read_parquet(self, *paths, **options):
+        """A DataFrame over parquet files, decoded on the session's device
+        (io/parquet_device.py). `columns=[...]` prunes columns."""
+        from .frontend import DataFrame
+        from .io.parquet import parquet_scan_plan
+        return DataFrame(self, parquet_scan_plan(list(paths), self.conf,
+                                                 **options))
 
     def plan_device(self, plan: PhysicalPlan):
         """The device exec tree for a plan (rewrite + fusion)."""

@@ -307,7 +307,9 @@ class TestBoundaries:
             "assert not bad, bad\n"
             "new = ['parallel.mesh', 'parallel.partitioning', "
             "'parallel.collective', 'exec.exchange', 'exec.requirements', "
-            "'ops.pallas_groupby', 'expr.nullexprs', 'expr.conditional']\n"
+            "'ops.pallas_groupby', 'expr.nullexprs', 'expr.conditional', "
+            "'native', 'io.parquet_device', 'io.scanbase', 'io.parquet', "
+            "'io.dynamic_pruning']\n"
             "missing = [m for m in new if p.__name__ + '.' + m not in "
             "sys.modules]\n"
             "assert not missing, missing\n"
