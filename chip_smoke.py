@@ -14,8 +14,11 @@ device and Q7 under the distributed plan, and then the parquet scan: the
 fact table written by pyarrow (row groups of 1,048,576, snappy and
 uncompressed) decoded on the card and held against pq.read_table, the
 engine query through read_parquet on both plans (in turns with the Arrow,
-no-pruning and host-decode forms of it) and star Q7 from parquet files;
-it checks each against numpy oracles. Each
+no-pruning and host-decode forms of it, and at 1 row group a dispatch,
+without the scan's prefetch thread, and with neither) and star Q7 from
+parquet files; it checks each against numpy oracles, holds kernels A and
+C to their exact launch counts there, and holds them against their twins
+on the inputs those paths hand them (a merged batch of 4 row groups). Each
 phase prints one JSON line; then a `kernels` line, the card's `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
 exits non-zero without that last line. Without CUDA (or without the package
@@ -168,6 +171,75 @@ def first_call_args(torch, module, name: str, fn) -> tuple:
     if not seen:
         raise AssertionError(f"{name} was not called")
     return seen[0]
+
+
+def fused_joins(plan: str) -> int:
+    """The broadcast joins inside the fused stages of an explain() tree.
+    Kernel A runs twice per fused join per probe batch."""
+    return sum(ln.count("BroadcastHashJoin[") for ln in plan.splitlines()
+               if "TpuFusedStageExec" in ln)
+
+
+def murmur3_on_path(torch, args, rate: float, **where) -> dict:
+    """Kernel A on the arguments a path handed it: bit for bit against its
+    plain twin and against itself on repeat, then timed there. Raises on
+    any difference; returns the phase's record (`where` names the path)."""
+    from spark_rapids_tpu_torch.ops.pallas_probe import (murmur3_rows,
+                                                         murmur3_rows_plain)
+    got, again = murmur3_rows(*args), murmur3_rows(*args)
+    err = int((got.to(torch.int64) - murmur3_rows_plain(*args)
+               .to(torch.int64)).abs().max())
+    if err != 0 or not torch.equal(got, again):
+        raise AssertionError(f"murmur3_rows differs from its plain twin on "
+                             f"the keys of {where} by up to {err}")
+    return dict(where, rows=args[0].shape[0], key_dtype=str(args[0].dtype),
+                live_rows=int(args[1].sum()), bit_identical_to_plain=True,
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: murmur3_rows(*args)),
+                plain_ms=time_ms(torch, lambda: murmur3_rows_plain(*args)),
+                bound_ms=args[0].shape[0] * (
+                    sum(t.element_size() for t in args) + 4) / rate * 1e3)
+
+
+def i64_err(torch, got, plain) -> float:
+    """Largest |got - plain| of two int64 results, as a double. The wrapped
+    int64 difference is 0 exactly where the two agree, and a non-zero
+    int64 never rounds to 0.0 as a double."""
+    if got.numel() == 0:
+        return 0.0
+    return float((got - plain).to(torch.float64).abs().max())
+
+
+def segsum_i64_on_path(torch, args, rate: float, **where) -> dict:
+    """Kernel C on the arguments a path handed it, as murmur3_on_path does
+    for A, with the library call's time beside it: index_add_ into the
+    groups, any id outside [0, groups) sent to one spare slot (index_add_
+    raises on them)."""
+    from spark_rapids_tpu_torch.ops.pallas_groupby import (
+        segment_sum_i64, segment_sum_i64_plain)
+    vals, ids, groups = args
+    got, again = segment_sum_i64(*args), segment_sum_i64(*args)
+    err = i64_err(torch, got, segment_sum_i64_plain(*args))
+    if err != 0 or not torch.equal(got, again):
+        raise AssertionError(f"segment_sum_i64 differs from its plain twin "
+                             f"on the values of {where} by up to {err}")
+    in_range = (ids >= 0) & (ids < groups)
+    lib_ids = torch.where(in_range, ids, groups).to(torch.int64)
+    return dict(where, rows=vals.shape[0], groups=groups,
+                id_dtype=str(ids.dtype),
+                ids_out_of_range=int((~in_range).sum()),
+                groups_nonzero=int((got != 0).sum()),
+                sum_of_values=int(got.sum()), bit_identical_to_plain=True,
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: segment_sum_i64(*args)),
+                plain_ms=time_ms(torch,
+                                 lambda: segment_sum_i64_plain(*args)),
+                library_ms=time_ms(torch, lambda: torch.zeros(
+                    groups + 1, dtype=torch.int64,
+                    device=vals.device).index_add_(0, lib_ids, vals)),
+                bound_ms=(vals.shape[0] * (vals.element_size()
+                                           + ids.element_size())
+                          + groups * 8) / rate * 1e3)
 
 
 def cuda_kernel_ms(torch, fn, calls: int = 20) -> dict:
@@ -678,9 +750,14 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
 # ---- the parquet scan (slice 5): the engine query's and the star schema's
 # tables written by pyarrow in row groups of 1,048,576 rows
 PARQUET_ROW_GROUP = 1 << 20
+CHUNKS_PER_DISPATCH = 4  # spark.rapids.tpu.pipeline.scan.chunksPerDispatch
+ARROW_BATCH_ROWS = 1 << 20  # spark.rapids.sql.batchSizeRows
 DECODE_ROUNDS = 5
 DPP_OFF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
 HOST_DECODE = {"spark.rapids.sql.format.parquet.deviceDecode.enabled": False}
+ONE_RG = {"spark.rapids.tpu.pipeline.scan.chunksPerDispatch": 1}
+NO_PREFETCH = {"spark.rapids.tpu.pipeline.prefetch.depth": 0}
+SERIAL = {"spark.rapids.tpu.pipeline.enabled": False}
 
 
 def check_query(out, want, what: str) -> None:
@@ -704,6 +781,17 @@ def write_parquet(pq, tables: dict, d: str, compression: str = "snappy",
     return paths
 
 
+def packed_groups(pq, paths, per: int) -> int:
+    """The packed dispatches a scan of `paths` makes at `per` row groups a
+    dispatch: every group of two row groups or more (a lone row group
+    decodes by itself)."""
+    n = 0
+    for path in paths:
+        rgs = pq.ParquetFile(path).metadata.num_row_groups
+        n += (rgs // per + (rgs % per > 1)) if per > 1 else 0
+    return n
+
+
 def check_decoded(pa, batches, want, what: str) -> None:
     """Raise unless the decoded batches hold `want` (pq.read_table of the
     same file), value for value and validity for validity."""
@@ -725,11 +813,15 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
     """Phases parquet_decode, parquet_query and parquet_star_q7 (slice 5),
     over files written to a temporary directory that is removed after.
     `counters` are the kernel wrappers A, B and C; `conf` is added to every
-    session's settings. Returns the launch counts of each path's run."""
+    session's settings. Returns the launch counts of each path's run, and
+    the arguments of A's first call in a parquet star Q7 collect and of
+    C's first call in a distributed parquet query collect without pruning
+    (outside the counted runs)."""
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.columnar.batch import Schema
     from spark_rapids_tpu_torch.io import parquet_device as P
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
     from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
     dev = resolve_device(device)
     conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
@@ -806,15 +898,22 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
 
         # ---- parquet_query: the engine query through read_parquet, one
         # device and distributed, in turns with the same query from Arrow
-        # tables, without dynamic pruning (which lets the join fuse), and
-        # with the host decode
+        # tables, without dynamic pruning (which lets the join fuse), with
+        # the host decode, and with each pipelining mechanism turned off:
+        # one row group a dispatch, no prefetch thread, neither
         want = query_oracle(fact, dim)
         qpaths = {"fact": paths["snappy"],
                   "dim": write_parquet(pq, {"dim": dim}, d)["dim"]}
+        fact_batches = -(-pq.ParquetFile(qpaths["fact"]).metadata
+                         .num_row_groups // CHUNKS_PER_DISPATCH)
+        arrow_batches = -(-fact.num_rows // ARROW_BATCH_ROWS)
         variants = {"parquet": ({}, qpaths),
                     "parquet_no_dpp": (DPP_OFF, qpaths),
                     "from_arrow": ({}, None),
-                    "host_decode": (HOST_DECODE, qpaths)}
+                    "host_decode": (HOST_DECODE, qpaths),
+                    "parquet_1_row_group_a_dispatch": (ONE_RG, qpaths),
+                    "parquet_no_prefetch_thread": (NO_PREFETCH, qpaths),
+                    "parquet_serial": (SERIAL, qpaths)}
         for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
             dfs = {v: main_query(TpuSession(dict(conf, **extra, **vc), dev),
                                  fact, dim, p)
@@ -833,15 +932,35 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
                 out, n, scan = counted(df.collect)
                 check_query(out, want, f"{plan} {v}")
                 runs[v] = {"launches": n, "scan": scan}
-            fused = runs["parquet_no_dpp"]["launches"]
-            if fused["murmur3_rows"] == 0 or \
-                    (fused["segment_sum_i64"] > 0) != (plan == "distributed"):
+            # A twice per fused join per batch; C as many times a batch as
+            # on the same query from Arrow: 4 merged batches, not 16
+            fused, arrow = runs["parquet_no_dpp"]["launches"], \
+                runs["from_arrow"]["launches"]
+            want_a = 2 * fused_joins(shapes["parquet_no_dpp"]) * fact_batches
+            want_c = arrow["segment_sum_i64"] // arrow_batches * fact_batches
+            if fused["murmur3_rows"] != want_a or \
+                    fused["segment_sum_i64"] != want_c or \
+                    arrow["segment_sum_i64"] % arrow_batches or \
+                    (want_c > 0) != (plan == "distributed"):
                 raise AssertionError(f"{plan}: the fused parquet query "
-                                     f"launched {fused}")
-            if runs["parquet"]["scan"]["declined_chunks"] or \
-                    not runs["parquet"]["scan"]["fused_dispatches"]:
-                raise AssertionError(f"{plan}: the parquet scan did not take "
-                                     f"the packed decode: {runs['parquet']}")
+                                     f"launched {fused}, not A {want_a} and "
+                                     f"C {want_c}")
+            for v, n_rg in (("parquet", CHUNKS_PER_DISPATCH),
+                            ("parquet_no_prefetch_thread",
+                             CHUNKS_PER_DISPATCH),
+                            ("parquet_1_row_group_a_dispatch", 1),
+                            ("parquet_serial", 1)):
+                sc = runs[v]["scan"]
+                if sc["declined_chunks"] or sc["fused_dispatches"] != \
+                        packed_groups(pq, qpaths.values(), n_rg):
+                    raise AssertionError(f"{plan} {v}: the parquet scan did "
+                                         f"not decode {n_rg} row groups a "
+                                         f"dispatch: {sc}")
+            if plan == "distributed":
+                # C on the inputs this path gives it (outside the counted run)
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64",
+                                         dfs["parquet_no_dpp"].collect)
             walls = {v: [] for v in dfs}
             order = list(dfs)
             for i in range(rounds):
@@ -856,7 +975,8 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
             launches[f"parquet_query_{plan}_no_dpp"] = fused
             emit({"phase": "parquet_query", "plan": plan,
                   "fact_rows": fact.num_rows, "dim_rows": dim.num_rows,
-                  "exact": True,
+                  "exact": True, "fact_batches": fact_batches,
+                  "fused_joins_no_dpp": fused_joins(shapes["parquet_no_dpp"]),
                   "warm_collect_s": {v: spread(w) for v, w in walls.items()},
                   "device_idle_share": {
                       v: idle_share(torch, dfs[v].collect)
@@ -879,8 +999,15 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
         check_star("q7", q7.collect(), star_want)  # warm-up
         out, n, scan = counted(q7.collect)
         check_star("q7", out, star_want)
-        if n["murmur3_rows"] == 0 or n["segment_sum_i64"]:
-            raise AssertionError(f"parquet q7 launched {n}")
+        sales_batches = -(-pq.ParquetFile(spaths["store_sales"]).metadata
+                          .num_row_groups // CHUNKS_PER_DISPATCH)
+        want_a = 2 * fused_joins(plan) * sales_batches
+        if n["murmur3_rows"] != want_a or n["segment_sum_i64"]:
+            raise AssertionError(f"parquet q7 launched {n}, not A {want_a} "
+                                 "and C 0")
+        # A on the inputs this path gives it (outside the counted run)
+        a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                 q7.collect)
         walls = []
         for _ in range(STAR_ROUNDS):
             torch.cuda.synchronize()
@@ -893,10 +1020,11 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
               "dim_rows": dims, "setup_s": setup_s,
               "file_bytes": {k: os.path.getsize(v) for k, v in spaths.items()},
               "rtol_averages": 1e-9, "exact": "keys, counts",
+              "sales_batches": sales_batches, "fused_joins": fused_joins(plan),
               "warm_collect_s": spread(walls),
               "device_idle_share": idle_share(torch, q7.collect),
               "launches_per_collect": n, "scan_per_collect": scan})
-    return launches
+    return launches, a_args, c_args
 
 
 def main() -> int:
@@ -1184,19 +1312,12 @@ def main() -> int:
     }
     c_err = 0.0
 
-    def i64_err(got, plain):
-        # the wrapped int64 difference is 0 exactly where the two agree, and
-        # a non-zero int64 never rounds to 0.0 as a double
-        if got.numel() == 0:
-            return 0.0
-        return float((got - plain).to(torch.float64).abs().max())
-
     for name, (v, i, gg) in c_cases.items():
         got = segment_sum_i64(v, i, gg)
         again = segment_sum_i64(v, i, gg)
         plain = segment_sum_i64_plain(v, i, gg)
         torch.cuda.synchronize()
-        err = i64_err(got, plain)
+        err = i64_err(torch, got, plain)
         if err != 0:
             raise AssertionError(f"segment_sum_i64 differs from its plain "
                                  f"twin ({name}) by up to {err}")
@@ -1210,7 +1331,7 @@ def main() -> int:
         v = torch.tensor(v, dtype=torch.int64, device=dev)
         i = torch.as_tensor(i, device=dev)
         got = segment_sum_i64(v, i, gg)
-        err = i64_err(got, segment_sum_i64_plain(v, i, gg))
+        err = i64_err(torch, got, segment_sum_i64_plain(v, i, gg))
         if err != 0:
             raise AssertionError("segment_sum_i64 differs from its plain twin "
                                  f"on an edge case by up to {err}: "
@@ -1311,77 +1432,60 @@ def main() -> int:
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
 
     # ---- parquet_decode, parquet_query, parquet_star_q7: the parquet scan
-    pq_launches = parquet_phases(
+    pq_launches, pq_a_args, pq_c_args = parquet_phases(
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64),
         fact, dim)
 
-    def by_path(name):
-        """A kernel's launches on each path's run, the parquet paths too."""
-        return dict({"star_query": star_launches[name],
+    # ---- 10. A and C on the inputs their paths gave them, bit for bit
+    # against their twins and timed there: A on the first fused probe's keys
+    # of a one-device Q7 collect, from Arrow tables and from parquet (a
+    # merged batch of 4 row groups); C on the first fused partial count of
+    # a distributed Q7 collect and the first fused partial aggregate of a
+    # distributed parquet query without pruning
+    a_on = {"star_query": murmur3_on_path(
+                torch, a_args, rate, path="star_query", query="q7"),
+            "parquet_star_q7": murmur3_on_path(
+                torch, pq_a_args, rate, path="parquet_star_q7", query="q7")}
+    c_on = {"star_query_distributed": segsum_i64_on_path(
+                torch, c_args, rate, path="star_query_distributed",
+                query="q7"),
+            "parquet_query_distributed_no_dpp": segsum_i64_on_path(
+                torch, pq_c_args, rate,
+                path="parquet_query_distributed_no_dpp", query="engine")}
+    a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
+    c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
+    emit({"phase": "kernels_on_paths", "murmur3_rows": a_on,
+          "segment_sum_i64": c_on})
+
+    def on_path(name, measured):
+        """A kernel's launches on each path's run, with its times on the
+        inputs of the paths where they were taken."""
+        runs = dict({"star_query": star_launches[name],
                      "star_query_distributed": dstar_launches[name]},
                     **{p: n[name] for p, n in pq_launches.items()})
+        keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
+                "max_abs_err")
+        return {p: dict({"launches": n},
+                        **{k: measured[p][k] for k in keys
+                           if k in measured.get(p, {})})
+                for p, n in runs.items()}
 
-    # ---- 10. A and C on the inputs their star paths gave them (A: the first
-    # fused probe's keys of a one-device Q7 collect; C: the first fused
-    # partial count of a distributed Q7 collect), bit for bit against their
-    # twins, and timed there; the kernels line takes these times
-    got, again = murmur3_rows(*a_args), murmur3_rows(*a_args)
-    err = int((got.to(torch.int64) - murmur3_rows_plain(*a_args)
-               .to(torch.int64)).abs().max())
-    if err != 0 or not torch.equal(got, again):
-        raise AssertionError(f"murmur3_rows differs from its plain twin on "
-                             f"the star path's keys by up to {err}")
-    a_err = max(a_err, err)
-    a_star = {"path": "star_query", "query": "q7",
-              "rows": a_args[0].shape[0], "key_dtype": str(a_args[0].dtype),
-              "live_rows": int(a_args[1].sum()),
-              "bit_identical_to_plain": True,
-              "ms": time_ms(torch, lambda: murmur3_rows(*a_args)),
-              "plain_ms": time_ms(torch, lambda: murmur3_rows_plain(*a_args)),
-              "bound_ms": a_args[0].shape[0] * (
-                  sum(t.element_size() for t in a_args) + 4) / rate * 1e3}
-    s_vals, s_ids, s_g = c_args
-    got, again = segment_sum_i64(*c_args), segment_sum_i64(*c_args)
-    err = i64_err(got, segment_sum_i64_plain(*c_args))
-    if err != 0 or not torch.equal(got, again):
-        raise AssertionError(f"segment_sum_i64 differs from its plain twin "
-                             f"on the star path's counts by up to {err}")
-    c_err = max(c_err, err)
-    # the library call: index_add_ into the groups, with any id outside
-    # [0, groups) sent to one spare slot (index_add_ raises on them)
-    in_range = (s_ids >= 0) & (s_ids < s_g)
-    lib_ids = torch.where(in_range, s_ids, s_g).to(torch.int64)
-    c_star = {"path": "star_query_distributed", "query": "q7",
-              "rows": s_vals.shape[0], "groups": s_g,
-              "id_dtype": str(s_ids.dtype),
-              "ids_out_of_range": int((~in_range).sum()),
-              "groups_nonzero": int((got != 0).sum()),
-              "sum_of_values": int(got.sum()),
-              "bit_identical_to_plain": True,
-              "ms": time_ms(torch, lambda: segment_sum_i64(*c_args)),
-              "plain_ms": time_ms(torch,
-                                  lambda: segment_sum_i64_plain(*c_args)),
-              "library_ms": time_ms(torch, lambda: torch.zeros(
-                  s_g + 1, dtype=torch.int64, device=dev).index_add_(
-                      0, lib_ids, s_vals)),
-              "bound_ms": (s_vals.shape[0] * (s_vals.element_size()
-                                              + s_ids.element_size())
-                           + s_g * 8) / rate * 1e3}
-    emit({"phase": "kernels_on_star_paths", "murmur3_rows": a_star,
-          "segment_sum_i64": c_star})
-
-    # ---- 11. every kernel the run launched; launches are per run of the
-    # path named beside them (one collect of each star query, one
-    # many_steps call, one distributed Q7 collect); A's and C's times are
-    # those of phase 10, on that path's inputs
+    # ---- 11. every kernel the run launched. A's and C's rows name the
+    # parquet path (this slice's) whose launches and inputs they give;
+    # by_path holds every path's launches (one run of it: one collect of
+    # each star query, one collect of each parquet query, one distributed
+    # Q7 collect) and, where measured, the times on that path's inputs
+    a_main, c_main = a_on["parquet_star_q7"], \
+        c_on["parquet_query_distributed_no_dpp"]
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "star_query", "launches": star_launches["murmur3_rows"],
-         "launches_by_path": by_path("murmur3_rows"),
-         "max_abs_err": a_err, "ms": a_star["ms"],
-         "plain_ms": a_star["plain_ms"], "bound_ms": a_star["bound_ms"],
+         "path": "parquet_star_q7",
+         "launches": pq_launches["parquet_star_q7"]["murmur3_rows"],
+         "rows": a_main["rows"], "by_path": on_path("murmur3_rows", a_on),
+         "max_abs_err": a_err, "ms": a_main["ms"],
+         "plain_ms": a_main["plain_ms"], "bound_ms": a_main["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "segment_sum_f64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_f64.cu",
@@ -1396,12 +1500,14 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "star_query_distributed",
-         "launches": dstar_launches["segment_sum_i64"],
-         "launches_by_path": by_path("segment_sum_i64"),
-         "max_abs_err": c_err, "ms": c_star["ms"],
-         "plain_ms": c_star["plain_ms"], "bound_ms": c_star["bound_ms"],
-         "bound_by": "bytes", "library_ms": c_star["library_ms"]},
+         "path": "parquet_query_distributed_no_dpp",
+         "launches":
+             pq_launches["parquet_query_distributed_no_dpp"][
+                 "segment_sum_i64"],
+         "rows": c_main["rows"], "by_path": on_path("segment_sum_i64", c_on),
+         "max_abs_err": c_err, "ms": c_main["ms"],
+         "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],
+         "bound_by": "bytes", "library_ms": c_main["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,13 +6,21 @@
 
 Writes chip_smoke.py's engine fact table (N rows, default 16,777,216:
 `k` i64, `g` i32, `v` f64, `c` i64) with pyarrow in row groups of
-1,048,576 rows to a temporary directory, then decodes it on the card in
-dispatch groups of 1 and of 4 row groups, timing each stage of the
-decode apart (the median over R rounds, host clock, each stage ending in
-a synchronize):
+1,048,576 rows to a temporary directory, then decodes it on the card as
+the scan does, timing each stage of the decode apart (the median over R
+rounds, host clock, each stage ending in a synchronize).
 
-  host    the page walks and fast-path preps (`_read_chunks`: pread, the
-          native walk with snappy, run tables, PLAIN pass-through)
+One row group a dispatch (`decode_row_group`, the scan at
+spark.rapids.tpu.pipeline.scan.chunksPerDispatch=1):
+
+  host    `_host_phase`: pread, the native walk with snappy, run tables,
+          PLAIN pass-through
+  device  `_device_phase`: its pageable copies (counted in h2d_copies),
+          run-table expansion and gathers, strings assembled eagerly
+
+Four row groups a dispatch (`decode_row_groups_fused`, the default):
+
+  host    `_read_chunks`: `_host_phase` of each row group of the group
   pack    `_group_signatures`: every array of the group into one new
           host buffer
   copy    that buffer to the card with `.to(device)` (a pageable copy)
@@ -70,12 +78,24 @@ def main() -> int:
         pinned = None
         result = {}
         for group in (1, 4):
-            stages = {k: [] for k in ("host", "pack", "copy", "pinned",
-                                      "device", "total")}
+            stages = {k: [] for k in (
+                ("host", "device", "total") if group == 1 else
+                ("host", "pack", "copy", "pinned", "device", "total"))}
+            copies = []
             for _ in range(args.rounds + 1):  # the first round warms up
                 acc = dict.fromkeys(stages, 0.0)
+                P.COUNTERS.reset()
                 with open(path, "rb") as f:
                     for i in range(0, nrg, group):
+                        if group == 1:
+                            t0 = time.perf_counter()
+                            works, nrows = P._host_phase(pf, f, i, schema)
+                            t1 = time.perf_counter()
+                            P._device_phase(schema, works, nrows, dev)
+                            torch.cuda.synchronize()
+                            acc["host"] += t1 - t0
+                            acc["device"] += time.perf_counter() - t1
+                            continue
                         t0 = time.perf_counter()
                         chunks, total = P._read_chunks(
                             pf, f, range(i, min(i + group, nrg)), schema)
@@ -84,6 +104,7 @@ def main() -> int:
                             chunks, names)
                         t2 = time.perf_counter()
                         on_dev = torch.from_numpy(packed).to(dev)
+                        P.COUNTERS.add(h2d_copies=1)
                         torch.cuda.synchronize()
                         t3 = time.perf_counter()
                         if pinned is None or pinned.numel() < packed.size:
@@ -104,12 +125,14 @@ def main() -> int:
                                       ("copy", t3 - t2), ("pinned", t4 - t3),
                                       ("device", t5 - t4)):
                             acc[k] += dt
-                acc["total"] = acc["host"] + acc["pack"] + acc["copy"] + \
-                    acc["device"]
+                acc["total"] = sum(v for k, v in acc.items()
+                                   if k not in ("pinned", "total"))
                 for k, v in acc.items():
                     stages[k].append(v)
-            result[f"row_groups_per_dispatch_{group}"] = {
-                k: statistics.median(v[1:]) for k, v in stages.items()}
+                copies.append(P.COUNTERS.h2d_copies)
+            result[f"row_groups_per_dispatch_{group}"] = dict(
+                {k: statistics.median(v[1:]) for k, v in stages.items()},
+                h2d_copies=copies[-1])
         file_bytes = Path(path).stat().st_size
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
