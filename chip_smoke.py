@@ -16,10 +16,13 @@ uncompressed) decoded on the card and held against pq.read_table, the
 engine query through read_parquet on both plans (in turns with the Arrow,
 no-pruning and host-decode forms of it, and at 1 row group a dispatch,
 without the scan's prefetch thread, and with neither) and star Q7 from
-parquet files; it checks each against numpy oracles, holds kernels A and
-C to their exact launch counts there, and holds them against their twins
-on the inputs those paths hand them (a merged batch of 4 row groups). Each
-phase prints one JSON line; then a `kernels` line, the card's `nvidia-smi`
+parquet files, and last the star reports over TPC-DS's own column types
+(every money column decimal(7,2), written as FIXED_LEN_BYTE_ARRAY) from
+parquet on one device and distributed, exact against an int64 oracle; it
+checks each against numpy oracles, holds kernels A and C to their exact
+launch counts there, and holds them against their twins on the inputs
+those paths hand them (a merged batch of 4 row groups). Each phase prints
+one JSON line; then a `kernels` line, the card's `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
 exits non-zero without that last line. Without CUDA (or without the package
 beside this file) it exits 2 and prints no result. It imports nothing of
@@ -753,6 +756,9 @@ PARQUET_ROW_GROUP = 1 << 20
 CHUNKS_PER_DISPATCH = 4  # spark.rapids.tpu.pipeline.scan.chunksPerDispatch
 ARROW_BATCH_ROWS = 1 << 20  # spark.rapids.sql.batchSizeRows
 DECODE_ROUNDS = 5
+# warm collects of each parquet_query variant, in turns (7 of them on each
+# plan): cut from WALL_ROUNDS to keep the script near half its time limit
+PARQUET_ROUNDS = 7
 DPP_OFF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
 HOST_DECODE = {"spark.rapids.sql.format.parquet.deviceDecode.enabled": False}
 ONE_RG = {"spark.rapids.tpu.pipeline.scan.chunksPerDispatch": 1}
@@ -808,7 +814,7 @@ def check_decoded(pa, batches, want, what: str) -> None:
 
 def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
                    n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
-                   device=None, rounds=WALL_ROUNDS,
+                   device=None, rounds=PARQUET_ROUNDS,
                    decode_rounds=DECODE_ROUNDS):
     """Phases parquet_decode, parquet_query and parquet_star_q7 (slice 5),
     over files written to a temporary directory that is removed after.
@@ -1024,6 +1030,419 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
               "warm_collect_s": spread(walls),
               "device_idle_share": idle_share(torch, q7.collect),
               "launches_per_collect": n, "scan_per_collect": scan})
+    return launches, a_args, c_args
+
+
+# ---- star_decimal (slice 6): the star reports over TPC-DS v3.2.0's own
+# column types, from parquet: every money column decimal(7,2), written
+# with pyarrow's defaults (decimals as FIXED_LEN_BYTE_ARRAY(4)), snappy
+STAR_MONEY = ("ss_list_price", "ss_sales_price", "ss_ext_sales_price",
+              "ss_net_profit", "ss_coupon_amt")
+MONEY = (7, 2)  # decimal(7,2)
+# Average over decimal(p, s) is decimal(p + 4, s + 4), rounded HALF_UP
+AVG_EXTRA_SCALE = 4
+# kernel C's launches a batch in a fused partial aggregate, one for each
+# int64 segmented sum: a Count 1; a decimal Sum 2 (its sum, and its count
+# of valid rows); Min and Max 1 (the count); a decimal Average 2 (its sum
+# and its count); an Average over an int 1 (its count: its sum is f64,
+# which is not C). Q3: 2; Q7: 1 + 3 x 2 + 1; Q36: 2 + 2 + 1 + 1 + 1
+STAR_DECIMAL_C_PER_BATCH = {"q3": 2, "q7": 8, "q36": 7}
+STAR_DECIMAL_KEYS = {"q3": ("d_year", "i_brand"), "q7": ("i_category",),
+                     "q36": ("cat", "bucket")}
+
+
+def decimal_array(pa, unscaled, p: int, s: int, valid=None):
+    """int64 unscaled values -> an Arrow decimal128(p, s) array, built from
+    its 16-byte two's-complement words (no Python Decimal a row)."""
+    unscaled = np.asarray(unscaled, np.int64)
+    words = np.empty((len(unscaled), 2), np.int64)
+    words[:, 0], words[:, 1] = unscaled, unscaled >> 63
+    nulls = 0 if valid is None else int((~valid).sum())
+    bitmap = pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()) \
+        if nulls else None
+    return pa.Array.from_buffers(pa.decimal128(p, s), len(unscaled),
+                                 [bitmap, pa.py_buffer(words.tobytes())],
+                                 null_count=nulls)
+
+
+def unscaled(col):
+    """An Arrow decimal128 column of <= 18 digits -> (int64 unscaled
+    values, bool validity), read from its 16-byte words' low halves."""
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], np.int64,
+                          count=2 * (arr.offset + n))[2 * arr.offset::2]
+    valid = np.asarray(arr.is_valid()) if arr.null_count else \
+        np.ones(n, bool)
+    return np.where(valid, words, 0), valid
+
+
+def star_decimal_tables(pa, n_sales: int, n_dates: int, n_items: int,
+                        n_stores: int, seed: int = 11) -> dict:
+    """star_tables' tables with TPC-DS's money columns as decimal(7,2):
+    ss_list_price (1.00 to 200.00), ss_sales_price (at most the list
+    price, 3 % null), ss_ext_sales_price (sales price x quantity),
+    ss_coupon_amt (0 on 80 % of rows), ss_net_profit (ext price less
+    coupon less the wholesale cost, negative on many rows) and
+    i_current_price; ss_quantity stays int32."""
+    t = star_tables(pa, n_sales, n_dates, n_items, n_stores, seed)
+    rng = np.random.default_rng(seed + 1)
+    qty = t["store_sales"].column("ss_quantity").to_numpy().astype(np.int64)
+    price_valid = t["store_sales"].column("ss_sales_price").is_valid() \
+        .to_numpy(zero_copy_only=False)
+    lst = rng.integers(100, 20_001, n_sales)
+    sales = (lst * rng.uniform(0.2, 1.0, n_sales)).astype(np.int64)
+    ext = sales * qty
+    coupon = np.where(rng.random(n_sales) < 0.2,
+                      (ext * rng.uniform(0, 0.5, n_sales)).astype(np.int64),
+                      0)
+    wholesale = (lst * rng.uniform(0.3, 1.0, n_sales)).astype(np.int64) * qty
+    money = {"ss_list_price": lst, "ss_sales_price": sales,
+             "ss_ext_sales_price": ext, "ss_net_profit": ext - coupon -
+             wholesale, "ss_coupon_amt": coupon}
+    ss = t["store_sales"].drop_columns(["ss_sales_price"])
+    for name in STAR_MONEY:
+        ss = ss.append_column(name, decimal_array(
+            pa, money[name], *MONEY,
+            price_valid if name == "ss_sales_price" else None))
+    item = t["item"].drop_columns(["i_price"]).append_column(
+        "i_current_price", decimal_array(
+            pa, rng.integers(9, 10_000, n_items), *MONEY))
+    return dict(t, store_sales=ss, item=item)
+
+
+def star_decimal_queries(sess, m, paths: dict) -> dict:
+    """Q3, Q7 and Q36 over star_decimal_tables' parquet files, as
+    DataFrames of `sess` with the port's constructors `m`
+    (star_namespace): Q3 sums
+    ss_ext_sales_price (decimal(17,2)); Q7 averages the quantity (a
+    double) and three prices (decimal(11,6)); Q36 divides two decimal
+    sums (a double), buckets by a CASE on the sales price against
+    decimal literals, and takes MIN and MAX of a decimal difference."""
+    from decimal import Decimal
+    c = m.col
+    ss = sess.read_parquet(paths["store_sales"])
+    dd = sess.read_parquet(paths["date_dim"]).select(
+        "d_year", "d_moy", ss_sold_date_sk=c("d_date_sk"))
+    it = sess.read_parquet(paths["item"]).select(
+        "i_brand", "i_category", "i_current_price",
+        ss_item_sk=c("i_item_sk"))
+    st = sess.read_parquet(paths["store"]).select(
+        "s_state", ss_store_sk=c("s_store_sk"))
+    q3 = ss.join(dd, on="ss_sold_date_sk") \
+        .filter(c("d_moy") == m.lit(11)) \
+        .join(it, on="ss_item_sk") \
+        .group_by("d_year", "i_brand") \
+        .agg(sum_agg=m.Sum(c("ss_ext_sales_price")))
+    q7 = ss.join(it, on="ss_item_sk").join(st, on="ss_store_sk") \
+        .filter(c("s_state") == m.lit("TN")) \
+        .group_by("i_category") \
+        .agg(agg1=m.Average(c("ss_quantity")),
+             agg2=m.Average(c("ss_list_price")),
+             agg3=m.Average(c("ss_coupon_amt")),
+             agg4=m.Average(c("ss_sales_price")), n=m.Count(m.lit(1)))
+    price = c("ss_sales_price")
+    q36 = ss.join(it, on="ss_item_sk") \
+        .select("ss_net_profit", "ss_ext_sales_price",
+                cat=m.Coalesce(c("i_category"), m.lit("unknown")),
+                bucket=m.CaseWhen(
+                    [(price > m.lit(Decimal("150.00")), m.lit("lux")),
+                     (price > m.lit(Decimal("50.00")), m.lit("mid"))],
+                    m.lit("base")),
+                margin=price - c("i_current_price")) \
+        .group_by("cat", "bucket") \
+        .agg(profit=m.Sum(c("ss_net_profit")),
+             sales=m.Sum(c("ss_ext_sales_price")), hi=m.Max(c("margin")),
+             lo=m.Min(c("margin")), n=m.Count(m.lit(1))) \
+        .select("cat", "bucket", "profit", "sales", "hi", "lo", "n",
+                gross_margin=c("profit") / c("sales"))
+    return {"q3": q3, "q7": q7, "q36": q36}
+
+
+def decimal_mean(total: np.ndarray, cnt: np.ndarray) -> np.ndarray:
+    """Spark's decimal average in int64: the exact mean of unscaled sums,
+    rounded HALF_UP (on the magnitude) at AVG_EXTRA_SCALE more digits."""
+    n = np.maximum(cnt, 1)
+    q, r = np.divmod(np.abs(total), n)
+    unit = 10 ** AVG_EXTRA_SCALE
+    out = q * unit + (2 * r * unit + n) // (2 * n)
+    return np.where(total < 0, -out, out)
+
+
+def _grouped_exact(keys: dict, cols: dict) -> dict:
+    """numpy group-by in int64. `keys` as in _grouped; `cols` maps each
+    output name to (op, int64 values, valid) with op isum, iavg (HALF_UP
+    decimal mean), fmean (double mean), count, imax or imin. Rows sort by
+    group once; each column reduces its valid rows' runs (np.*.reduceat).
+    Returns {name: list}, groups sorted by key, nulls last; an empty
+    group's value None."""
+    combined = np.zeros(len(next(iter(cols.values()))[1]), np.int64)
+    for codes, vocab in keys.values():
+        combined = combined * len(vocab) + codes
+    groups, gid = np.unique(combined, return_inverse=True)
+    ng = len(groups)
+    out, rest = {}, groups
+    for name, (_, vocab) in reversed(list(keys.items())):
+        out[name] = [vocab[k] for k in rest % len(vocab)]
+        rest = rest // len(vocab)
+    out = {name: out[name] for name in keys}
+    order = np.argsort(gid, kind="stable")
+    gid = gid[order]
+    ufunc = {"isum": np.add, "iavg": np.add, "imax": np.maximum,
+             "imin": np.minimum}
+    for name, (op, vals, valid) in cols.items():
+        keep = valid[order]
+        g, v = gid[keep], vals[order][keep]
+        cnt = np.bincount(g, minlength=ng)
+        if op == "count":
+            out[name] = cnt.tolist()
+            continue
+        if op == "fmean":
+            r = np.bincount(g, weights=v.astype(np.float64), minlength=ng) \
+                / np.maximum(cnt, 1)
+        else:
+            r = np.zeros(ng, np.int64)
+            if len(g):
+                starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+                r[g[starts]] = ufunc[op].reduceat(v.astype(np.int64), starts)
+            if op == "iavg":
+                r = decimal_mean(r, cnt)
+        out[name] = [x.item() if c else None for x, c in zip(r, cnt)]
+    return out
+
+
+def star_decimal_oracle(pa, t: dict) -> dict:
+    """numpy int64 answers to the decimal Q3, Q7 and Q36: every decimal
+    result as its unscaled int (sums exact, averages by decimal_mean),
+    Q7's quantity average and Q36's ratio as doubles."""
+    ss, it = t["store_sales"], t["item"]
+    date = ss.column("ss_sold_date_sk").to_numpy()
+    item = ss.column("ss_item_sk").to_numpy()
+    store = ss.column("ss_store_sk").to_numpy()
+    qty = ss.column("ss_quantity").to_numpy().astype(np.int64)
+    m = {name: unscaled(ss.column(name)) for name in STAR_MONEY}
+    price, pvalid = m["ss_sales_price"]
+    cat = _strings(it.column("i_category"))
+    cvalid = it.column("i_category").is_valid().to_numpy(zero_copy_only=False)
+    tn = _strings(t["store"].column("s_state")) == "TN"
+    year_c, years = _codes(t["date_dim"].column("d_year").to_numpy())
+    moy = t["date_dim"].column("d_moy").to_numpy()[date]
+    brand_c, brands = _codes(_strings(it.column("i_brand")))
+    cat_c, cats = _codes(cat, cvalid)
+    cat36_c, cats36 = _codes(np.where(cvalid, cat, "unknown"))
+    ones = np.ones(len(date), bool)
+
+    k = moy == 11
+    ext, _ = m["ss_ext_sales_price"]
+    q3 = _grouped_exact({"d_year": (year_c[date][k], years),
+                         "i_brand": (brand_c[item][k], brands)},
+                        {"sum_agg": ("isum", ext[k], ones[k])})
+    k = tn[store]
+    q7 = _grouped_exact({"i_category": (cat_c[item][k], cats)},
+                        {"agg1": ("fmean", qty[k], ones[k]),
+                         "agg2": ("iavg", m["ss_list_price"][0][k], ones[k]),
+                         "agg3": ("iavg", m["ss_coupon_amt"][0][k], ones[k]),
+                         "agg4": ("iavg", price[k], pvalid[k]),
+                         "n": ("count", qty[k], ones[k])})
+    # CASE order: lux, then mid, else base (a null price is neither);
+    # decimal(7,2) against 150.00 and 50.00 compares the unscaled cents
+    bucket = np.where(pvalid & (price > 15_000), 1,
+                      np.where(pvalid & (price > 5_000), 2, 0))
+    iprice, _ = unscaled(it.column("i_current_price"))
+    margin = price - iprice[item]
+    q36 = _grouped_exact({"cat": (cat36_c[item], cats36),
+                          "bucket": (bucket, ["base", "lux", "mid", None])},
+                         {"profit": ("isum", m["ss_net_profit"][0], ones),
+                          "sales": ("isum", ext, ones),
+                          "hi": ("imax", margin, pvalid),
+                          "lo": ("imin", margin, pvalid),
+                          "n": ("count", margin, ones)})
+    q36["gross_margin"] = [None if s in (None, 0) else
+                           float(np.float64(p) / np.float64(s))
+                           for p, s in zip(q36["profit"], q36["sales"])]
+    return {"q3": q3, "q7": q7, "q36": q36}
+
+
+# columns compared with rtol 1e-9 (a double average); every other column is
+# compared exactly, decimals as their unscaled ints
+STAR_DECIMAL_APPROX = {"q7": ("agg1",)}
+# each decimal result's type, by Spark's rules: Sum decimal(p + 10, s),
+# Average decimal(p + 4, s + 4), a difference decimal(p + 1, s)
+STAR_DECIMAL_TYPES = {
+    "q3": {"sum_agg": (17, 2)},
+    "q7": {"agg2": (11, 6), "agg3": (11, 6), "agg4": (11, 6)},
+    "q36": {"profit": (17, 2), "sales": (17, 2), "hi": (8, 2),
+            "lo": (8, 2)}}
+
+
+def check_star_decimal(pa, name: str, out, want: dict) -> None:
+    """Raise unless `out` (a collect() result) equals the int64 oracle:
+    every decimal's type (STAR_DECIMAL_TYPES), keys, counts, every decimal
+    (as its unscaled int) and Q36's ratio exactly, Q7's quantity average
+    within rtol 1e-9."""
+    out = out.sort_by([(k, "ascending") for k in STAR_DECIMAL_KEYS[name]])
+    if out.num_rows != len(next(iter(want.values()))):
+        raise AssertionError(f"decimal {name}: {out.num_rows} groups, "
+                             f"oracle {len(next(iter(want.values())))}")
+    for col, (p, sc) in STAR_DECIMAL_TYPES[name].items():
+        if out.schema.field(col).type != pa.decimal128(p, sc):
+            raise AssertionError(f"decimal {name}: column {col} is "
+                                 f"{out.schema.field(col).type}, not "
+                                 f"decimal({p},{sc})")
+    for col, exp in want.items():
+        c = out.column(col)
+        if pa.types.is_decimal(c.type):
+            vals, valid = unscaled(c)
+            got = [int(v) if ok else None for v, ok in zip(vals, valid)]
+        else:
+            got = c.to_pylist()
+        if col in STAR_DECIMAL_APPROX.get(name, ()):
+            ok = [g is None for g in got] == [e is None for e in exp] and \
+                np.allclose([g for g in got if g is not None],
+                            [e for e in exp if e is not None],
+                            rtol=1e-9, atol=0.0)
+        else:
+            ok = got == exp
+        if not ok:
+            raise AssertionError(f"decimal {name}: column {col} differs "
+                                 "from the oracle")
+
+
+def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
+                        n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
+                        device=None, rounds=STAR_ROUNDS,
+                        decode_rounds=DECODE_ROUNDS):
+    """Phase star_decimal: Q3, Q7 and Q36 over decimal money columns read
+    from parquet, on one device and under the distributed plan
+    (`mesh_conf`), each checked against star_decimal_oracle, launch-counted
+    (A twice per fused join per merged batch; C STAR_DECIMAL_C_PER_BATCH a
+    merged batch of a fused partial aggregate, so never on one device)
+    and timed; and the FLBA decode of the five money columns beside
+    pq.read_table. Returns the launch counts of each plan's run (one
+    collect of each query) and the arguments of A's first call in a
+    one-device Q7 collect and of C's first call in a distributed Q3
+    collect (the decimal sum's unscaled values)."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.io import parquet_device as P
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}
+
+    launches, record = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
+        t0 = time.monotonic()
+        star = star_decimal_tables(pa, n_sales, *dims.values())
+        want = star_decimal_oracle(pa, star)
+        paths = write_parquet(pq, star, d, tag="_decimal")
+        setup_s = time.monotonic() - t0
+        sales_path = paths["store_sales"]
+        batches = -(-pq.ParquetFile(sales_path).metadata.num_row_groups
+                    // CHUNKS_PER_DISPATCH)
+
+        # the FLBA decode alone: the five money columns, 4 row groups a
+        # dispatch, against pq.read_table of the same columns
+        pf = pq.ParquetFile(sales_path)
+        kinds = {pf.metadata.schema.column(i).name:
+                 (pf.metadata.schema.column(i).physical_type,
+                  pf.metadata.schema.column(i).length)
+                 for i in range(len(pf.metadata.schema))}
+        if any(kinds[c] != ("FIXED_LEN_BYTE_ARRAY", 4) for c in STAR_MONEY):
+            raise AssertionError(f"the money columns are not FLBA(4): "
+                                 f"{kinds}")
+        money_want = pq.read_table(sales_path, columns=list(STAR_MONEY))
+        schema = Schema.from_arrow(money_want.schema)
+
+        def decode():
+            return list(P.device_decode_file(pf, sales_path, schema, dev,
+                                             CHUNKS_PER_DISPATCH))
+        check_decoded(pa, decode(), money_want, "the FLBA money columns")
+        decode_walls, read_walls = [], []
+        for _ in range(decode_rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode()
+            torch.cuda.synchronize()
+            decode_walls.append(time.perf_counter() - t0)
+            del out
+            t0 = time.perf_counter()
+            pq.read_table(sales_path, columns=list(STAR_MONEY))
+            read_walls.append(time.perf_counter() - t0)
+        values = n_sales * len(STAR_MONEY)
+        record["flba_decode"] = {
+            "columns": list(STAR_MONEY), "values": values,
+            "flba_bytes": values * 4, "wall_s": spread(decode_walls),
+            "pq_read_table_s": spread(read_walls),
+            "values_per_s": values / statistics.median(decode_walls),
+            "exact_vs_pyarrow": True}
+
+        ns = star_namespace()
+        for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+            sq = star_decimal_queries(TpuSession(dict(conf, **extra), dev),
+                                      ns, paths)
+            shapes = {n: q.explain() for n, q in sq.items()}
+            for n, q in sq.items():
+                partial = [ln for ln in shapes[n].splitlines()
+                           if "TpuFusedStageExec" in ln
+                           and "PartialAgg[" in ln]
+                if (plan == "distributed") != bool(partial):
+                    raise AssertionError(f"decimal {n} ({plan}): the "
+                                         "partial aggregate is not fused as "
+                                         f"expected:\n{shapes[n]}")
+                check_star_decimal(pa, n, q.collect(), want[n])  # warm-up
+            outs, run = counted(lambda: [q.collect() for q in sq.values()])
+            for n, out in zip(sq, outs):
+                check_star_decimal(pa, n, out, want[n])
+            want_a = sum(2 * fused_joins(shapes[n]) * batches for n in sq)
+            want_c = sum(STAR_DECIMAL_C_PER_BATCH[n] * batches for n in sq) \
+                if plan == "distributed" else 0
+            if run["murmur3_rows"] != want_a or \
+                    run["segment_sum_i64"] != want_c or want_a == 0:
+                raise AssertionError(f"decimal star ({plan}) launched {run}, "
+                                     f"not A {want_a} and C {want_c}")
+            path = "star_decimal" if plan == "one_device" else \
+                "star_decimal_distributed"
+            launches[path] = run
+            if plan == "one_device":
+                a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                         sq["q7"].collect)
+            else:
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64", sq["q3"].collect)
+            per_query = {}
+            for n, q in sq.items():
+                walls, seen = [], set()
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    out, c = counted(q.collect)
+                    walls.append(time.perf_counter() - t0)
+                    check_star_decimal(pa, n, out, want[n])
+                    seen.add(tuple(sorted(c.items())))
+                if len(seen) != 1:
+                    raise AssertionError(f"decimal {n} ({plan}) launched "
+                                         f"{sorted(seen)} per collect")
+                per_query[n] = {"groups": len(next(iter(want[n].values()))),
+                                "fused_joins": fused_joins(shapes[n]),
+                                "warm_collect_s": spread(walls),
+                                "launches_per_collect": dict(seen.pop()),
+                                "device_idle_share": idle_share(torch,
+                                                                q.collect)}
+            record[plan] = {"queries": per_query,
+                            "launches_per_path_run": run}
+    emit({"phase": "star_decimal", "fact_rows": n_sales, "dim_rows": dims,
+          "money_type": "decimal(%d,%d)" % MONEY, "sales_batches": batches,
+          "setup_s": setup_s, "exact": "every decimal (int64 oracle), keys, "
+          "counts, Q36 ratio", "rtol_double_average": 1e-9, **record})
     return launches, a_args, c_args
 
 
@@ -1436,6 +1855,11 @@ def main() -> int:
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64),
         fact, dim)
 
+    # ---- star_decimal: the star reports over decimal(7,2) money columns
+    # from parquet, one device and distributed
+    dec_launches, dec_a_args, dec_c_args = star_decimal_phases(
+        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
+
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
     # of a one-device Q7 collect, from Arrow tables and from parquet (a
@@ -1445,13 +1869,18 @@ def main() -> int:
     a_on = {"star_query": murmur3_on_path(
                 torch, a_args, rate, path="star_query", query="q7"),
             "parquet_star_q7": murmur3_on_path(
-                torch, pq_a_args, rate, path="parquet_star_q7", query="q7")}
+                torch, pq_a_args, rate, path="parquet_star_q7", query="q7"),
+            "star_decimal": murmur3_on_path(
+                torch, dec_a_args, rate, path="star_decimal", query="q7")}
     c_on = {"star_query_distributed": segsum_i64_on_path(
                 torch, c_args, rate, path="star_query_distributed",
                 query="q7"),
             "parquet_query_distributed_no_dpp": segsum_i64_on_path(
                 torch, pq_c_args, rate,
-                path="parquet_query_distributed_no_dpp", query="engine")}
+                path="parquet_query_distributed_no_dpp", query="engine"),
+            "star_decimal_distributed": segsum_i64_on_path(
+                torch, dec_c_args, rate, path="star_decimal_distributed",
+                query="q3")}
     a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
     c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
     emit({"phase": "kernels_on_paths", "murmur3_rows": a_on,
@@ -1462,7 +1891,8 @@ def main() -> int:
         inputs of the paths where they were taken."""
         runs = dict({"star_query": star_launches[name],
                      "star_query_distributed": dstar_launches[name]},
-                    **{p: n[name] for p, n in pq_launches.items()})
+                    **{p: n[name] for p, n in pq_launches.items()},
+                    **{p: n[name] for p, n in dec_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},
@@ -1471,18 +1901,18 @@ def main() -> int:
                 for p, n in runs.items()}
 
     # ---- 11. every kernel the run launched. A's and C's rows name the
-    # parquet path (this slice's) whose launches and inputs they give;
+    # decimal star path (this slice's) whose launches and inputs they give;
     # by_path holds every path's launches (one run of it: one collect of
     # each star query, one collect of each parquet query, one distributed
-    # Q7 collect) and, where measured, the times on that path's inputs
-    a_main, c_main = a_on["parquet_star_q7"], \
-        c_on["parquet_query_distributed_no_dpp"]
+    # Q7 collect, one collect of each decimal query) and, where measured,
+    # the times on that path's inputs
+    a_main, c_main = a_on["star_decimal"], c_on["star_decimal_distributed"]
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "parquet_star_q7",
-         "launches": pq_launches["parquet_star_q7"]["murmur3_rows"],
+         "path": "star_decimal",
+         "launches": dec_launches["star_decimal"]["murmur3_rows"],
          "rows": a_main["rows"], "by_path": on_path("murmur3_rows", a_on),
          "max_abs_err": a_err, "ms": a_main["ms"],
          "plain_ms": a_main["plain_ms"], "bound_ms": a_main["bound_ms"],
@@ -1500,10 +1930,9 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "parquet_query_distributed_no_dpp",
+         "path": "star_decimal_distributed",
          "launches":
-             pq_launches["parquet_query_distributed_no_dpp"][
-                 "segment_sum_i64"],
+             dec_launches["star_decimal_distributed"]["segment_sum_i64"],
          "rows": c_main["rows"], "by_path": on_path("segment_sum_i64", c_on),
          "max_abs_err": c_err, "ms": c_main["ms"],
          "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],

@@ -17,9 +17,18 @@ long-string overflow layout, which is not ported: it raises
 NotImplementedError, at plan time for scanned tables and literals and again
 at scan conversion.
 
-This slice carries BOOLEAN, INT, LONG, DOUBLE, DATE and STRING. Decimals,
-timestamps, the narrow integers, FLOAT and nested types wait for later
-slices and raise NotImplementedError here, at plan time.
+Fixed-width columns: BOOLEAN, BYTE (int8), SHORT (int16), INT, LONG,
+FLOAT (float32), DOUBLE, DATE (int32 days), TIMESTAMP (int64 microseconds
+since the epoch, UTC) and DECIMAL of precision <= 18 (the int64 unscaled
+value). A wider decimal needs the JAX package's [cap, 2] limb layout,
+which is not ported: it raises NotImplementedError at plan time, as do
+the nested types.
+
+The Arrow round trip of a decimal is vectorised: Arrow's decimal128 holds
+each value as 16 little-endian bytes of two's complement, and a value of
+18 digits or fewer is its low 8 bytes read as an int64 (the high 8 are its
+sign extension). The JAX package converts one Python Decimal a row; the
+values are the same.
 """
 
 from __future__ import annotations
@@ -43,20 +52,35 @@ MAX_STRING_WIDTH = 256
 
 _TORCH_DTYPES = {
     T.BooleanType: torch.bool,
+    T.ByteType: torch.int8,
+    T.ShortType: torch.int16,
     T.IntegerType: torch.int32,
     T.LongType: torch.int64,
+    T.FloatType: torch.float32,
     T.DoubleType: torch.float64,
     T.DateType: torch.int32,
+    T.TimestampType: torch.int64,
+    T.DecimalType: torch.int64,  # precision <= 18: the unscaled value
     T.StringType: torch.uint8,
 }
+
+# microseconds per unit of an Arrow timestamp
+_US_PER_UNIT = {"s": 1_000_000, "ms": 1_000, "us": 1}
 
 
 def check_supported(dt: T.DataType, what: str = "column") -> None:
     if type(dt) not in _TORCH_DTYPES:
         raise NotImplementedError(
             f"{what} type {dt.simple_string()} is not supported by "
-            "spark_rapids_tpu_torch yet (this slice carries boolean, int, "
-            "long, double, date and string)")
+            "spark_rapids_tpu_torch yet (it carries boolean, byte, short, "
+            "int, long, float, double, date, timestamp, decimal of up to "
+            "18 digits and string)")
+    if isinstance(dt, T.DecimalType) and \
+            dt.precision > T.DecimalType.MAX_LONG_DIGITS:
+        raise NotImplementedError(
+            f"{what} type {dt.simple_string()}: a decimal of more than "
+            f"{T.DecimalType.MAX_LONG_DIGITS} digits needs the 128-bit limb "
+            "layout, which is not supported by spark_rapids_tpu_torch yet")
 
 
 def torch_dtype(dt: T.DataType) -> torch.dtype:
@@ -143,6 +167,42 @@ def _string_matrix(arr, cap: int):
     return chars, _pad_to(lens.astype(np.int32), cap)
 
 
+def _decimal_unscaled(arr) -> np.ndarray:
+    """Arrow decimal128 array (precision <= 18) -> int64 unscaled values,
+    the low 8 bytes of each 16-byte value; null slots hold 0."""
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * (arr.offset + n))[2 * arr.offset::2]
+    if arr.null_count:
+        return np.where(np.asarray(arr.is_valid()), words, 0)
+    return words.copy()
+
+
+def _decimal_array(vals: np.ndarray, valid: np.ndarray, dt: T.DecimalType):
+    """int64 unscaled values -> Arrow decimal128 array: each value's 8
+    bytes, then its sign extension."""
+    import pyarrow as pa
+    words = np.empty((len(vals), 2), np.int64)
+    words[:, 0] = vals
+    words[:, 1] = vals >> 63
+    nulls = int((~valid).sum())
+    bitmap = pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()) \
+        if nulls else None
+    return pa.Array.from_buffers(pa.decimal128(dt.precision, dt.scale),
+                                 len(vals), [bitmap, pa.py_buffer(
+                                     words.tobytes())], null_count=nulls)
+
+
+def _timestamp_micros(arr) -> np.ndarray:
+    """Arrow timestamp array of any unit -> int64 microseconds (nanoseconds
+    floor-divide, as Spark truncates them); null slots hold 0."""
+    import pyarrow as pa
+    raw = arr.cast(pa.int64()).fill_null(0).to_numpy(zero_copy_only=False)
+    if arr.type.unit == "ns":
+        return raw // 1000
+    return raw * _US_PER_UNIT[arr.type.unit]
+
+
 def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
                ) -> Tuple[Column, int]:
     """Arrow array -> device Column; returns (column, num_rows). A string
@@ -161,7 +221,13 @@ def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
         chars, lens = _string_matrix(arr, cap)
         return Column(dtype, torch.from_numpy(chars).to(device), valid_t,
                       torch.from_numpy(lens).to(device)), n
-    if isinstance(dtype, T.DateType):
+    if isinstance(dtype, T.DecimalType):
+        if pa.types.is_decimal256(arr.type):
+            arr = arr.cast(pa.decimal128(dtype.precision, dtype.scale))
+        vals = _decimal_unscaled(arr)
+    elif isinstance(dtype, T.TimestampType):
+        vals = _timestamp_micros(arr)
+    elif isinstance(dtype, T.DateType):
         # fill nulls BEFORE to_numpy: a nullable int array otherwise
         # converts via float64
         vals = arr.cast(pa.int32()).fill_null(0).to_numpy(zero_copy_only=False)
@@ -192,5 +258,7 @@ def to_arrow(col: Column, num_rows: int):
              pa.py_buffer(chars[keep].tobytes())],
             null_count=int(mask.sum())).cast(pa.string())
     vals = col.data[:num_rows].cpu().numpy()
+    if isinstance(col.dtype, T.DecimalType):
+        return _decimal_array(vals, valid, col.dtype)
     return pa.array(vals, type=T.to_arrow(col.dtype),
                     mask=mask if mask.any() else None)

@@ -5,9 +5,14 @@ input batch aggregates in one pass; several are aggregated per batch into
 partial buffers, merged pairwise, and finalised, which is the JAX engine's
 merge-pass structure (without its spill and OOM-retry machinery). Sum,
 Count, Min and Max carry one partial buffer each; Average carries two, a
-DOUBLE sum and a LONG count. Group keys may be strings: they sort by their
-packed words (ops/rowops.sort_keys_for). MIN and MAX over strings wait for
-a later slice and raise at plan time.
+sum and a LONG count. Over a decimal both sums are exact int64 sums of the
+unscaled values (so under fusion they run through the int64 kernel of
+ops/pallas_groupby.py), and the average is the exact mean rounded HALF_UP
+at scale s + 4 (`_decimal_mean`). Min and Max over DOUBLE and FLOAT follow
+Spark's order: NaN is the greatest value (ops/rowops.segment_reduce).
+Group keys may be strings: they sort by their packed words
+(ops/rowops.sort_keys_for). MIN and MAX over strings wait for a later
+slice and raise at plan time.
 
 Modes, as in the JAX engine: complete (raw rows -> final values), partial
 (raw rows -> partial buffers, one output per input batch, no merge across
@@ -40,6 +45,25 @@ from .coalesce import concat_batches
 __all__ = ["TpuHashAggregateExec", "SUPPORTED_AGGREGATES"]
 
 SUPPORTED_AGGREGATES = (Sum, Count, Min, Max, Average)
+
+
+# the digits an Average over a decimal adds to the scale (Spark: s + 4)
+_AVG_EXTRA_SCALE = 4
+
+
+def _decimal_mean(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exact mean of unscaled int64 sums `s` over counts `c`, rounded
+    HALF_UP (on the magnitude) at 4 more digits of scale, in int64 without
+    overflow: q, r = divmod(|s|, n), then q * 10^4 + round(r * 10^4 / n).
+    r * 10^4 * 2 < 2 * n * 10^4 stays far inside int64."""
+    n = torch.clamp(c, min=1)
+    m = s.abs()
+    q = torch.div(m, n, rounding_mode="floor")
+    r = m - q * n
+    unit = 10 ** _AVG_EXTRA_SCALE
+    frac = torch.div(2 * r * unit + n, 2 * n, rounding_mode="floor")
+    out = q * unit + frac
+    return torch.where(s < 0, -out, out)
 
 
 def _sorted_by_keys(key_vecs: List[Vec], all_vecs: List[Vec], row_mask):
@@ -166,11 +190,15 @@ class TpuHashAggregateExec(UnaryTpuExec):
                 reduce("count", v)
             return [Vec(T.LONG, data, ones)]
         if isinstance(func, Average):
-            s = reduce("sum", v, torch.float64)
+            decimal = isinstance(func.data_type, T.DecimalType)
+            s = reduce("sum", v, torch.int64 if decimal else torch.float64)
             c = reduce("sum", bufs[1], torch.int64) if merging else \
                 reduce("count", v)
             if output_partial:
-                return [Vec(T.DOUBLE, s, c > 0), Vec(T.LONG, c, ones)]
+                return [Vec(func.partial_types()[0], s, c > 0),
+                        Vec(T.LONG, c, ones)]
+            if decimal:
+                return [Vec(func.data_type, _decimal_mean(s, c), c > 0)]
             return [Vec(T.DOUBLE, s / torch.clamp(c, min=1), c > 0)]
         if isinstance(func, Sum):
             out_t = func.data_type

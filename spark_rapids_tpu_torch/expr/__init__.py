@@ -1,7 +1,9 @@
 from .base import (Expression, LeafExpression, Literal,  # noqa: F401
                    AttributeReference, BoundReference, Alias, Vec,
                    EvalContext, bind_references, output_name)
-from .arithmetic import Add, Subtract, Multiply  # noqa: F401
+from .arithmetic import (Add, Subtract, Multiply, Divide,  # noqa: F401
+                         IntegralDivide, Remainder, Pmod, UnaryMinus, Abs)
+from .cast import Cast  # noqa: F401
 from .predicates import (EqualTo, LessThan, LessThanOrEqual,  # noqa: F401
                          GreaterThan, GreaterThanOrEqual, And, Or, Not)
 from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401

@@ -3,8 +3,12 @@ Sum, Count, Min, Max, Average).
 
 Each aggregate declares its partial-buffer types; the hash-aggregate exec
 lowers them to sort-based segmented reductions. `Sum` over integrals widens
-to LONG. `Average` carries two partial buffers, a DOUBLE sum and a LONG
-count, and divides at the end.
+to LONG, over FLOAT and DOUBLE to DOUBLE, over decimal(p, s) to
+decimal(p + 10, s). `Average` carries two partial buffers, a sum and a LONG
+count, and divides at the end: a DOUBLE sum for the numeric types, and for
+decimal(p, s) the exact int64 sum, decimal(p + 10, s), whose mean is
+rounded HALF_UP to decimal(p + 4, s + 4) (Spark's result type). The JAX
+package keeps a DOUBLE sum there and returns a double of the unscaled mean.
 """
 
 from __future__ import annotations
@@ -71,7 +75,14 @@ class Max(AggregateFunction):
 class Average(AggregateFunction):
     @property
     def data_type(self):
+        ct = self.child.data_type
+        if isinstance(ct, T.DecimalType):
+            return T.DecimalType.bounded(ct.precision + 4, ct.scale + 4)
         return T.DOUBLE
 
     def partial_types(self) -> List[T.DataType]:
+        ct = self.child.data_type
+        if isinstance(ct, T.DecimalType):
+            return [T.DecimalType.bounded(ct.precision + 10, ct.scale),
+                    T.LONG]
         return [T.DOUBLE, T.LONG]

@@ -1,19 +1,35 @@
 """Arithmetic expressions with Spark/Java semantics
-(`spark_rapids_tpu/expr/arithmetic.py`: Add, Subtract, Multiply).
+(`spark_rapids_tpu/expr/arithmetic.py`: Add, Subtract, Multiply, Divide,
+IntegralDivide, Remainder, Pmod, UnaryMinus, Abs).
 
 Integral +, -, * wrap (Java two's complement), which is what torch's fixed
-width integer ops do. This slice is non-ANSI only: the planner rejects
-ANSI mode before any of this runs. Decimal arithmetic waits for a later
-slice.
+width integer ops do; the narrow ints and FLOAT promote as Spark widens
+(byte < short < int < long < float < double). Divide yields DOUBLE,
+IntegralDivide LONG; IntegralDivide, Remainder and Pmod truncate toward
+zero as Java does, and x / 0 is null. This engine is non-ANSI only: the
+planner rejects ANSI mode before any of this runs.
+
+Decimals (precision <= 18): Add and Subtract rescale both sides to the
+larger scale in 128-bit limbs (expr/decimal128.py) and a result past its
+precision is null (JAX `_decimal_addsub`). Divide with a decimal operand
+divides the operands' values, the unscaled integers times 10^-scale, which
+is Spark's rule; the JAX engine divides the unscaled integers and is off by
+the scales' difference. Decimal Multiply, decimal operands of the integral
+division family, and decimal against non-decimal arithmetic without a cast
+are refused at plan time (plan/overrides.py).
 """
 
 from __future__ import annotations
+
+import torch
 
 from .. import types as T
 from ..columnar.column import torch_dtype
 from .base import EvalContext, Expression, Vec, and_validity
 
-__all__ = ["Add", "Subtract", "Multiply", "cast_data", "promote_args"]
+__all__ = ["Add", "Subtract", "Multiply", "Divide", "IntegralDivide",
+           "Remainder", "Pmod", "UnaryMinus", "Abs", "cast_data",
+           "promote_args", "trunc_div"]
 
 
 def cast_data(vec: Vec, dt: T.DataType) -> Vec:
@@ -26,6 +42,22 @@ def cast_data(vec: Vec, dt: T.DataType) -> Vec:
 def promote_args(left: Vec, right: Vec):
     dt = T.numeric_promote(left.dtype, right.dtype)
     return cast_data(left, dt), cast_data(right, dt), dt
+
+
+def trunc_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Java integer division, truncating toward zero, for b != 0; MIN / -1
+    wraps to MIN. The -1 divisor never reaches torch's division, where
+    MIN / -1 traps."""
+    minus_one = b == -1
+    q = torch.div(a, torch.where(minus_one, torch.ones_like(b), b),
+                  rounding_mode="trunc")
+    return torch.where(minus_one, -a, q)
+
+
+def _nonzero_divisor(b: torch.Tensor):
+    """(b with every 0 replaced by 1, the mask of the zeros)."""
+    zero = b == 0
+    return torch.where(zero, torch.ones_like(b), b), zero
 
 
 class BinaryExpression(Expression):
@@ -44,9 +76,40 @@ class BinaryExpression(Expression):
 class BinaryArithmetic(BinaryExpression):
     @property
     def data_type(self) -> T.DataType:
-        return T.numeric_promote(self.left.data_type, self.right.data_type)
+        lt, rt = self.left.data_type, self.right.data_type
+        dec = isinstance(lt, T.DecimalType), isinstance(rt, T.DecimalType)
+        if all(dec) and type(self) in (Add, Subtract):
+            from .decimal128 import add_result_type
+            return add_result_type(lt, rt)
+        if any(dec):  # Spark's decimal promotion is not ported
+            raise NotImplementedError(
+                f"{type(self).__name__} over {lt.simple_string()}, "
+                f"{rt.simple_string()} is not supported by "
+                "spark_rapids_tpu_torch yet")
+        return T.numeric_promote(lt, rt)
+
+    def _decimal_addsub(self, l: Vec, r: Vec) -> Vec:
+        """Exact decimal +/-: both sides rescaled to the larger scale in
+        128-bit limbs, added, and a result past the result precision null.
+        The planner admits only results of <= 18 digits, so the result
+        scale is the larger input scale and no rounding happens."""
+        from .decimal128 import (add128, in_bounds, neg128, rescale_up,
+                                 widen_operand)
+        out_t = self.data_type
+        s = max(l.dtype.scale, r.dtype.scale)
+        lhi, llo = rescale_up(*widen_operand(l.data), s - l.dtype.scale)
+        rhi, rlo = rescale_up(*widen_operand(r.data), s - r.dtype.scale)
+        if isinstance(self, Subtract):
+            rhi, rlo = neg128(rhi, rlo)
+        hi, lo = add128(lhi, llo, rhi, rlo)
+        ok = in_bounds(hi, lo, out_t.precision)
+        return Vec(out_t, lo, and_validity(l.validity, r.validity) & ok)
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
+        if isinstance(l.dtype, T.DecimalType) and \
+                isinstance(r.dtype, T.DecimalType) and \
+                type(self) in (Add, Subtract):
+            return self._decimal_addsub(l, r)
         l, r, dt = promote_args(l, r)
         data = self._op(l.data, r.data).to(torch_dtype(dt))
         return Vec(dt, data, and_validity(l.validity, r.validity))
@@ -68,3 +131,117 @@ class Subtract(BinaryArithmetic):
 class Multiply(BinaryArithmetic):
     def _op(self, a, b):
         return a * b
+
+
+def _scale(v: Vec) -> int:
+    return v.dtype.scale if isinstance(v.dtype, T.DecimalType) else 0
+
+
+class Divide(BinaryExpression):
+    """Spark Divide, DOUBLE result, x / 0 -> null. A decimal operand counts
+    as its value: a / b = (ua / ub) * 10^(sb - sa) for unscaled ua, ub and
+    scales sa, sb (0 for a non-decimal), two roundings of a double."""
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return True
+
+    def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
+        b, zero = _nonzero_divisor(r.data.to(torch.float64))
+        data = l.data.to(torch.float64) / b
+        shift = _scale(r) - _scale(l)
+        if shift > 0:
+            data = data * float(10 ** shift)
+        elif shift < 0:
+            data = data / float(10 ** -shift)
+        validity = and_validity(l.validity, r.validity) & ~zero
+        return Vec(T.DOUBLE, torch.where(zero, 0.0, data), validity)
+
+
+class IntegralDivide(BinaryExpression):
+    """`div`: LONG result, truncation toward zero, x div 0 -> null."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return True
+
+    def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
+        a, b = l.data.to(torch.int64), r.data.to(torch.int64)
+        b, zero = _nonzero_divisor(b)
+        validity = and_validity(l.validity, r.validity) & ~zero
+        return Vec(T.LONG, torch.where(zero, 0, trunc_div(a, b)), validity)
+
+
+class Remainder(BinaryArithmetic):
+    """Java %: the sign follows the dividend; x % 0 -> null."""
+
+    @property
+    def nullable(self):
+        return True
+
+    def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
+        l, r, dt = promote_args(l, r)
+        b, zero = _nonzero_divisor(r.data)
+        if T.is_floating(dt):
+            data = torch.fmod(l.data, b)
+        else:
+            data = l.data - b * trunc_div(l.data, b)
+        validity = and_validity(l.validity, r.validity) & ~zero
+        return Vec(dt, torch.where(zero, torch.zeros_like(data), data)
+                   .to(torch_dtype(dt)), validity)
+
+
+class Pmod(BinaryArithmetic):
+    """Spark's positive modulus: r = a % n; r < 0 ? (r + n) % n : r. For a
+    negative n the result keeps n's sign (pmod(-7, -3) = -1); the JAX
+    engine adds |n| to integral operands there (2)."""
+
+    @property
+    def nullable(self):
+        return True
+
+    def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
+        l, r, dt = promote_args(l, r)
+        b, zero = _nonzero_divisor(r.data)
+        if T.is_floating(dt):
+            m = torch.fmod(l.data, b)
+            data = torch.where(m < 0, torch.fmod(m + b, b), m)
+        else:
+            m = l.data - b * trunc_div(l.data, b)
+            s = m + b
+            data = torch.where(m < 0, s - b * trunc_div(s, b), m)
+        validity = and_validity(l.validity, r.validity) & ~zero
+        return Vec(dt, torch.where(zero, torch.zeros_like(data), data)
+                   .to(torch_dtype(dt)), validity)
+
+
+class UnaryMinus(Expression):
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def _compute(self, ctx, c: Vec) -> Vec:
+        return Vec(c.dtype, (-c.data).to(c.data.dtype), c.validity)
+
+
+class Abs(Expression):
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def _compute(self, ctx, c: Vec) -> Vec:
+        return Vec(c.dtype, torch.abs(c.data), c.validity)

@@ -10,6 +10,7 @@ one the input tensors live on. Evaluation operates on `Vec` (dtype + data
 from __future__ import annotations
 
 import dataclasses
+import decimal as _decimal
 from typing import List, Optional, Sequence
 
 import torch
@@ -173,6 +174,18 @@ class Expression:
         from .arithmetic import Multiply
         return Multiply(self, self._wrap(o))
 
+    def __truediv__(self, o):
+        from .arithmetic import Divide
+        return Divide(self, self._wrap(o))
+
+    def __mod__(self, o):
+        from .arithmetic import Remainder
+        return Remainder(self, self._wrap(o))
+
+    def __neg__(self):
+        from .arithmetic import UnaryMinus
+        return UnaryMinus(self)
+
     def __eq__(self, o):  # type: ignore[override]
         from .predicates import EqualTo
         return EqualTo(self, self._wrap(o))
@@ -229,6 +242,10 @@ class Expression:
     def alias(self, name: str) -> "Expression":
         return Alias(self, name)
 
+    def cast(self, dt) -> "Expression":
+        from .cast import Cast
+        return Cast(self, dt)
+
 
 class LeafExpression(Expression):
     def __init__(self):
@@ -246,16 +263,36 @@ def _infer_literal_type(v) -> T.DataType:
         return T.DOUBLE
     if isinstance(v, str):
         return T.STRING
+    if isinstance(v, _decimal.Decimal):
+        from .decimal128 import literal_type
+        return literal_type(v)
     raise NotImplementedError(f"literal {v!r} of type {type(v).__name__} is "
                               "not supported by spark_rapids_tpu_torch yet")
 
 
 class Literal(LeafExpression):
+    """A constant. A decimal literal's value is a `decimal.Decimal` or its
+    unscaled int; a timestamp literal's is microseconds since the epoch."""
+
     def __init__(self, value, dtype: Optional[T.DataType] = None):
         super().__init__()
         self.value = value
         self._dtype = _infer_literal_type(value) if dtype is None else dtype
-        self._rows = {}  # device -> a string literal's uint8[1, w] bytes
+        # device -> a string literal's uint8[1, w] bytes or a decimal
+        # literal's int64[1] unscaled value
+        self._rows = {}
+
+    def _decimal_row(self, dev: torch.device) -> torch.Tensor:
+        """The unscaled value, copied to each device once."""
+        row = self._rows.get(dev)
+        if row is None:
+            v = self.value
+            if isinstance(v, _decimal.Decimal):
+                from .decimal128 import unscaled_int
+                v = unscaled_int(v, self._dtype.scale)
+            row = self._rows[dev] = torch.tensor([int(v)],
+                                                 dtype=torch.int64).to(dev)
+        return row
 
     def _string_row(self, dev: torch.device) -> torch.Tensor:
         """The zero-tailed byte row, copied to each device once."""
@@ -289,6 +326,9 @@ class Literal(LeafExpression):
             return Vec(self._dtype, self._string_row(dev).expand(n, -1), ones,
                        torch.full((n,), len(self.value.encode("utf-8")),
                                   dtype=torch.int32, device=dev))
+        if isinstance(self._dtype, T.DecimalType):
+            # broadcast as a string literal is: one row, read by every row
+            return Vec(self._dtype, self._decimal_row(dev).expand(n), ones)
         return Vec(self._dtype, torch.full((n,), self.value,
                                            dtype=torch_dtype(self._dtype),
                                            device=dev), ones)

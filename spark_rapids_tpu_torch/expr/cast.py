@@ -1,0 +1,158 @@
+"""Cast, the numeric part (`spark_rapids_tpu/expr/cast.py`:
+`device_supported`, `_numeric_cast`, `_decimal_cast` and the date and
+timestamp casts), non-ANSI.
+
+Java semantics: integral narrowing wraps; float -> integral truncates
+toward zero, clamps to the target's range and maps NaN to 0; -> BOOLEAN is
+`!= 0`. Decimal casts rescale the unscaled value, HALF_UP when the scale
+drops, and a value past the target precision or integral range is null.
+DATE -> TIMESTAMP is midnight UTC, TIMESTAMP -> DATE and -> LONG
+floor-divide (days, seconds), LONG -> TIMESTAMP multiplies seconds.
+Casts from and to strings and float -> decimal are not ported: the
+planner refuses them (`device_supported`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import types as T
+from ..columnar.column import torch_dtype
+from .base import EvalContext, Expression, Vec
+
+__all__ = ["Cast", "device_supported"]
+
+_US_PER_DAY = 86_400_000_000
+_INT_BOUNDS = {
+    torch.int8: (-128, 127),
+    torch.int16: (-32768, 32767),
+    torch.int32: (-2 ** 31, 2 ** 31 - 1),
+    torch.int64: (-2 ** 63, 2 ** 63 - 1),
+}
+_NUMERIC = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+            T.LongType, T.FloatType, T.DoubleType)
+
+
+def device_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The casts this engine computes (the JAX rule without strings)."""
+    if src == dst:
+        return True
+    if isinstance(src, _NUMERIC) and isinstance(dst, _NUMERIC):
+        return True
+    if isinstance(src, T.DateType):
+        return isinstance(dst, (T.TimestampType, T.IntegerType))
+    if isinstance(src, T.TimestampType):
+        return isinstance(dst, (T.DateType, T.LongType))
+    if isinstance(src, T.LongType) and isinstance(dst, T.TimestampType):
+        return True
+    if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
+        return True
+    if isinstance(src, _NUMERIC) and isinstance(dst, T.DecimalType):
+        return not T.is_floating(src)
+    if isinstance(src, T.DecimalType) and isinstance(dst, _NUMERIC):
+        return True
+    return False
+
+
+class Cast(Expression):
+    def __init__(self, child: Expression, to: T.DataType,
+                 ansi: bool = False):
+        super().__init__([child])
+        self.to = to
+        self.ansi = ansi
+
+    @property
+    def data_type(self):
+        return self.to
+
+    @property
+    def nullable(self):
+        return True  # a cast can make null from non-null input
+
+    def _compute(self, ctx: EvalContext, c: Vec) -> Vec:
+        src, dst = c.dtype, self.to
+        if src == dst:
+            return c
+        if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
+            return Vec(dst, c.data.to(torch.int64) * _US_PER_DAY, c.validity)
+        if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
+            return Vec(dst, torch.div(c.data, _US_PER_DAY,
+                                      rounding_mode="floor").to(torch.int32),
+                       c.validity)
+        if isinstance(src, T.TimestampType) and isinstance(dst, T.LongType):
+            return Vec(dst, torch.div(c.data, 1_000_000,
+                                      rounding_mode="floor"), c.validity)
+        if isinstance(src, T.LongType) and isinstance(dst, T.TimestampType):
+            return Vec(dst, c.data * 1_000_000, c.validity)
+        if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
+            return _decimal_cast(c, dst)
+        if isinstance(src, T.DateType) and isinstance(dst, T.IntegerType):
+            return Vec(dst, c.data, c.validity)
+        return _numeric_cast(c, dst)
+
+    def __repr__(self):
+        extra = ", ansi" if self.ansi else ""
+        return f"cast({self.children[0]!r} as " \
+               f"{self.to.simple_string()}{extra})"
+
+
+def _numeric_cast(c: Vec, dst: T.DataType) -> Vec:
+    a, want = c.data, torch_dtype(dst)
+    if isinstance(dst, T.BooleanType):
+        return Vec(dst, a != 0, c.validity)
+    if T.is_floating(c.dtype) and T.is_integral(dst):
+        # Java (long)(double): NaN -> 0, clamp to the bounds, truncate.
+        # The bound 2^(bits-1) is exact in a double; float(2^63 - 1) would
+        # round up to it and wrap.
+        lo, hi = _INT_BOUNDS[want]
+        t = torch.trunc(a.to(torch.float64))
+        t = torch.where(torch.isnan(t), 0.0, t)
+        upper = float(hi) + 1.0
+        pos, neg = t >= upper, t < -upper
+        i = torch.where(pos | neg, 0.0, t).to(torch.int64)
+        i = torch.where(pos, hi, torch.where(neg, lo, i))
+        return Vec(dst, i.to(want), c.validity)
+    # integral narrowing wraps; widening and int <-> float convert
+    return Vec(dst, a.to(want), c.validity)
+
+
+def _decimal_cast(c: Vec, dst: T.DataType) -> Vec:
+    src = c.dtype
+    a = c.data.to(torch.int64)
+    if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
+        shift = dst.scale - src.scale
+        if shift >= 0:
+            # bound-check before the multiply, so no int64 wrap can alias
+            # back under the limit
+            ok = a.abs() < 10 ** max(dst.precision - shift, 0)
+            return Vec(dst, torch.where(ok, a, 0) * 10 ** shift,
+                       c.validity & ok)
+        p = 10 ** -shift
+        q = _half_up_div(a, p)
+        return Vec(dst, q, c.validity & (q.abs() < 10 ** dst.precision))
+    if isinstance(dst, T.DecimalType):  # integral -> decimal
+        ok = (a.abs() < 10 ** max(dst.precision - dst.scale, 0)) & \
+            (a != -2 ** 63)  # abs(MIN) wraps negative
+        return Vec(dst, torch.where(ok, a, 0) * 10 ** dst.scale,
+                   c.validity & ok)
+    # decimal -> numeric
+    if isinstance(dst, T.BooleanType):
+        return Vec(dst, a != 0, c.validity)
+    if T.is_floating(dst):
+        return Vec(dst, (a.to(torch.float64) / 10 ** src.scale)
+                   .to(torch_dtype(dst)), c.validity)
+    # integral targets truncate exactly in int64 (a double cannot hold
+    # every 18-digit value)
+    q = torch.div(a, 10 ** src.scale, rounding_mode="trunc")
+    lo, hi = _INT_BOUNDS[torch_dtype(dst)]
+    ok = (q >= lo) & (q <= hi)
+    return Vec(dst, torch.where(ok, q, 0).to(torch_dtype(dst)),
+               c.validity & ok)
+
+
+def _half_up_div(a: torch.Tensor, p: int) -> torch.Tensor:
+    """a / p rounded HALF_UP on the magnitude (p > 0, a int64)."""
+    m = a.abs()
+    q = torch.div(m, p, rounding_mode="floor")
+    q = q + ((m - q * p) * 2 >= p).to(torch.int64)
+    return torch.where(a < 0, -q, q)

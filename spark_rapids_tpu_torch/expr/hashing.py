@@ -9,11 +9,13 @@ keeps the sign), the same translation `ops/pallas_probe.py` of the JAX
 package uses. This is also the plain version that the hand-written CUDA
 kernel in ops/pallas_probe.py is held against, bit for bit.
 
-A double hashes as the long of its IEEE bits (Java doubleToLongBits:
--0.0 as 0.0, every NaN as the canonical NaN). A string hashes its bytes
-as Spark's variant does: whole little-endian 4-byte words, then each byte
-of the tail as its own sign-extended block, then the length. FLOAT and
-decimals wait for a later slice.
+BYTE, SHORT, INT, DATE and BOOLEAN hash as an int; LONG, TIMESTAMP and
+a decimal of up to 18 digits (its unscaled value) as a long. A double
+hashes as the long of its IEEE bits (Java doubleToLongBits: -0.0 as 0.0,
+every NaN as the canonical NaN), a float as the int of its bits
+(floatToIntBits, the same two rules). A string hashes its bytes as Spark's
+variant does: whole little-endian 4-byte words, then each byte of the
+tail as its own sign-extended block, then the length.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ from .. import types as T
 from .base import Vec, require_flat_strings
 
 __all__ = ["hash_vec", "hash_vecs", "hash_int", "hash_long", "hash_double",
-           "hash_string", "INT_FAMILY", "LONG_FAMILY"]
+           "hash_float", "hash_string", "INT_FAMILY", "LONG_FAMILY"]
 
 INT_FAMILY = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
               T.DateType)
-LONG_FAMILY = (T.LongType, T.TimestampType)
+# a DecimalType column is always of <= 18 digits here (column.py)
+LONG_FAMILY = (T.LongType, T.TimestampType, T.DecimalType)
 
 
 def _i32(x: int) -> int:
@@ -89,6 +92,17 @@ def hash_double(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return hash_long(bits, seed)
 
 
+_CANONICAL_FLOAT_NAN = 0x7FC00000
+
+
+def hash_float(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """murmur3 of one float32 per row, through its floatToIntBits."""
+    v = torch.where(v == 0.0, torch.zeros_like(v), v)  # -0.0 -> 0.0
+    bits = torch.where(torch.isnan(v), _CANONICAL_FLOAT_NAN,
+                       v.view(torch.int32))
+    return hash_int(bits, seed)
+
+
 def hash_string(chars: torch.Tensor, lengths: torch.Tensor,
                 seed: torch.Tensor) -> torch.Tensor:
     """murmur3 of one zero-tailed uint8[n, w] row per string (w a multiple
@@ -119,14 +133,16 @@ def hash_vec(v: Vec, seed: torch.Tensor) -> torch.Tensor:
         h = hash_long(v.data.to(torch.int64), seed)
     elif isinstance(v.dtype, T.DoubleType):
         h = hash_double(v.data, seed)
+    elif isinstance(v.dtype, T.FloatType):
+        h = hash_float(v.data, seed)
     elif isinstance(v.dtype, T.StringType):
         require_flat_strings(v, "murmur3")
         h = hash_string(v.data, v.lengths, seed)
     else:
         raise NotImplementedError(
             f"murmur3 over {v.dtype.simple_string()} is not supported by "
-            "spark_rapids_tpu_torch yet (int and long families, double and "
-            "string)")
+            "spark_rapids_tpu_torch yet (int and long families, float, "
+            "double and string)")
     return torch.where(v.validity, h, seed)
 
 

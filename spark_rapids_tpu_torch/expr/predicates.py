@@ -2,8 +2,12 @@
 (`spark_rapids_tpu/expr/predicates.py`: numeric, boolean and string
 operands).
 
-NaN equals NaN and sorts greater than everything; And/Or use Kleene
-three-valued logic (false AND null = false, true OR null = true). Strings
+NaN equals NaN and sorts greater than everything (DOUBLE and FLOAT); And/Or
+use Kleene three-valued logic (false AND null = false, true OR null =
+true). Decimals compare by value: both sides rescale to the larger scale
+in 128-bit limbs (expr/decimal128.py), so decimal(18,0) against
+decimal(18,18) is exact; a decimal against a non-decimal needs a cast and
+is refused at plan time. Strings
 compare bytewise on the zero-padded byte matrix, so a prefix sorts before
 its extensions, which is UTF-8 byte order; equal byte images tie-break on
 length (UTF8String.compareTo).
@@ -51,6 +55,9 @@ class BinaryComparison(BinaryExpression):
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         validity = and_validity(l.validity, r.validity)
+        if isinstance(l.dtype, T.DecimalType) or \
+                isinstance(r.dtype, T.DecimalType):
+            return Vec(T.BOOLEAN, self._cmp_decimal(l, r), validity)
         if l.is_string:
             data = self._cmp_string(l, r)
         elif T.is_numeric(l.dtype) or T.is_numeric(r.dtype):
@@ -68,6 +75,22 @@ class BinaryComparison(BinaryExpression):
 
     def _cmp_float(self, a, b):
         return self._cmp(a, b)
+
+    def _cmp_decimal(self, l: Vec, r: Vec):
+        """Both sides rescaled to the common scale, then a signed 128-bit
+        order (JAX `_cmp_decimal`, its 128-bit branch)."""
+        from .decimal128 import eq128, lt128, rescale_up, widen_operand
+        if not (isinstance(l.dtype, T.DecimalType) and
+                isinstance(r.dtype, T.DecimalType)):
+            raise NotImplementedError(
+                "decimal vs non-decimal comparison needs an explicit cast")
+        s = max(l.dtype.scale, r.dtype.scale)
+        lhi, llo = rescale_up(*widen_operand(l.data), s - l.dtype.scale)
+        rhi, rlo = rescale_up(*widen_operand(r.data), s - r.dtype.scale)
+        lt = lt128(lhi, llo, rhi, rlo)
+        gt = ~(lt | eq128(lhi, llo, rhi, rlo))
+        # -1/0/1 as string_compare gives, compared with 0
+        return self._cmp(gt.to(torch.int8) - lt.to(torch.int8), 0)
 
     def _cmp_string(self, l: Vec, r: Vec):
         return self._cmp(string_compare(l, r), 0)

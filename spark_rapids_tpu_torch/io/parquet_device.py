@@ -18,6 +18,11 @@ Device, eager torch ops on an explicit device:
     unpacks its bits from a window of at most 5 bytes held in int64;
   * PLAIN values arrive as raw little-endian bytes viewed as the column's
     type, dictionary values by a gather on the expanded indices;
+  * fixed-width byte values (FIXED_LEN_BYTE_ARRAY decimals, INT96
+    timestamps) arrive as a uint8[n, flen] matrix, dictionary rows by the
+    same gather, and convert by vector shifts: big-endian two's complement
+    sign-extended to int64 (`_flba_to_i64`), or INT96's nanos of the day
+    and julian day to microseconds (`_int96_to_micros`);
   * strings gather their byte spans into the flat `uint8[cap, w]` layout;
   * non-null values land in their row slots by the rank cumsum(defined) - 1.
 
@@ -34,9 +39,13 @@ Names follow the JAX module; the JAX `_traced_*` functions and
 traced. Differences from the JAX module, none of which changes a value:
   * No host fallback. A page the device decode declines (a v2 page, a codec
     other than snappy or none, a truncated stream) and a string longer than
-    MAX_STRING_WIDTH raise DeviceDecodeUnsupported. DECIMAL, TIMESTAMP,
-    INT96, FIXED_LEN_BYTE_ARRAY and nested columns are refused at plan time
-    (`columns_supported`).
+    MAX_STRING_WIDTH raise DeviceDecodeUnsupported. Columns the JAX module
+    host-decodes are refused at plan time (`columns_supported`): BYTE and
+    SHORT (INT32 with an 8- or 16-bit annotation), decimals of more than 18
+    digits or on a FIXED_LEN_BYTE_ARRAY wider than 8 bytes, TIMESTAMP in
+    nanoseconds, and nested columns.
+  * The 128-bit limb layout (`post` 'dec128') is not ported: a decimal
+    column holds at most 18 digits.
   * The scan always takes the native walk. The Python walkers here
     (`_decode_chunk_py`, `_rle_runs`, `_byte_array_scan_py`) are its plain
     twins, held against it by the tests.
@@ -375,6 +384,8 @@ def _string_matrix_tail(blob, starts, lens, valid, width: int):
     """Row-aligned span read: uint8[cap, width] + int32 lengths out of
     `blob`, invalid rows and the bytes past each length zeroed."""
     ln = torch.where(valid, lens, 0).to(torch.int32)
+    if blob.shape[0] == 0:  # no value defined: nothing to read, one dead byte
+        blob = torch.zeros(1, dtype=torch.uint8, device=blob.device)
     j = torch.arange(width, dtype=torch.int64, device=blob.device)
     idx = starts[:, None] + j[None, :]
     mat = blob[idx.clamp(0, blob.shape[0] - 1)]
@@ -387,7 +398,9 @@ def _string_matrix_tail(blob, starts, lens, valid, width: int):
 # ----------------------------------------------------------------------------
 
 _PHYS_TO_NP = {"BOOLEAN": "bool", "INT32": "int32", "INT64": "int64",
-               "DOUBLE": "float64"}
+               "FLOAT": "float32", "DOUBLE": "float64"}
+# fixed-width byte values: the walk keeps their bytes as they are
+_FIXED_BYTES = ("FIXED_LEN_BYTE_ARRAY", "INT96")
 # the codecs the native walk decodes; parquet "LZ4" (Hadoop-framed),
 # LZ4_RAW, GZIP, ZSTD and BROTLI raise
 _NATIVE_CODEC = {"UNCOMPRESSED": 0, "SNAPPY": 1}
@@ -444,7 +457,7 @@ def _decode_chunk(buf: bytes, col_meta, optional: bool) -> _Chunk:
     if codec is None:
         raise DeviceDecodeUnsupported(f"codec {col_meta.compression}")
     if col_meta.physical_type not in _PHYS_TO_NP and \
-            col_meta.physical_type != "BYTE_ARRAY":
+            col_meta.physical_type not in ("BYTE_ARRAY",) + _FIXED_BYTES:
         raise DeviceDecodeUnsupported(
             f"physical type {col_meta.physical_type}")
     is_bool = col_meta.physical_type == "BOOLEAN"
@@ -518,7 +531,8 @@ def _decode_chunk_py(buf: bytes, col_meta, optional: bool) -> _Chunk:
 
 def _decode_chunk_inner(buf: bytes, col_meta, optional: bool) -> _Chunk:
     phys = col_meta.physical_type
-    if phys not in _PHYS_TO_NP and phys != "BYTE_ARRAY":
+    if phys not in _PHYS_TO_NP and phys not in ("BYTE_ARRAY",) + \
+            _FIXED_BYTES:
         raise DeviceDecodeUnsupported(f"physical type {phys}")
     is_bool = phys == "BOOLEAN"
     mv = memoryview(buf)
@@ -609,29 +623,86 @@ def _merge_runs(run_parts):
     return kinds, counts, values, bitoffs, packed
 
 
-# the engine types this slice decodes, by the physical type that holds them
+# the engine types decoded as their physical values, by the physical type
+# that holds them (decimals and timestamps: `_column_spec`)
 _EXPECTED_PHYS = {
     T.BooleanType: "BOOLEAN",
     T.IntegerType: "INT32",
     T.LongType: "INT64",
+    T.FloatType: "FLOAT",
     T.DoubleType: "DOUBLE",
     T.DateType: "INT32",
     T.StringType: "BYTE_ARRAY",
 }
+# the widest FIXED_LEN_BYTE_ARRAY decimal held in an int64
+_MAX_DEC64_BYTES = 8
 
 
-def _column_spec(pqcol, dt) -> str:
-    """Footer column descriptor + engine type -> 'prim' or 'string', or
-    DeviceDecodeUnsupported with the reason. DECIMAL, TIMESTAMP, INT96,
-    FIXED_LEN_BYTE_ARRAY and the other logical types wait for the slice that
-    brings their engine types."""
+class _ColSpec:
+    """Footer-derived decode plan for one column (JAX `_ColSpec`).
+    kind: 'prim' (viewed or dictionary values), 'string' (BYTE_ARRAY) or
+    'flba' (fixed-width byte values: FLBA decimals, INT96).
+    post: the conversion after the decode: None, 'ts_ms' (millis ->
+    micros), 'dec64' (big-endian FLBA -> int64) or 'int96'.
+    flen: the byte width of a 'flba' value."""
+    __slots__ = ("kind", "post", "flen")
+
+    def __init__(self, kind, post=None, flen=0):
+        self.kind, self.post, self.flen = kind, post, flen
+
+
+def _timestamp_unit(pqcol):
+    lt = pqcol.logical_type
+    if lt is not None and lt.type == "TIMESTAMP":
+        import json
+        return json.loads(lt.to_json()).get("timeUnit")
+    return {"TIMESTAMP_MICROS": "microseconds",
+            "TIMESTAMP_MILLIS": "milliseconds"}.get(
+                str(pqcol.converted_type))
+
+
+def _column_spec(pqcol, dt) -> _ColSpec:
+    """Footer column descriptor + engine type -> decode spec, or
+    DeviceDecodeUnsupported with the reason (JAX `_column_spec` without
+    its 'dec128' kind)."""
     phys = pqcol.physical_type
+    if isinstance(dt, T.DecimalType):
+        lt = pqcol.logical_type
+        if lt is None or lt.type != "DECIMAL":
+            raise DeviceDecodeUnsupported(f"{phys} without DECIMAL "
+                                          "annotation")
+        if pqcol.scale != dt.scale or pqcol.precision > dt.precision:
+            raise DeviceDecodeUnsupported(
+                f"decimal({pqcol.precision},{pqcol.scale}) in file vs "
+                f"{dt.simple_string()} in schema")
+        if dt.precision > T.DecimalType.MAX_LONG_DIGITS:
+            raise DeviceDecodeUnsupported(f"{phys} for {dt.simple_string()}")
+        if phys in ("INT32", "INT64"):  # the unscaled value itself
+            return _ColSpec("prim")
+        if phys == "FIXED_LEN_BYTE_ARRAY":
+            if not 0 < pqcol.length <= _MAX_DEC64_BYTES:
+                raise DeviceDecodeUnsupported(
+                    f"FLBA length {pqcol.length}")
+            return _ColSpec("flba", "dec64", pqcol.length)
+        raise DeviceDecodeUnsupported(f"{phys} for {dt.simple_string()}")
+    if isinstance(dt, T.TimestampType):
+        if phys == "INT96":
+            return _ColSpec("flba", "int96", 12)
+        if phys != "INT64":
+            raise DeviceDecodeUnsupported(f"{phys} for timestamp")
+        unit = _timestamp_unit(pqcol)
+        if unit == "microseconds":
+            return _ColSpec("prim")
+        if unit == "milliseconds":
+            return _ColSpec("prim", "ts_ms")
+        # nanoseconds would narrow with a loss (Spark refuses NANOS)
+        raise DeviceDecodeUnsupported(f"timestamp unit {unit}")
     want = _EXPECTED_PHYS.get(type(dt))
     if want is None:
         raise DeviceDecodeUnsupported(f"logical type {dt.simple_string()}")
     if phys != want:
         raise DeviceDecodeUnsupported(f"{phys} for {dt.simple_string()}")
-    return "string" if phys == "BYTE_ARRAY" else "prim"
+    return _ColSpec("string" if phys == "BYTE_ARRAY" else "prim")
 
 
 def _col_index(meta) -> dict:
@@ -683,7 +754,7 @@ class _ColWork:
     """One column's host-phase product: the parsed chunk, the merged
     def-level run table, and the fast-path ship list and meta when the page
     layout allows the packed path (ship None: the eager assemble)."""
-    __slots__ = ("name", "dt", "kind", "phys", "optional", "chunk",
+    __slots__ = ("name", "dt", "spec", "kind", "phys", "optional", "chunk",
                  "defruns", "ship", "meta")
 
 
@@ -745,7 +816,8 @@ def _host_phase(pf, f, rg: int, schema):
             raise DeviceDecodeUnsupported("repeated column")
         w = _ColWork()
         w.name, w.dt = name, dt
-        w.kind = _column_spec(pqcol, dt)
+        w.spec = _column_spec(pqcol, dt)
+        w.kind = w.spec.kind
         w.phys = cm.physical_type
         w.optional = pqcol.max_definition_level > 0
         w.chunk = _decode_chunk(read_chunk(cm), cm, w.optional)
@@ -754,10 +826,13 @@ def _host_phase(pf, f, rg: int, schema):
         w.defruns = _pad_runs(w.chunk.def_runs_merged) \
             if w.chunk.def_runs_merged is not None else None
         w.ship = w.meta = None
+        prepped = None
         if w.kind == "prim":
             prepped = _prep_fixed(w.chunk, w.phys)
-            if prepped is not None:
-                w.ship, w.meta = prepped
+        elif w.kind == "flba":
+            prepped = _prep_flba(w.chunk, w.spec.flen)
+        if prepped is not None:
+            w.ship, w.meta = prepped
         works[name] = w
     return works, nrows
 
@@ -767,6 +842,7 @@ def _host_phase(pf, f, rg: int, schema):
 _NP_TO_TORCH = {np.dtype(np.uint8): torch.uint8,
                 np.dtype(np.int32): torch.int32,
                 np.dtype(np.int64): torch.int64,
+                np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
 
 
@@ -826,9 +902,51 @@ def _cat(parts: list, empty: torch.Tensor) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _engine_data(data: torch.Tensor, dt) -> torch.Tensor:
+def _engine_data(data: torch.Tensor, dt, post=None) -> torch.Tensor:
+    """Decoded values -> the engine type's buffer; 'ts_ms' scales stored
+    milliseconds to microseconds."""
     want = torch_dtype(dt)
-    return data if data.dtype == want else data.to(want)
+    data = data if data.dtype == want else data.to(want)
+    return data * 1000 if post == "ts_ms" else data
+
+
+def _flba_to_i64(mat: torch.Tensor, flen: int) -> torch.Tensor:
+    """Big-endian two's complement uint8[n, flen] (flen <= 8) -> int64,
+    sign-extended past flen bytes (JAX `_flba_to_limbs`, its low limb)."""
+    fill = torch.where(mat[:, 0] >= 128, 0xFF, 0).to(torch.int64) \
+        if flen < 8 else None
+    out = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
+    for j in range(8):  # byte j counts from the least significant end
+        src = flen - 1 - j
+        b = mat[:, src].to(torch.int64) if src >= 0 else fill
+        out |= b << (8 * j)
+    return out
+
+
+_JULIAN_EPOCH_DAY = 2_440_588  # julian day of 1970-01-01
+_US_PER_DAY = 86_400_000_000
+
+
+def _int96_to_micros(mat: torch.Tensor) -> torch.Tensor:
+    """INT96 timestamps uint8[n, 12]: little-endian nanos of the day (8
+    bytes), then the little-endian julian day (4 bytes) -> microseconds
+    since the epoch (Spark's `ParquetRowConverter` arithmetic; the nanos
+    are non-negative, so the division truncates as Java's does)."""
+    nanos = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
+    for j in range(8):
+        nanos |= mat[:, j].to(torch.int64) << (8 * j)
+    day = torch.zeros_like(nanos)
+    for j in range(4):
+        day |= mat[:, 8 + j].to(torch.int64) << (8 * j)
+    return (day - _JULIAN_EPOCH_DAY) * _US_PER_DAY + \
+        torch.div(nanos, 1000, rounding_mode="trunc")
+
+
+def _flba_values(mat: torch.Tensor, post: str, flen: int) -> torch.Tensor:
+    """A value-dense byte matrix -> the column's int64 values."""
+    if post == "int96":
+        return _int96_to_micros(mat)
+    return _flba_to_i64(mat, flen)  # 'dec64'
 
 
 # -- eager assembles: the page interleavings the packed path declines ---------
@@ -862,9 +980,12 @@ def _device_phase(schema, works, nrows: int, device: torch.device):
             defined = torch.arange(cap, device=device) < nrows
         if w.kind == "string":
             cols[name] = _assemble_strings(w.chunk, dt, defined, cap, device)
+        elif w.kind == "flba":
+            cols[name] = _assemble_flba(w.chunk, w.spec, dt, defined, cap,
+                                        device)
         else:
             cols[name] = _assemble_fixed(w.chunk, w.phys, dt, defined, cap,
-                                         device)
+                                         device, w.spec.post)
     return ColumnarBatch(schema, tuple(cols[n] for n in schema.names),
                          torch.tensor(nrows, dtype=torch.int32,
                                       device=device)), nrows
@@ -932,12 +1053,15 @@ def _prep_fast_path(chunk: _Chunk, meta: dict, build_dict_vals,
     ship: List[np.ndarray] = []
     meta.update({"segs": [], "dict_count": chunk.dict_count,
                  "has_dict_vals": False, "has_plain": False})
-    if ndict:
+    # dictionary pages that define no value (an all-null chunk) need no
+    # dictionary: _dict_segments drops them
+    segs = _dict_segments(chunk.pages[:ndict])
+    if segs:
         if chunk.dict_raw is None or not chunk.dict_count:
             raise DeviceDecodeUnsupported("dict page missing values")
         ship.append(build_dict_vals(chunk))
         meta["has_dict_vals"] = True
-        for bw, ndef, runs in _dict_segments(chunk.pages[:ndict]):
+        for bw, ndef, runs in segs:
             meta["segs"].append((bw, ndef, runs is not None))
             if runs is not None:
                 ship.extend(_pad_runs(runs))
@@ -985,8 +1109,85 @@ def _prep_fixed(chunk: _Chunk, phys: str):
                            dict_vals, plain_values, passthrough)
 
 
+def _prep_flba(chunk: _Chunk, flen: int):
+    """Fixed-width byte values' fast-path prep (see _prep_fast_path): the
+    dictionary and the PLAIN values as uint8[n, flen] matrices."""
+
+    def dict_vals(c):
+        need = c.dict_count * flen
+        if len(c.dict_raw) < need:
+            raise DeviceDecodeUnsupported("truncated dict page")
+        return np.frombuffer(c.dict_raw, np.uint8,
+                             count=need).reshape(-1, flen)
+
+    def plain_mat(p):
+        try:
+            return np.frombuffer(p.payload, np.uint8,
+                                 count=p.ndef * flen).reshape(-1, flen)
+        except ValueError as e:
+            raise DeviceDecodeUnsupported(
+                f"truncated value page: {e}") from e
+
+    def passthrough(total):
+        if chunk.plain_all is not None and \
+                chunk.plain_all.nbytes == total * flen:
+            return chunk.plain_all.reshape(-1, flen)
+        return None
+
+    return _prep_fast_path(chunk, {"flen": flen}, dict_vals, plain_mat,
+                           passthrough)
+
+
+def _assemble_flba(chunk: _Chunk, spec: _ColSpec, dt, defined, cap: int,
+                   device):
+    """Fixed-width byte values in any page order: one value-dense
+    uint8[n, flen] matrix (dictionary pages gather rows of the dictionary
+    matrix, consecutive PLAIN pages ship as one), converted by vector
+    shifts and scattered to the row slots by null rank."""
+    flen = spec.flen
+    dict_mat = None
+    if chunk.dict_raw is not None and chunk.dict_count:
+        need = chunk.dict_count * flen
+        if len(chunk.dict_raw) < need:
+            raise DeviceDecodeUnsupported("truncated dict page")
+        dict_mat, = _ship([np.frombuffer(chunk.dict_raw, np.uint8,
+                                         count=need).reshape(-1, flen)],
+                          device)
+    parts = []
+    host_run: List[np.ndarray] = []
+
+    def flush_host():
+        if host_run:
+            parts.extend(_ship([np.concatenate(host_run)], device))
+            host_run.clear()
+
+    for p in chunk.pages:
+        if p.ndef == 0:
+            continue
+        if p.kind == "plain":
+            try:
+                host_run.append(np.frombuffer(p.payload, np.uint8,
+                                              count=p.ndef * flen)
+                                .reshape(-1, flen))
+            except ValueError as e:
+                raise DeviceDecodeUnsupported(
+                    f"truncated value page: {e}") from e
+        else:
+            if dict_mat is None:
+                raise DeviceDecodeUnsupported("dict page missing values")
+            flush_host()
+            parts.append(dict_mat[_expand_indices(p, chunk.dict_count,
+                                                  device)])
+    flush_host()
+    mat = _cat(parts, torch.zeros((0, flen), dtype=torch.uint8,
+                                  device=device))
+    vals = _flba_values(_pad_rows(mat, cap), spec.post, flen)
+    data, validity = _scatter_values(vals, defined)
+    return Column(dt, _engine_data(data, dt), validity)
+
+
 def _assemble_fixed(chunk: _Chunk, phys: str, dt, defined, cap: int,
-                    device):
+                    device, post=None):
     """Fixed-width column in any page order: per-page non-null value
     streams (PLAIN bytes or a dictionary gather) in page order, then
     scattered to the row slots by null rank."""
@@ -1009,6 +1210,8 @@ def _assemble_fixed(chunk: _Chunk, phys: str, dt, defined, cap: int,
             host_run.clear()
 
     for p in chunk.pages:
+        if p.ndef == 0:  # nothing defined: no values, no dictionary read
+            continue
         if p.kind == "plain":
             if is_bool:
                 host_run.append(p.payload.astype(np.bool_))
@@ -1028,7 +1231,7 @@ def _assemble_fixed(chunk: _Chunk, phys: str, dt, defined, cap: int,
     tdt = torch.bool if is_bool else _NP_TO_TORCH[np_dt]
     vals = _cat(parts, torch.zeros(0, dtype=tdt, device=device))
     data, validity = _scatter_values(_pad_rows(vals, cap), defined)
-    return Column(dt, _engine_data(data, dt), validity)
+    return Column(dt, _engine_data(data, dt, post), validity)
 
 
 def _check_width(max_len: int) -> None:
@@ -1054,7 +1257,7 @@ def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device):
                   for p in chunk.pages if p.kind == "plain"]
     max_len = 1
     host_spans: List[np.ndarray] = []
-    has_dict = any(p.kind == "dict" for p in chunk.pages)
+    has_dict = any(p.kind == "dict" and p.ndef for p in chunk.pages)
     if has_dict:
         if chunk.dict_raw is None:
             raise DeviceDecodeUnsupported("dict page missing values")
@@ -1114,9 +1317,9 @@ def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device):
 
 def _col_sig(w) -> tuple:
     m = w.meta
-    return ("prim", w.phys, w.defruns is not None, m["has_dict_vals"],
-            m["dict_count"], tuple(m["segs"]), m["has_plain"],
-            w.dt.simple_string())
+    return (w.kind, w.phys, w.spec.post, w.spec.flen, w.defruns is not None,
+            m["has_dict_vals"], m["dict_count"], tuple(m["segs"]),
+            m["has_plain"], w.dt.simple_string())
 
 
 def _read_idx(it, segs, device):
@@ -1147,7 +1350,7 @@ def _decode_col(colsig, cap: int, nrows: int, it, device):
     multi-chunk decode. Returns (data, validity, lengths or None)."""
     if colsig[0] == "string":
         return _decode_string_col(colsig, cap, nrows, it, device)
-    (_, phys, has_def, has_dict, dict_count, segs, has_plain,
+    (kind, phys, post, flen, has_def, has_dict, dict_count, segs, has_plain,
      dt_name) = colsig
     defined = _defined(it, has_def, cap, nrows, device)
     is_bool = phys == "BOOLEAN"
@@ -1159,10 +1362,17 @@ def _decode_col(colsig, cap: int, nrows: int, it, device):
         pieces.append(dict_vals[idx])
     if has_plain:
         pieces.append(next(it))
+    dt = T.parse_type(dt_name)
+    if kind == "flba":
+        mat = _cat(pieces, torch.zeros((0, flen), dtype=torch.uint8,
+                                       device=device))
+        vals = _flba_values(_pad_rows(mat, cap), post, flen)
+        data, validity = _scatter_values(vals, defined)
+        return _engine_data(data, dt), validity, None
     tdt = torch.bool if is_bool else _NP_TO_TORCH[np.dtype(_PHYS_TO_NP[phys])]
     vals = _cat(pieces, torch.zeros(0, dtype=tdt, device=device))
     data, validity = _scatter_values(_pad_rows(vals, cap), defined)
-    return _engine_data(data, T.parse_type(dt_name)), validity, None
+    return _engine_data(data, dt, post), validity, None
 
 
 def _decode_string_col(colsig, cap: int, nrows: int, it, device):
@@ -1217,7 +1427,8 @@ def _prep_string(chunk: _Chunk):
     ship: List[np.ndarray] = []
     meta = {"segs": [], "dict_count": chunk.dict_count,
             "has_dict_vals": False, "has_plain": False, "plain_ndef": 0}
-    if ndict:
+    segs = _dict_segments(chunk.pages[:ndict])  # pages defining a value
+    if segs:
         if chunk.dict_raw is None or not chunk.dict_count:
             raise DeviceDecodeUnsupported("dict page missing values")
         dict_blob = np.frombuffer(chunk.dict_raw, np.uint8)
@@ -1227,7 +1438,7 @@ def _prep_string(chunk: _Chunk):
         ship.append((dst + base).astype(np.int64))
         ship.append(dln.astype(np.int32))
         meta["has_dict_vals"] = True
-        for bw, ndef, runs in _dict_segments(chunk.pages[:ndict]):
+        for bw, ndef, runs in segs:
             meta["segs"].append((bw, ndef, runs is not None))
             if runs is not None:
                 ship.extend(_pad_runs(runs))

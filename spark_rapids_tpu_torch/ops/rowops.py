@@ -10,6 +10,13 @@ one int64 word, big-endian with the top bit flipped (torch sorts signed
 values), which is the same order in an eighth of the sorts. torch's
 `index_add_` and `scatter_reduce_` raise on out-of-range indices where JAX
 drops them, so `segment_reduce` sends such rows to a spare slot.
+
+Floating keys sort with NaN greatest and -0.0 equal to 0.0 (the stable
+sort keeps them adjacent, and the key-change test sees them equal); Min
+and Max over DOUBLE and FLOAT follow the same order, Spark's: NaN is
+greater than +inf and equal to NaN, so a group's max is NaN if it holds
+one and its min is NaN only if it holds nothing else. The JAX package
+propagates NaN through both.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ def sort_keys_for(v: Vec) -> List:
         nan = torch.isnan(v.data)
         zero = torch.zeros((), dtype=v.data.dtype, device=v.data.device)
         keys.append(nan.to(torch.int8))  # NaN sorts greatest
-        keys.append(torch.where(nan, zero, v.data))
+        # -0.0 as 0.0: a radix sort would order their bits apart
+        keys.append(torch.where(nan | (v.data == 0), zero, v.data))
     else:
         keys.append(v.data.to(torch.int8) if v.data.dtype == torch.bool
                     else v.data)
@@ -159,13 +167,26 @@ def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
         idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
         is_bool = data.dtype == torch.bool
         work = data.to(torch.int32) if is_bool else data
-        neutral = int(op == "min") if is_bool else _neutral(op, work.dtype)
-        contrib = torch.where(valid, work, torch.full((), neutral,
-                                                      dtype=work.dtype,
-                                                      device=data.device))
-        out = torch.full((cap + 1,), neutral, dtype=work.dtype,
-                         device=data.device)
-        out = out.scatter_reduce_(0, idx, contrib,
-                                  "amin" if op == "min" else "amax")[:cap]
-        return out.to(torch.bool) if is_bool else out
+        if not work.is_floating_point():
+            out = _scatter_extreme(op, work, idx, valid, cap)
+            return out.to(torch.bool) if is_bool else out
+        # NaN is the greatest value: reduce with NaN as +inf, then a group
+        # is NaN where max met a NaN or min met nothing else
+        nan = torch.isnan(work)
+        out = _scatter_extreme(op, torch.where(nan, float("inf"), work), idx,
+                               valid, cap)
+        flag = _scatter_extreme(op, nan.to(torch.int32), idx, valid, cap)
+        return torch.where(flag == 1, float("nan"), out)
     raise ValueError(f"unknown segmented op {op}")
+
+
+def _scatter_extreme(op: str, work: torch.Tensor, idx: torch.Tensor,
+                     valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group amin/amax of `work` over the valid rows (the neutral value
+    where a group has none), ids outside [0, cap) already at cap."""
+    neutral = _neutral(op, work.dtype)
+    fill = torch.full((), neutral, dtype=work.dtype, device=work.device)
+    out = torch.full((cap + 1,), neutral, dtype=work.dtype,
+                     device=work.device)
+    return out.scatter_reduce_(0, idx, torch.where(valid, work, fill),
+                               "amin" if op == "min" else "amax")[:cap]

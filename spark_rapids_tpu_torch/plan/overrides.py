@@ -21,6 +21,7 @@ from ..columnar.column import check_string_length, check_string_widths, \
     check_supported
 from ..config import TpuConf
 from ..expr import arithmetic as A
+from ..expr import cast as CA
 from ..expr import conditional as C
 from ..expr import nullexprs as NE
 from ..expr import predicates as P
@@ -34,11 +35,16 @@ from . import nodes as N
 __all__ = ["Overrides"]
 
 _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
-                    A.Add, A.Subtract, A.Multiply, P.EqualTo, P.LessThan,
+                    A.Add, A.Subtract, A.Multiply, A.Divide,
+                    A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus,
+                    A.Abs, CA.Cast, P.EqualTo, P.LessThan,
                     P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
                     P.And, P.Or, P.Not, NE.IsNull, NE.IsNotNull, NE.IsNaN,
                     NE.Coalesce, C.If, C.CaseWhen, C.Least, C.Greatest)
-_ARITH_TYPES = (T.IntegerType, T.LongType, T.DoubleType)
+_ARITH_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                T.FloatType, T.DoubleType, T.DecimalType)
+_COMPARISONS = (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+                P.GreaterThanOrEqual)
 # join types whose build (right) side may be broadcast
 _BROADCASTABLE = ("inner", "left", "semi", "anti")
 
@@ -68,13 +74,29 @@ def _check_expr(e: Expression) -> None:
     for node in e.collect(lambda _: True):
         if not isinstance(node, _SUPPORTED_EXPRS):
             _unsupported(f"expression {type(node).__name__}")
+        if isinstance(node, (A.BinaryArithmetic, A.Divide, A.IntegralDivide,
+                             A.UnaryMinus, A.Abs)):
+            _check_arithmetic(node)
         check_supported(node.data_type, f"{type(node).__name__} result")
         if isinstance(node, Literal) and isinstance(node.value, str):
             check_string_length(len(node.value.encode("utf-8")))
-        if isinstance(node, A.BinaryArithmetic) and not all(
-                isinstance(c.data_type, _ARITH_TYPES) for c in node.children):
-            _unsupported("arithmetic over " + ", ".join(
-                c.data_type.simple_string() for c in node.children))
+        if isinstance(node, CA.Cast):
+            src = node.children[0].data_type
+            if node.ansi or not CA.device_supported(src, node.to):
+                _unsupported(f"cast from {src.simple_string()} to "
+                             f"{node.to.simple_string()}"
+                             + (" under ANSI" if node.ansi else ""))
+        decimals = [c.data_type for c in _value_children(node)
+                    if not isinstance(c.data_type, T.NullType)]
+        if any(isinstance(t, T.DecimalType) for t in decimals):
+            if isinstance(node, _COMPARISONS):
+                if not all(isinstance(t, T.DecimalType) for t in decimals):
+                    _unsupported("a decimal compared with another type "
+                                 "without a cast")
+            elif len(set(decimals)) > 1:
+                _unsupported(f"{type(node).__name__} over "
+                             + ", ".join(t.simple_string() for t in decimals)
+                             + " without a cast")
         strings = [isinstance(c.data_type, T.StringType)
                    for c in _value_children(node)]
         if any(strings) and not all(strings):
@@ -82,6 +104,20 @@ def _check_expr(e: Expression) -> None:
                          "type")
         if any(strings) and isinstance(node, (C.Least, C.Greatest)):
             _unsupported(f"{type(node).__name__} over strings")
+
+
+def _check_arithmetic(node: Expression) -> None:
+    """Numeric operands, before the node's type is read (numeric_promote
+    has no answer for others). Decimal Multiply, Remainder and Pmod, and a
+    decimal mixed with another type in +/-, raise from the node's type;
+    IntegralDivide has a LONG type, so its decimal operands are refused
+    here."""
+    types = [c.data_type for c in node.children]
+    if not all(isinstance(t, _ARITH_TYPES) for t in types) or (
+            isinstance(node, A.IntegralDivide)
+            and any(isinstance(t, T.DecimalType) for t in types)):
+        _unsupported(f"{type(node).__name__} over " + ", ".join(
+            t.simple_string() for t in types))
 
 
 def _selectivity(cond, stats: dict) -> float:
@@ -258,6 +294,8 @@ class Overrides:
                 if isinstance(a.func, (Sum, Average)) and \
                         not isinstance(ct, _ARITH_TYPES):
                     _unsupported(what)
+                for pt in a.func.partial_types():
+                    check_supported(pt, f"{what}: its partial buffer")
                 if isinstance(a.func, (Min, Max)) and \
                         isinstance(ct, T.StringType):
                     _unsupported(what)
@@ -284,6 +322,13 @@ class Overrides:
         for e in plan._bl + plan._br:
             if not isinstance(e.data_type, INT_FAMILY + LONG_FAMILY):
                 _unsupported(f"join key type {e.data_type.simple_string()}")
+        for lk, rk in zip(plan._bl, plan._br):
+            # keys hash by their stored values: two decimals must share
+            # their scale and precision (Spark casts them to one type)
+            if T.DecimalType in (type(lk.data_type), type(rk.data_type)) \
+                    and lk.data_type != rk.data_type:
+                _unsupported(f"join keys {lk.data_type.simple_string()} and "
+                             f"{rk.data_type.simple_string()}")
         threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
         if (threshold >= 0 and plan.join_type in _BROADCASTABLE
                 and _estimated_bytes(plan.children[1]) <= threshold):

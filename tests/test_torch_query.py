@@ -336,7 +336,7 @@ class TestBoundaries:
             TpuSession(device="cuda")
         assert TpuSession(device="cpu").device.type == "cpu"
 
-    @pytest.mark.parametrize("case", ["float32_column", "right_join",
+    @pytest.mark.parametrize("case", ["decimal128_column", "right_join",
                                       "ansi", "double_join_key",
                                       "sum_of_boolean"])
     def test_out_of_slice_raises_at_plan_time(self, case):
@@ -346,9 +346,10 @@ class TestBoundaries:
                       "x": np.arange(4, dtype=np.float64),
                       "b": np.array([True, False, True, True])})
         df = sess.from_arrow(t)
-        if case == "float32_column":
+        if case == "decimal128_column":  # 20 digits: the limb layout
             df = sess.from_arrow(t.append_column(
-                "y", pa.array(np.zeros(4, np.float32))))
+                "y", pa.array(np.arange(4, dtype=np.int8)).cast(
+                    pa.decimal128(20, 2))))
         elif case == "right_join":
             df = df.join(sess.from_arrow(t), on="k", how="right")
         elif case == "double_join_key":

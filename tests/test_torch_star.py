@@ -486,10 +486,10 @@ class TestBoundaries:
                       "s": ["a", "b", "c", "d"]})
         df = sess.from_arrow(t)
         c = PE.col
-        if case == "decimal_column":
+        if case == "decimal_column":  # over 18 digits: the limb layout
             df = sess.from_arrow(t.append_column(
                 "d", pa.array([decimal.Decimal("1.25")] * 4,
-                              pa.decimal128(7, 2))))
+                              pa.decimal128(20, 2))))
         elif case == "string_over_head_width":
             df = sess.from_arrow(pa.table({"s": ["x" * 257]}))
         elif case == "string_literal_over_256":
@@ -506,7 +506,8 @@ class TestBoundaries:
         elif case == "max_over_string":
             df = df.agg(m=PE.Max(c("s")))
         elif case == "average_over_decimal":
-            df = df.agg(a=PE.Average(PE.lit(1, T.DecimalType(7, 2))))
+            # its partial sum, decimal(25,2), needs the limb layout
+            df = df.agg(a=PE.Average(PE.lit(1, T.DecimalType(15, 2))))
         elif case == "least_over_strings":
             df = df.select(x=PE.Least(c("s"), PE.lit("b")))
         else:
