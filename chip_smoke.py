@@ -18,10 +18,14 @@ no-pruning and host-decode forms of it, and at 1 row group a dispatch,
 without the scan's prefetch thread, and with neither) and star Q7 from
 parquet files, and last the star reports over TPC-DS's own column types
 (every money column decimal(7,2), written as FIXED_LEN_BYTE_ARRAY) from
-parquet on one device and distributed, exact against an int64 oracle; it
-checks each against numpy oracles, holds kernels A and C to their exact
-launch counts there, and holds them against their twins on the inputs
-those paths hand them (a merged batch of 4 row groups). Each phase prints
+parquet on one device and distributed, exact against an int64 oracle, and
+over the same files the reports in TPC-DS's ORDER BY ... LIMIT 100 (top-k;
+Q36 ranked by a window), q51's running window over the 16.76 M
+per-(item, date) quantities, and their out-of-core sort under the
+distributed plan; it checks each against numpy oracles, holds kernels A
+and C to their exact launch counts there, and holds them against their
+twins on the inputs those paths hand them (a merged batch of 4 row
+groups). Each phase prints
 one JSON line; then a `kernels` line, the card's `nvidia-smi`
 name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
 exits non-zero without that last line. Without CUDA (or without the package
@@ -37,14 +41,17 @@ WALL_ROUNDS times with pallas.mode auto and off in turns, each star
 report's STAR_ROUNDS times with pallas.mode auto, and the bench step
 WALL_ROUNDS times with CUDA events; each is reported as its median, min
 and max, and each star report's device idle share comes from one traced
-collect. Bounds are bytes moved (each input read once, each output
-written once) over the H100's published memory rate. Launch counts are
-read per path: every count is set to 0 just before a run of the path and
-read just after.
+collect; the ordered reports, the running window and the out-of-core
+sort are timed ORDERED_ROUNDS times each, with the sort's host merge
+seconds beside its wall. Bounds are bytes moved (each input read once,
+each output written once) over the H100's published memory rate. Launch
+counts are read per path: every count is set to 0 just before a run of
+the path and read just after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -1275,12 +1282,16 @@ STAR_DECIMAL_TYPES = {
             "lo": (8, 2)}}
 
 
-def check_star_decimal(pa, name: str, out, want: dict) -> None:
+def check_star_decimal(pa, name: str, out, want: dict,
+                       ordered: bool = False) -> None:
     """Raise unless `out` (a collect() result) equals the int64 oracle:
     every decimal's type (STAR_DECIMAL_TYPES), keys, counts, every decimal
     (as its unscaled int) and Q36's ratio exactly, Q7's quantity average
-    within rtol 1e-9."""
-    out = out.sort_by([(k, "ascending") for k in STAR_DECIMAL_KEYS[name]])
+    within rtol 1e-9. Rows are compared in key order, or as they come when
+    `ordered` (the oracle's rows then in the query's order)."""
+    if not ordered:
+        out = out.sort_by([(k, "ascending")
+                           for k in STAR_DECIMAL_KEYS[name]])
     if out.num_rows != len(next(iter(want.values()))):
         raise AssertionError(f"decimal {name}: {out.num_rows} groups, "
                              f"oracle {len(next(iter(want.values())))}")
@@ -1308,10 +1319,24 @@ def check_star_decimal(pa, name: str, out, want: dict) -> None:
                                  "from the oracle")
 
 
+def star_decimal_data(pa, d: str, n_sales=STAR_SALES_ROWS,
+                      dims=STAR_DIMS) -> dict:
+    """star_decimal_tables, their int64 oracle and their parquet files in
+    directory d (the star_decimal and ordered_reports phases read the same
+    files), with the seconds it took."""
+    import pyarrow.parquet as pq
+    t0 = time.monotonic()
+    star = star_decimal_tables(pa, n_sales, *dims.values())
+    want = star_decimal_oracle(pa, star)
+    paths = write_parquet(pq, star, d, tag="_decimal")
+    return {"tables": star, "oracle": want, "paths": paths,
+            "setup_s": time.monotonic() - t0}
+
+
 def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
                         n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
                         device=None, rounds=STAR_ROUNDS,
-                        decode_rounds=DECODE_ROUNDS):
+                        decode_rounds=DECODE_ROUNDS, data=None):
     """Phase star_decimal: Q3, Q7 and Q36 over decimal money columns read
     from parquet, on one device and under the distributed plan
     (`mesh_conf`), each checked against star_decimal_oracle, launch-counted
@@ -1321,7 +1346,9 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
     pq.read_table. Returns the launch counts of each plan's run (one
     collect of each query) and the arguments of A's first call in a
     one-device Q7 collect and of C's first call in a distributed Q3
-    collect (the decimal sum's unscaled values)."""
+    collect (the decimal sum's unscaled values). `data` (star_decimal_data)
+    gives the tables and files; without it they are made in a temporary
+    directory."""
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.columnar.batch import Schema
@@ -1340,12 +1367,12 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
         return out, {k.__name__: k.launches for k in counters}
 
     launches, record = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
-        t0 = time.monotonic()
-        star = star_decimal_tables(pa, n_sales, *dims.values())
-        want = star_decimal_oracle(pa, star)
-        paths = write_parquet(pq, star, d, tag="_decimal")
-        setup_s = time.monotonic() - t0
+    with (contextlib.nullcontext() if data is not None else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_")) as d:
+        if data is None:
+            data = star_decimal_data(pa, d, n_sales, dims)
+        want, paths = data["oracle"], data["paths"]
+        setup_s = data["setup_s"]
         sales_path = paths["store_sales"]
         batches = -(-pq.ParquetFile(sales_path).metadata.num_row_groups
                     // CHUNKS_PER_DISPATCH)
@@ -1443,6 +1470,264 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
           "money_type": "decimal(%d,%d)" % MONEY, "sales_batches": batches,
           "setup_s": setup_s, "exact": "every decimal (int64 oracle), keys, "
           "counts, Q36 ratio", "rtol_double_average": 1e-9, **record})
+    return launches, a_args, c_args
+
+
+# ---- ordered_reports: the star reports' ORDER BY ... LIMIT 100, Q36's
+# rank, a running window and an out-of-core sort over the decimal files
+ORDERED_ROUNDS = 3
+ORDERED_LIMIT = 100
+# the TPC-DS orders (column, ascending, nulls_first) of each ordered report
+ORDERED_KEYS = {
+    "q3": (("d_year", True, True), ("sum_agg", False, False),
+           ("i_brand", True, True)),
+    "q7": (("i_category", True, True),),
+    "q36": (("cat", True, True), ("rank_within_parent", True, True),
+            ("bucket", True, True))}
+# the per-(item, date) quantities sorted out of core under the distributed
+# plan
+OOC_KEYS = (("qty", False, False), ("ss_item_sk", True, True),
+            ("ss_sold_date_sk", True, True))
+
+
+def ordered_namespace() -> SimpleNamespace:
+    """star_namespace with the window constructors."""
+    from spark_rapids_tpu_torch import expr as E
+    m = star_namespace()
+    for n in ("Rank", "RowNumber", "Lag", "WindowAggregate", "RowFrame"):
+        setattr(m, n, getattr(E, n))
+    return m
+
+
+def ordered_queries(sess, m, paths: dict) -> dict:
+    """star_decimal_queries' Q3, Q7 and Q36 in TPC-DS's ORDER BY ... LIMIT
+    100 (Q36 ranked within its category by gross margin, without its
+    ROLLUP), the running window of q51 (a cumulative sum of the quantity
+    per item over dates, its row number and the previous day's quantity)
+    and the per-(item, date) quantities sorted by quantity."""
+    c = m.col
+    q = star_decimal_queries(sess, m, paths)
+    out = {n: q[n].sort(*ORDERED_KEYS[n]).limit(ORDERED_LIMIT)
+           for n in ("q3", "q7")}
+    out["q36"] = q["q36"].window(
+        partition_by=["cat"], order_by=[(c("gross_margin"), True, True)],
+        rank_within_parent=m.Rank()).sort(*ORDERED_KEYS["q36"]) \
+        .limit(ORDERED_LIMIT)
+    per_day = sess.read_parquet(
+        paths["store_sales"],
+        columns=["ss_item_sk", "ss_sold_date_sk", "ss_quantity"]) \
+        .group_by("ss_item_sk", "ss_sold_date_sk") \
+        .agg(qty=m.Sum(c("ss_quantity")))
+    out["running_window"] = per_day.window(
+        partition_by=["ss_item_sk"], order_by=["ss_sold_date_sk"],
+        cum_qty=m.WindowAggregate(m.Sum(c("qty")), m.RowFrame(None, 0)),
+        rn=m.RowNumber(), prev=m.Lag(c("qty"), 1))
+    out["ooc_sort"] = per_day.sort(*OOC_KEYS)
+    return out
+
+
+def _sort_key(values, ascending: bool, nulls_first: bool):
+    """One np.lexsort key of a list of values (ints, floats or strings,
+    None for null) in the given order: its dense rank among the distinct
+    values, nulls placed as asked."""
+    vocab = sorted({v for v in values if v is not None})
+    rank = {v: i for i, v in enumerate(vocab)}
+    nul = -1 if nulls_first == ascending else len(vocab)
+    key = np.array([nul if v is None else rank[v] for v in values], np.int64)
+    return key if ascending else -key
+
+
+def ordered_oracle(want: dict) -> dict:
+    """The ordered reports' rows: star_decimal_oracle's rows (Q36's with
+    its rank within its category by gross margin, nulls first) lexsorted
+    on each report's keys, the first 100."""
+    out = {}
+    for name in ("q3", "q7", "q36"):
+        cols = dict(want[name])
+        if name == "q36":
+            gm, cat = cols["gross_margin"], cols["cat"]
+            cols["rank_within_parent"] = [
+                1 + sum(1 for h, c2 in zip(gm, cat) if c2 == c and (
+                    (g is not None and (h is None or h < g))))
+                for g, c in zip(gm, cat)]
+        keys = [_sort_key(cols[k], a, nf) for k, a, nf in ORDERED_KEYS[name]]
+        order = np.lexsort(keys[::-1])[:ORDERED_LIMIT]
+        out[name] = {k: [v[i] for i in order] for k, v in cols.items()}
+    return out
+
+
+def per_day_oracle(t: dict) -> dict:
+    """numpy int64: the quantity of each (item, date) over all sales, in
+    (item, date) order, with the running window's cum_qty, rn and prev
+    (0 where null), and the out-of-core sort's order of those rows."""
+    ss = t["store_sales"]
+    n_dates = t["date_dim"].num_rows
+    key = ss.column("ss_item_sk").to_numpy() * n_dates + \
+        ss.column("ss_sold_date_sk").to_numpy()
+    groups, gid = np.unique(key, return_inverse=True)
+    qty = np.bincount(gid, weights=ss.column("ss_quantity").to_numpy()) \
+        .astype(np.int64)
+    item, date = groups // n_dates, groups % n_dates
+    n = len(groups)
+    first = np.r_[True, item[1:] != item[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    csum = np.cumsum(qty)
+    return {"ss_item_sk": item, "ss_sold_date_sk": date, "qty": qty,
+            "cum_qty": csum - csum[start] + qty[start],
+            "rn": (np.arange(n) - start + 1).astype(np.int32),
+            "prev": np.r_[0, qty[:-1]] * ~first, "prev_valid": ~first,
+            "ooc_order": np.lexsort((date, item, -qty))}
+
+
+def check_per_day(out, want: dict, what: str) -> None:
+    """Raise unless a running-window or out-of-core-sort result equals the
+    int64 oracle row for row."""
+    cols = ("ss_item_sk", "ss_sold_date_sk", "qty")
+    order = slice(None)
+    if what == "ooc_sort":
+        order = want["ooc_order"]
+    else:
+        cols += ("cum_qty", "rn", "prev")
+    if out.num_rows != len(want["qty"]):
+        raise AssertionError(f"{what}: {out.num_rows} rows, oracle "
+                             f"{len(want['qty'])}")
+    for col in cols:
+        c = out.column(col)
+        got = c.fill_null(0).to_numpy() if c.null_count else c.to_numpy()
+        if col == "prev":
+            valid = c.is_valid().to_numpy(zero_copy_only=False)
+            if not np.array_equal(valid, want["prev_valid"]):
+                raise AssertionError(f"{what}: the nulls of prev differ")
+        if not np.array_equal(got, want[col][order]):
+            raise AssertionError(f"{what}: column {col} differs from the "
+                                 "oracle")
+
+
+def ordered_phases(torch, pa, mesh_conf: dict, counters,
+                   n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
+                   device=None, rounds=ORDERED_ROUNDS, data=None):
+    """Phase ordered_reports, over star_decimal_data's files (made here in a
+    temporary directory without `data`): the ordered Q3, Q7 and Q36 and the
+    running window on one device and under the distributed plan
+    (`mesh_conf`), and the out-of-core sort under the distributed plan.
+    Each result is held against its oracle row for row; A and C launch as
+    on the decimal star reports (A twice per fused join per merged batch,
+    C STAR_DECIMAL_C_PER_BATCH a merged batch, distributed only) and not
+    at all in the running window and the sort, whose aggregate over a bare
+    scan fuses nothing. Returns the launch counts of each plan's run (one
+    collect of each query) and the arguments of A's first call in a
+    one-device ordered Q7 collect and of C's first in a distributed
+    ordered Q3 collect."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.exec import sort as S
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        S.COUNTERS.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}
+
+    def check(name, out):
+        if name in ("running_window", "ooc_sort"):
+            check_per_day(out, per_day, name)
+        else:
+            check_star_decimal(pa, name, out, ordered[name], ordered=True)
+
+    launches, record = {}, {}
+    with (contextlib.nullcontext() if data is not None else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_ordered_")) as d:
+        if data is None:
+            data = star_decimal_data(pa, d, n_sales, dims)
+        t0 = time.monotonic()
+        ordered = ordered_oracle(data["oracle"])
+        per_day = per_day_oracle(data["tables"])
+        oracle_s = time.monotonic() - t0
+        batches = -(-pq.ParquetFile(data["paths"]["store_sales"]).metadata
+                    .num_row_groups // CHUNKS_PER_DISPATCH)
+        m = ordered_namespace()
+        for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+            qs = ordered_queries(TpuSession(dict(conf, **extra), dev), m,
+                                 data["paths"])
+            if plan == "one_device":
+                del qs["ooc_sort"]  # one batch there: an in-core sort
+            shapes = {n: q.explain() for n, q in qs.items()}
+            for n in ("q3", "q7", "q36"):
+                if not shapes[n].startswith("TpuTopKExec"):
+                    raise AssertionError(f"ordered {n} ({plan}) is not a "
+                                         f"top-k:\n{shapes[n]}")
+            for n, q in qs.items():  # warm-up
+                check(n, q.collect())
+            outs, run = counted(lambda: [q.collect() for q in qs.values()])
+            for n, out in zip(qs, outs):
+                check(n, out)
+            del outs
+            want_a = sum(2 * fused_joins(shapes[n]) * batches
+                         for n in ("q3", "q7", "q36"))
+            want_c = sum(STAR_DECIMAL_C_PER_BATCH[n] * batches
+                         for n in ("q3", "q7", "q36")) \
+                if plan == "distributed" else 0
+            if run["murmur3_rows"] != want_a or \
+                    run["segment_sum_i64"] != want_c or want_a == 0:
+                raise AssertionError(f"ordered reports ({plan}) launched "
+                                     f"{run}, not A {want_a} and C {want_c}")
+            path = "ordered_reports" if plan == "one_device" else \
+                "ordered_reports_distributed"
+            launches[path] = run
+            if plan == "one_device":
+                a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                         qs["q7"].collect)
+            else:
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64", qs["q3"].collect)
+            per_query = {}
+            for n, q in qs.items():
+                walls, seen, sorts, merge = [], set(), set(), []
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    out, c = counted(q.collect)
+                    walls.append(time.perf_counter() - t0)
+                    check(n, out)
+                    del out
+                    seen.add(tuple(sorted(c.items())))
+                    snap = S.COUNTERS.snapshot()
+                    sorts.add((snap["in_core"], snap["out_of_core"]))
+                    merge.append(snap["host_merge_s"])
+                if len(seen) != 1:
+                    raise AssertionError(f"ordered {n} ({plan}) launched "
+                                         f"{sorted(seen)} per collect")
+                if n == "ooc_sort" and sorts != {(0, 1)}:
+                    raise AssertionError(f"the sort ran (in core, out of "
+                                         f"core) {sorts}, not out of core")
+                rec = {"rows": len(per_day["qty"]) if n in (
+                           "running_window", "ooc_sort") else
+                       len(next(iter(ordered[n].values()))),
+                       "fused_joins": fused_joins(shapes[n]),
+                       "warm_collect_s": spread(walls),
+                       "launches_per_collect": dict(seen.pop()),
+                       "sorts_in_core_out_of_core": sorted(sorts)}
+                if n == "ooc_sort":
+                    rec["host_merge_s"] = spread(merge)
+                    rec["host_merge_share"] = statistics.median(
+                        x / w for x, w in zip(merge, walls))
+                if n == "running_window" and plan == "one_device":
+                    rec["device_idle_share"] = idle_share(torch, q.collect)
+                per_query[n] = rec
+            record[plan] = {"queries": per_query,
+                            "launches_per_path_run": run,
+                            "plan_q36": shapes["q36"].splitlines()}
+    emit({"phase": "ordered_reports", "fact_rows": n_sales, "dim_rows": dims,
+          "sales_batches": batches, "oracle_s": oracle_s,
+          "per_day_groups": len(per_day["qty"]),
+          "exact": "every column against the numpy int64 oracles, row for "
+          "row", "rtol_double_average": 1e-9, **record})
     return launches, a_args, c_args
 
 
@@ -1856,9 +2141,17 @@ def main() -> int:
         fact, dim)
 
     # ---- star_decimal: the star reports over decimal(7,2) money columns
-    # from parquet, one device and distributed
-    dec_launches, dec_a_args, dec_c_args = star_decimal_phases(
-        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
+    # from parquet, one device and distributed; then ordered_reports over
+    # the same files: their ORDER BY ... LIMIT 100, Q36's rank, a running
+    # window and an out-of-core sort
+    kernels3 = (murmur3_rows, segment_sum_f64, segment_sum_i64)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
+        dec_data = star_decimal_data(pa, d)
+        dec_launches, dec_a_args, dec_c_args = star_decimal_phases(
+            torch, pa, mesh_conf, kernels3, data=dec_data)
+        ord_launches, ord_a_args, ord_c_args = ordered_phases(
+            torch, pa, mesh_conf, kernels3, data=dec_data)
+        del dec_data
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -1871,7 +2164,10 @@ def main() -> int:
             "parquet_star_q7": murmur3_on_path(
                 torch, pq_a_args, rate, path="parquet_star_q7", query="q7"),
             "star_decimal": murmur3_on_path(
-                torch, dec_a_args, rate, path="star_decimal", query="q7")}
+                torch, dec_a_args, rate, path="star_decimal", query="q7"),
+            "ordered_reports": murmur3_on_path(
+                torch, ord_a_args, rate, path="ordered_reports",
+                query="q7")}
     c_on = {"star_query_distributed": segsum_i64_on_path(
                 torch, c_args, rate, path="star_query_distributed",
                 query="q7"),
@@ -1880,6 +2176,9 @@ def main() -> int:
                 path="parquet_query_distributed_no_dpp", query="engine"),
             "star_decimal_distributed": segsum_i64_on_path(
                 torch, dec_c_args, rate, path="star_decimal_distributed",
+                query="q3"),
+            "ordered_reports_distributed": segsum_i64_on_path(
+                torch, ord_c_args, rate, path="ordered_reports_distributed",
                 query="q3")}
     a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
     c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
@@ -1892,7 +2191,8 @@ def main() -> int:
         runs = dict({"star_query": star_launches[name],
                      "star_query_distributed": dstar_launches[name]},
                     **{p: n[name] for p, n in pq_launches.items()},
-                    **{p: n[name] for p, n in dec_launches.items()})
+                    **{p: n[name] for p, n in dec_launches.items()},
+                    **{p: n[name] for p, n in ord_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},
@@ -1901,18 +2201,20 @@ def main() -> int:
                 for p, n in runs.items()}
 
     # ---- 11. every kernel the run launched. A's and C's rows name the
-    # decimal star path (this slice's) whose launches and inputs they give;
-    # by_path holds every path's launches (one run of it: one collect of
-    # each star query, one collect of each parquet query, one distributed
-    # Q7 collect, one collect of each decimal query) and, where measured,
-    # the times on that path's inputs
-    a_main, c_main = a_on["star_decimal"], c_on["star_decimal_distributed"]
+    # ordered reports' paths (this slice's) whose launches and inputs they
+    # give; by_path holds every path's launches (one run of it: one collect
+    # of each star query, one collect of each parquet query, one
+    # distributed Q7 collect, one collect of each decimal query, one
+    # collect of each ordered query) and, where measured, the times on that
+    # path's inputs
+    a_main = a_on["ordered_reports"]
+    c_main = c_on["ordered_reports_distributed"]
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "star_decimal",
-         "launches": dec_launches["star_decimal"]["murmur3_rows"],
+         "path": "ordered_reports",
+         "launches": ord_launches["ordered_reports"]["murmur3_rows"],
          "rows": a_main["rows"], "by_path": on_path("murmur3_rows", a_on),
          "max_abs_err": a_err, "ms": a_main["ms"],
          "plain_ms": a_main["plain_ms"], "bound_ms": a_main["bound_ms"],
@@ -1930,9 +2232,9 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "star_decimal_distributed",
-         "launches":
-             dec_launches["star_decimal_distributed"]["segment_sum_i64"],
+         "path": "ordered_reports_distributed",
+         "launches": ord_launches["ordered_reports_distributed"][
+             "segment_sum_i64"],
          "rows": c_main["rows"], "by_path": on_path("segment_sum_i64", c_on),
          "max_abs_err": c_err, "ms": c_main["ms"],
          "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],

@@ -135,6 +135,16 @@ register("spark.rapids.tpu.pipeline.scan.chunksPerDispatch", "int", 4,
          "dispatch: their arrays pack into one host buffer, ship in one "
          "copy and merge into one batch. 1: row group by row group; "
          "ignored when spark.rapids.tpu.pipeline.enabled is false.")
+register("spark.rapids.sql.topK.enabled", "bool", True,
+         "Rewrite limit-over-sort into a top-k exec (per-batch k-select + "
+         "running merge) instead of a full out-of-core sort "
+         "(TakeOrderedAndProjectExec analog, GpuOverrides.scala:3705).")
+register("spark.rapids.sql.topK.threshold", "int", 10000,
+         "Largest LIMIT+OFFSET rewritten into the top-k exec (the "
+         "spark.sql.execution.topKSortFallbackThreshold analog). Above it "
+         "the planner keeps sort+limit: top-k holds an O(k) candidate "
+         "batch device-resident and re-sorts ~2k rows per input batch, "
+         "losing the out-of-core sort's spill behavior at large k.")
 
 
 class TpuConf:

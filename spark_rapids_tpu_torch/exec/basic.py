@@ -1,4 +1,5 @@
-"""Scan, project and filter execs (`spark_rapids_tpu/exec/basic.py`)."""
+"""Scan, project, filter, union and limit execs
+(`spark_rapids_tpu/exec/basic.py`)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from ..expr.base import Expression, bind_references, output_name
 from ..ops.rowops import compact_vecs
 from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
 
-__all__ = ["TpuScanExec", "TpuProjectExec", "TpuFilterExec"]
+__all__ = ["TpuScanExec", "TpuProjectExec", "TpuFilterExec", "TpuUnionExec",
+           "TpuLimitExec"]
 
 
 class TpuScanExec(TpuExec):
@@ -90,3 +92,50 @@ class TpuFilterExec(UnaryTpuExec):
 
     def _arg_string(self):
         return f"[{self.condition!r}]"
+
+
+class TpuUnionExec(TpuExec):
+    """Every child's batches, child after child."""
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def do_execute(self):
+        for c in self.children:
+            yield from c.execute()
+
+
+class TpuLimitExec(UnaryTpuExec):
+    """Local+global limit with offset (reference `limit.scala`): the first
+    `limit` rows after `offset`, batch by batch. It reads each batch's row
+    count on the host, and stops pulling once the limit is met."""
+
+    def __init__(self, limit: int, child: TpuExec, offset: int = 0, conf=None):
+        super().__init__([child], conf)
+        self.limit = limit
+        self.offset = offset
+
+    def do_execute(self):
+        remaining = self.limit
+        skip = self.offset
+        for b in self.child.execute():
+            if remaining <= 0:
+                break
+            n = b.row_count()
+            start = min(skip, n)
+            skip -= start
+            take = min(remaining, n - start)
+            if take <= 0:
+                continue
+            if start == 0:
+                out = ColumnarBatch(b.schema, b.columns, torch.as_tensor(
+                    take, dtype=torch.int32, device=b.device))
+            else:
+                out = vecs_to_batch(b.schema, [v.gather(slice(start, None))
+                                               for v in batch_vecs(b)], take)
+            remaining -= take
+            yield out
+
+    def _arg_string(self):
+        return f"[{self.limit}]"

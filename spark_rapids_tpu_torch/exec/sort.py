@@ -1,0 +1,248 @@
+"""Sort and top-k execs (`spark_rapids_tpu/exec/sort.py`; reference
+`GpuSortExec.scala:83`, out-of-core iterator `:239`,
+`GpuTakeOrderedAndProject`).
+
+`TpuSortExec` has the reference's three modes:
+
+  * each batch: every input batch sorted on its own (`each_batch`);
+  * in core: all input concatenated into one batch and sorted on the
+    device, when it is one batch or at most `batchSizeRows` rows;
+  * out of core: each input batch sorted on the device into a run; the
+    runs' SORT KEYS alone come to the host, one `np.lexsort` over (keys,
+    run, row) merges them, and the device assembles each output chunk of
+    `batchSizeRows` rows by gathering the chunk's rows from the runs and
+    ordering them by their position in the chunk (the `__pos__` column
+    of the JAX exec). Payloads never leave the device.
+
+The JAX exec parks the runs in its spill catalog and sorts each under the
+OOM-retry seam (`SpillableColumnarBatch`, `with_retry`). The memory seams
+are not ported yet, so the runs here are plain device batches and the
+calls are direct.
+
+`COUNTERS` counts the in-core and out-of-core sorts since its last reset,
+and the host merge's seconds (the key copies and the lexsort).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..columnar.batch import ColumnarBatch, Schema
+from ..columnar.padding import row_bucket
+from ..expr.base import Expression, bind_references
+from ..ops.rowops import gather_vecs, lexsort_indices, sort_keys_for
+from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .coalesce import concat_batches
+
+__all__ = ["TpuSortExec", "TpuTopKExec", "COUNTERS", "SortCounters"]
+
+
+class SortCounters:
+    """Full sorts since the last reset(): in core (`in_core`), out of core
+    (`out_of_core`), and the out-of-core sorts' host merge seconds
+    (`host_merge_s`: the sort keys' device-to-host copies and the
+    lexsort)."""
+
+    _FIELDS = ("in_core", "out_of_core", "host_merge_s")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            for f in self._FIELDS:
+                setattr(self, f, 0)
+
+    def add(self, **counts) -> None:
+        with self._lock:
+            for f, n in counts.items():
+                setattr(self, f, getattr(self, f) + n)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {f: getattr(self, f) for f in self._FIELDS}
+
+
+COUNTERS = SortCounters()
+
+
+def _bind_orders(orders, schema):
+    return [(bind_references(e, schema), a, nf) for e, a, nf in orders]
+
+
+def _sort_order(bound, batch: ColumnarBatch) -> torch.Tensor:
+    """The stable permutation that sorts a batch by `bound` (expr,
+    ascending, nulls_first) orders, padding rows last."""
+    ctx = device_ctx(batch)
+    vecs = batch_vecs(batch)
+    groups = [[(~ctx.row_mask).to(torch.int8)]]  # padding rows last
+    for e, asc, nf in bound:
+        groups.append(sort_keys_for(e.eval(ctx, vecs), asc, nf))
+    return lexsort_indices(groups)
+
+
+class TpuSortExec(UnaryTpuExec):
+    def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
+                 child: TpuExec, conf=None, each_batch: bool = False):
+        """orders: (expr, ascending, nulls_first). each_batch: sort within
+        each batch only (reference sortEachBatch, used below windows)."""
+        super().__init__([child], conf)
+        self.orders = list(orders)
+        self.each_batch = each_batch
+        self._bound = _bind_orders(self.orders, child.output)
+
+    def sort_single_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        order = _sort_order(self._bound, batch)
+        return vecs_to_batch(batch.schema,
+                             gather_vecs(batch_vecs(batch), order),
+                             batch.num_rows)
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        if self.each_batch:
+            for b in self.child.execute():
+                yield self.sort_single_batch(b)
+            return
+        batches = list(self.child.execute())
+        if not batches:
+            return
+        total = sum(b.row_count() for b in batches)
+        if len(batches) > 1 and total > self.conf.batch_size_rows:
+            COUNTERS.add(out_of_core=1)
+            yield from self._out_of_core(batches)
+            return
+        COUNTERS.add(in_core=1)
+        yield self.sort_single_batch(concat_batches(batches))
+
+    # -- out-of-core merge path (GpuOutOfCoreSortIterator analog) ----------
+    def _host_keys(self, run: ColumnarBatch) -> List[np.ndarray]:
+        """The sort keys of a sorted run, computed on the device, its live
+        rows copied to the host (most significant first)."""
+        ctx = device_ctx(run)
+        vecs = batch_vecs(run)
+        n = run.row_count()
+        return [k[:n].cpu().numpy() for e, asc, nf in self._bound
+                for k in sort_keys_for(e.eval(ctx, vecs), asc, nf)]
+
+    def _out_of_core(self, batches: List[ColumnarBatch]
+                     ) -> Iterator[ColumnarBatch]:
+        # phase 1: device-sort each batch into a run
+        runs = [self.sort_single_batch(b) for b in batches]
+        del batches
+        # phase 2: host merge of the key streams (keys only; the payload
+        # stays on the device)
+        t0 = time.perf_counter()
+        host_keys = [self._host_keys(r) for r in runs]
+        run_id = np.concatenate([np.full(len(k[0]), i, np.int32)
+                                 for i, k in enumerate(host_keys)])
+        row_id = np.concatenate([np.arange(len(k[0]), dtype=np.int32)
+                                 for k in host_keys])
+        merged = [np.concatenate([k[g] for k in host_keys])
+                  for g in range(len(host_keys[0]))]
+        del host_keys
+        order = _merge_order(merged, run_id, row_id)
+        del merged
+        COUNTERS.add(host_merge_s=time.perf_counter() - t0)
+
+        chunk_rows = self.conf.batch_size_rows
+        for at in range(0, len(order), chunk_rows):
+            yield self._assemble_chunk(runs, run_id, row_id,
+                                       order[at:at + chunk_rows])
+
+    def _assemble_chunk(self, runs, run_id, row_id, chunk) -> ColumnarBatch:
+        """Gather the chunk's rows from each run, then order them by their
+        position in the chunk."""
+        rid, rows = run_id[chunk], row_id[chunk]
+        pieces, where = [], []
+        for i, run in enumerate(runs):
+            sel = np.flatnonzero(rid == i)
+            if not len(sel):
+                continue
+            idx = torch.from_numpy(rows[sel].astype(np.int64)).to(run.device)
+            pieces.append(vecs_to_batch(run.schema, gather_vecs(
+                batch_vecs(run), idx), len(sel)))
+            where.append(sel)
+        merged = concat_batches(pieces)
+        # merged row j sits at position pos[j] of the chunk: sorting by the
+        # position is the inverse permutation
+        pos = np.concatenate(where)
+        by_pos = np.zeros(row_bucket(len(chunk)), np.int64)
+        by_pos[pos] = np.arange(len(pos))
+        return vecs_to_batch(merged.schema, gather_vecs(
+            batch_vecs(merged), torch.from_numpy(by_pos).to(merged.device)),
+            merged.num_rows)
+
+    def _arg_string(self):
+        return f"[{[(repr(e), a, nf) for e, a, nf in self.orders]}]"
+
+
+def _merge_order(keys: List[np.ndarray], run_id: np.ndarray,
+                 row_id: np.ndarray) -> np.ndarray:
+    """The global order of the runs' rows: np.lexsort over the keys (most
+    significant first), then run, then row, so the merge is stable across
+    runs. A key equal on every row orders nothing and is left out, and
+    (run, row) sort as one int64."""
+    keys = [k for k in keys if len(k) and k.min() != k.max()]
+    tie = (run_id.astype(np.int64) << 32) | row_id.astype(np.int64)
+    return np.lexsort(tuple([tie] + keys[::-1]))
+
+
+class TpuTopKExec(UnaryTpuExec):
+    """TakeOrderedAndProjectExec analog (`GpuOverrides.scala:3705`): ORDER
+    BY + LIMIT k without a full sort. Each input batch sorts on the device
+    and keeps its first k rows; a running candidate batch of <= k rows
+    merges with every batch's winners, so the device holds one input batch
+    plus O(k) rows and the host sees nothing. Offset slices the final
+    candidates."""
+
+    def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
+                 limit: int, child: TpuExec, conf=None, offset: int = 0):
+        super().__init__([child], conf)
+        self.orders = list(orders)
+        self.limit = limit
+        self.offset = offset
+        self._k = limit + offset
+        self._kcap = row_bucket(max(self._k, 1))
+        self._bound = _bind_orders(self.orders, child.output)
+
+    def _topk(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """The batch's first k rows in order, at capacity kcap (a shorter
+        permutation is padded with row 0, past the row count)."""
+        order = _sort_order(self._bound, batch)
+        if self._kcap <= batch.capacity:
+            take = order[:self._kcap]
+        else:
+            take = torch.nn.functional.pad(order,
+                                           (0, self._kcap - batch.capacity))
+        return vecs_to_batch(batch.schema,
+                             gather_vecs(batch_vecs(batch), take),
+                             torch.clamp(batch.num_rows, max=self._k))
+
+    @property
+    def output(self) -> Schema:
+        return self.child.output
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        run = None
+        for b in self.child.execute():
+            top = self._topk(b)
+            run = top if run is None else \
+                self._topk(concat_batches([run, top]))
+        if run is None:
+            return
+        if self.offset:
+            n = run.row_count()
+            start = min(self.offset, n)
+            take = max(min(self.limit, n - start), 0)
+            run = vecs_to_batch(run.schema, [v.gather(slice(start, None))
+                                             for v in batch_vecs(run)], take)
+        yield run
+
+    def _arg_string(self):
+        return f"[k={self.limit}, offset={self.offset}, " \
+               f"orders={len(self.orders)}]"

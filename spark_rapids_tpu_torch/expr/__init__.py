@@ -10,7 +10,12 @@ from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401
 from .conditional import If, CaseWhen, Least, Greatest  # noqa: F401
 from .hashing import hash_vecs  # noqa: F401
 from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
-                         Max, Average)
+                         Max, Average, First, Last)
+from .windowexprs import (RowFrame, RangeFrame, default_frame,  # noqa: F401
+                          is_value_range_frame, WindowFunction, RowNumber,
+                          Rank, DenseRank, PercentRank, CumeDist, NTile,
+                          Lead, Lag, NthValue, WindowAggregate,
+                          bind_window_fn)
 
 
 def col(name):  # convenience constructors for tests / DataFrame API

@@ -9,6 +9,10 @@ count, and divides at the end: a DOUBLE sum for the numeric types, and for
 decimal(p, s) the exact int64 sum, decimal(p + 10, s), whose mean is
 rounded HALF_UP to decimal(p + 4, s + 4) (Spark's result type). The JAX
 package keeps a DOUBLE sum there and returns a double of the unscaled mean.
+
+`First` and `Last` are descriptors only, with the JAX signature: no exec
+carries them yet, so a grouped aggregate or a window frame over them
+raises at plan time.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import List, Optional
 from .. import types as T
 from .base import Expression
 
-__all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average"]
+__all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average",
+           "First", "Last"]
 
 
 class AggregateFunction(Expression):
@@ -86,3 +91,21 @@ class Average(AggregateFunction):
             return [T.DecimalType.bounded(ct.precision + 10, ct.scale),
                     T.LONG]
         return [T.DOUBLE, T.LONG]
+
+
+class First(AggregateFunction):
+    def __init__(self, child, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def __repr__(self):
+        extra = ", ignore_nulls" if self.ignore_nulls else ""
+        return f"{self.name}({self.children[0]!r}{extra})"
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+
+class Last(First):
+    pass

@@ -1,10 +1,10 @@
 """DataFrame frontend (`spark_rapids_tpu/frontend.py`: select, filter,
-join, group_by, agg, collect). It builds plan nodes; the session rewrites
-and runs them."""
+join, group_by, agg, sort/order_by, limit, union, window, collect). It
+builds plan nodes; the session rewrites and runs them."""
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 from .expr.aggregates import AggregateFunction
 from .expr.base import Alias, AttributeReference, Expression
@@ -15,6 +15,18 @@ __all__ = ["DataFrame", "GroupedData"]
 
 def _as_expr(e: Union[str, Expression]) -> Expression:
     return AttributeReference(e) if isinstance(e, str) else e
+
+
+def _order_spec(o, ascending: bool = True,
+                nulls_first: Optional[bool] = None):
+    """(expr, ascending, nulls_first) from a tuple, or from a bare key
+    with the given direction (nulls first when ascending unless
+    `nulls_first` says otherwise: Spark's default)."""
+    if isinstance(o, tuple):
+        e, asc, nf = o
+        return _as_expr(e), asc, nf
+    return _as_expr(o), ascending, \
+        ascending if nulls_first is None else nulls_first
 
 
 class GroupedData:
@@ -63,6 +75,42 @@ class DataFrame:
         return DataFrame(self.session, N.CpuHashJoinExec(
             self.plan, other.plan, [_as_expr(k) for k in keys],
             [_as_expr(k) for k in keys], how, condition=condition))
+
+    def sort(self, *orders, ascending: bool = True,
+             nulls_first: Optional[bool] = None) -> "DataFrame":
+        """Order by columns or expressions, or (expr, ascending,
+        nulls_first) tuples."""
+        specs = [_order_spec(o, ascending, nulls_first) for o in orders]
+        return DataFrame(self.session, N.CpuSortExec(specs, self.plan))
+
+    order_by = sort
+
+    def limit(self, n: int, offset: int = 0) -> "DataFrame":
+        return DataFrame(self.session, N.CpuLimitExec(n, self.plan, offset))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self.session, N.CpuUnionExec([self.plan, other.plan]))
+
+    def window(self, partition_by=(), order_by=(),
+               **named_fns) -> "DataFrame":
+        """Append window-function columns. `partition_by`: columns/exprs;
+        `order_by`: columns or (expr, ascending, nulls_first) tuples; named
+        values are WindowFunction instances or AggregateFunctions (wrapped in
+        the Spark-default frame). Output rows come back sorted by
+        (partition, order)."""
+        from .expr.windowexprs import WindowAggregate, WindowFunction
+        part = [_as_expr(p) for p in partition_by]
+        orders = [_order_spec(o) for o in order_by]
+        fns = []
+        for name, f in named_fns.items():
+            if isinstance(f, AggregateFunction):
+                f = WindowAggregate(f)
+            if not isinstance(f, WindowFunction):
+                raise TypeError(f"{name}: expected a window/aggregate "
+                                f"function, got {type(f).__name__}")
+            fns.append((f, name))
+        return DataFrame(self.session,
+                         N.CpuWindowExec(fns, part, orders, self.plan))
 
     def collect(self):
         """Execute and return a pyarrow Table."""

@@ -29,7 +29,7 @@ from .. import types as T
 from ..expr.base import Vec, require_flat_strings
 
 __all__ = ["gather_vecs", "compact_vecs", "string_sort_words",
-           "sort_keys_for", "lexsort_indices",
+           "sort_keys_for", "lexsort_indices", "sort_batch_vecs",
            "key_change_flags", "group_ids_from_sorted", "segment_sum",
            "segment_reduce"]
 
@@ -57,26 +57,43 @@ def string_sort_words(chars: torch.Tensor) -> List[torch.Tensor]:
     return list(words.unbind(1))
 
 
-def sort_keys_for(v: Vec) -> List:
-    """Sort key tensors for an ascending, nulls-first order over a column
-    (the grouping order), MOST significant first: [null position,
-    (NaN position), value]. A string's value keys are its packed words,
-    then its length (the tie-break of string_compare). Descending and
-    nulls-last orders come with the sort exec."""
-    keys: List = [v.validity.to(torch.int8)]  # null (0) before valid (1)
+def sort_keys_for(v: Vec, ascending: bool = True,
+                  nulls_first: bool = True) -> List:
+    """Sort key tensors for one sort order over a column, MOST significant
+    first: [null position, (NaN position), value keys...]. Ascending and
+    nulls first is the grouping order.
+
+      * The null key is the validity (null 0 before valid 1) for nulls
+        first, its complement for nulls last.
+      * A string's value keys are its packed words, then its length (the
+        trailing-NUL tie-break of string_compare); descending takes the
+        complement of each word and of the length, which reverses their
+        signed order (the JAX package's 255 - byte and ~length).
+      * Integers, dates, timestamps and decimals of <= 18 digits (the
+        int64 unscaled value) sort by their value, descending by its
+        complement (no overflow at the type's minimum).
+      * A float sorts NaN greatest (first when descending) and descending
+        by its negation. Zeros are made 0.0 after any negation: the
+        card's radix sort orders the bit patterns of -0.0 and 0.0 apart,
+        and Spark holds them equal (the stable sort keeps their order).
+    """
+    null_key = v.validity if nulls_first else ~v.validity
+    keys: List = [null_key.to(torch.int8)]
     if v.is_string:
         require_flat_strings(v, "sort key over string")
-        keys.extend(string_sort_words(v.data))
-        keys.append(v.lengths)
+        words = string_sort_words(v.data) + [v.lengths]
+        keys.extend(words if ascending else [~w for w in words])
     elif T.is_floating(v.dtype):
         nan = torch.isnan(v.data)
         zero = torch.zeros((), dtype=v.data.dtype, device=v.data.device)
-        keys.append(nan.to(torch.int8))  # NaN sorts greatest
-        # -0.0 as 0.0: a radix sort would order their bits apart
-        keys.append(torch.where(nan | (v.data == 0), zero, v.data))
+        # NaN sorts greatest: last ascending, first descending
+        keys.append((nan if ascending else ~nan).to(torch.int8))
+        val = v.data if ascending else -v.data
+        keys.append(torch.where(nan | (val == 0), zero, val))
     else:
-        keys.append(v.data.to(torch.int8) if v.data.dtype == torch.bool
-                    else v.data)
+        data = v.data.to(torch.int8) if v.data.dtype == torch.bool \
+            else v.data
+        keys.append(data if ascending else ~data)
     return keys
 
 
@@ -89,6 +106,16 @@ def lexsort_indices(key_groups: Sequence[List]) -> torch.Tensor:
         idx = torch.sort(kk, stable=True).indices
         order = idx if order is None else order[idx]
     return order
+
+
+def sort_batch_vecs(vecs: Sequence[Vec], sort_cols: Sequence[int],
+                    ascending: Sequence[bool], nulls_first: Sequence[bool],
+                    row_mask: torch.Tensor) -> List[Vec]:
+    """Sort all columns by the given sort orders; padding rows sort last."""
+    groups = [[(~row_mask).to(torch.int8)]]  # padding after everything
+    for ci, asc, nf in zip(sort_cols, ascending, nulls_first):
+        groups.append(sort_keys_for(vecs[ci], asc, nf))
+    return gather_vecs(vecs, lexsort_indices(groups))
 
 
 def key_change_flags(key_vecs: Sequence[Vec], n: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Logical-physical plan nodes the DataFrame frontend builds
 (`spark_rapids_tpu/plan/nodes.py`: scan, project, filter, hash aggregate,
-hash join, and the hash partition spec of the distributed plan's
-exchanges).
+hash join, sort, limit, union, window, and the hash partition spec of the
+distributed plan's exchanges).
 
 In the JAX package these nodes also carry a numpy interpreter, the CPU
 oracle its tests compare against. This engine only rewrites them into
@@ -12,14 +12,16 @@ the tests run both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence
+from typing import Any, List, Sequence, Tuple
 
+from .. import types as T
 from ..columnar.batch import Schema, join_output_schema
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Expression, bind_references, output_name
 
 __all__ = ["PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
            "AggExpr", "CpuHashAggregateExec", "CpuHashJoinExec",
+           "CpuSortExec", "CpuLimitExec", "CpuUnionExec", "CpuWindowExec",
            "HashPartitionSpec"]
 
 
@@ -152,6 +154,80 @@ class CpuHashJoinExec(PhysicalPlan):
         cond = "" if self.condition is None else f", cond={self.condition!r}"
         return f"[{self.join_type}, keys={[repr(e) for e in self.left_keys]}" \
                f"{cond}]"
+
+
+class CpuSortExec(PhysicalPlan):
+    def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
+                 child: PhysicalPlan):
+        """orders: (expr, ascending, nulls_first)."""
+        super().__init__([child])
+        self.orders = list(orders)
+        self._bound = [(bind_references(e, child.output), a, nf)
+                       for e, a, nf in self.orders]
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def _arg_string(self):
+        return f"[{[(repr(e), a, nf) for e, a, nf in self.orders]}]"
+
+
+class CpuLimitExec(PhysicalPlan):
+    def __init__(self, limit: int, child: PhysicalPlan, offset: int = 0):
+        super().__init__([child])
+        self.limit = limit
+        self.offset = offset
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def _arg_string(self):
+        return f"[{self.limit}]"
+
+
+class CpuUnionExec(PhysicalPlan):
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+
+class CpuWindowExec(PhysicalPlan):
+    """Window functions over (partition, order): the child's columns, then
+    one column per function. Output rows come back sorted by (partition,
+    order)."""
+
+    def __init__(self, window_exprs: Sequence[Tuple[Any, str]],
+                 partition_spec: Sequence[Expression],
+                 order_spec: Sequence[Tuple[Expression, bool, bool]],
+                 child: PhysicalPlan):
+        from ..expr.windowexprs import WindowAggregate, bind_window_fn
+        super().__init__([child])
+        self.window_exprs = list(window_exprs)
+        self.partition_spec = list(partition_spec)
+        self.order_spec = list(order_spec)
+        co = child.output
+        self._bound_part = [bind_references(e, co)
+                            for e in self.partition_spec]
+        self._bound_order = [(bind_references(e, co), a, nf)
+                             for e, a, nf in self.order_spec]
+        self._bound_fns = [(bind_window_fn(f, co), name)
+                           for f, name in self.window_exprs]
+        for f, name in self._bound_fns:
+            if isinstance(f, WindowAggregate) and f.func.child is not None \
+                    and type(f.func).__name__ in ("Sum", "Average") \
+                    and isinstance(f.func.child.data_type, T.StringType):
+                raise TypeError(
+                    f"window column {name}: {type(f.func).__name__} over "
+                    "STRING is invalid")
+        names = co.names + tuple(n for _, n in self.window_exprs)
+        tps = co.types + tuple(f.data_type for f, _ in self._bound_fns)
+        self._schema = Schema(names, tps)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """Plan rewrite: plan nodes -> device execs (`spark_rapids_tpu/plan/overrides.py`
 rules `_c_scan` ... `_c_join`, with the broadcast choice by estimated
-build size). After conversion the distribution pass
-(exec/requirements.py) and then fusion (plan/fusion.py) rewrite the device
-plan, in the JAX package's order.
+build size, and `_c_sort`, `_c_limit` with its top-k rewrite, `_c_union`
+and `_c_window` with the checks of `_tag_window` and `_tag_window_agg`).
+After conversion the distribution pass (exec/requirements.py) and then
+fusion (plan/fusion.py) rewrite the device plan, in the JAX package's
+order; neither touches a sort, top-k, limit, union or window.
 
 This slice has no CPU engine to fall back to, so the JAX engine's per-node
 "will not work" tags become errors: every type, expression, aggregate, join
@@ -182,6 +184,10 @@ def _estimated_rows(plan: N.PhysicalPlan) -> float:
             sel = _selectivity(plan.condition, child.column_stats())
             return kids[0] * max(min(sel, 1.0), 0.0)
         return kids[0] * 0.5
+    if isinstance(plan, N.CpuLimitExec):
+        return float(min(plan.limit, kids[0]))
+    if isinstance(plan, N.CpuUnionExec):
+        return float(sum(kids))
     if isinstance(plan, N.CpuHashAggregateExec):
         return max(kids[0] / 8.0, 1.0) if plan.group_exprs else 1.0
     if isinstance(plan, N.CpuHashJoinExec):
@@ -253,6 +259,24 @@ class Overrides:
             out = self._convert_agg(plan, children)
         elif isinstance(plan, N.CpuHashJoinExec):
             out = self._convert_join(plan, children)
+        elif isinstance(plan, N.CpuSortExec):
+            _check_orders(plan._bound)
+            from ..exec.sort import TpuSortExec
+            out = TpuSortExec(plan.orders, children[0], conf)
+        elif isinstance(plan, N.CpuLimitExec):
+            out = _convert_limit(plan, children, conf)
+        elif isinstance(plan, N.CpuUnionExec):
+            types = {tuple(c.output.types) for c in plan.children}
+            if len(types) > 1:
+                _unsupported("a union of children with different column "
+                             "types")
+            from ..exec.basic import TpuUnionExec
+            out = TpuUnionExec(children, conf)
+        elif isinstance(plan, N.CpuWindowExec):
+            _check_window(plan)
+            from ..exec.window import TpuWindowExec
+            out = TpuWindowExec(plan.window_exprs, plan.partition_spec,
+                                plan.order_spec, children[0], conf)
         else:
             _unsupported(f"plan node {plan.name}")
         if self.conf.explain == "ALL":
@@ -340,6 +364,95 @@ class Overrides:
         return TpuShuffledHashJoinExec(children[0], children[1],
                                        plan.left_keys, plan.right_keys,
                                        plan.join_type, self.conf)
+
+
+def _check_orders(bound_orders) -> None:
+    """Sort keys: expressions of the slice, each of a carried type."""
+    for e, _, _ in bound_orders:
+        _check_expr(e)
+        check_supported(e.data_type, "sort key")
+
+
+def _convert_limit(plan: N.CpuLimitExec, children, conf):
+    """LIMIT over ORDER BY becomes a top-k (TakeOrderedAndProjectExec
+    analog, GpuOverrides.scala:3705): a per-batch k-select and a running
+    merge replace the full sort, when spark.rapids.sql.topK.enabled and
+    limit + offset <= spark.rapids.sql.topK.threshold."""
+    from ..exec.basic import TpuLimitExec
+    from ..exec.sort import TpuSortExec, TpuTopKExec
+    child = children[0]
+    if conf.get("spark.rapids.sql.topK.enabled") and \
+            isinstance(child, TpuSortExec) and not child.each_batch and \
+            plan.limit + plan.offset <= \
+            conf.get("spark.rapids.sql.topK.threshold"):
+        return TpuTopKExec(child.orders, plan.limit, child.child, conf,
+                           plan.offset)
+    return TpuLimitExec(plan.limit, child, plan.offset, conf)
+
+
+_WINDOW_AGGREGATES = ("Sum", "Count", "Min", "Max", "Average")
+
+
+def _check_window(plan: N.CpuWindowExec) -> None:
+    """`_tag_window` and `_tag_window_agg` of the JAX package, as errors:
+    every function needing an ORDER BY has one; value-offset RANGE frames
+    have one order column of a numeric, date or timestamp type; window
+    aggregates are Sum, Count, Min, Max or Average, with no bounded frame
+    over a string MIN/MAX. So First/Last frames raise (the aggregates are
+    not ported yet); beyond the JAX checks, so do an Average over a
+    decimal and a value-offset RANGE frame over a decimal order key."""
+    from ..expr import windowexprs as WX
+    for e in plan._bound_part:
+        _check_expr(e)
+        check_supported(e.data_type, "window partition key")
+    _check_orders(plan._bound_order)
+    has_order = bool(plan.order_spec)
+    for f, name in plan._bound_fns:
+        what = f"window column {name}"
+        if f.requires_order and not has_order:
+            _unsupported(f"{what}: {type(f).__name__} without an ORDER BY "
+                         "(window function requires an ORDER BY)")
+        frame = getattr(f, "frame", None)
+        if isinstance(f, (WX.WindowAggregate, WX.NthValue)) and \
+                WX.is_value_range_frame(frame):
+            if len(plan.order_spec) != 1:
+                _unsupported(f"{what}: a value-offset RANGE frame without "
+                             "exactly one order column")
+            key_t = plan._bound_order[0][0].data_type
+            if not (T.is_numeric(key_t) or
+                    isinstance(key_t, (T.DateType, T.TimestampType))) or \
+                    isinstance(key_t, T.DecimalType):
+                _unsupported(f"{what}: a value-offset RANGE frame over a "
+                             f"{key_t.simple_string()} order column")
+        for c in f.children:
+            _check_expr(c)
+        if isinstance(f, WX.WindowAggregate):
+            _check_window_agg(f, what)
+        elif isinstance(f, (WX.Lead, WX.Lag)) and \
+                isinstance(f.default, str):
+            check_string_length(len(f.default.encode("utf-8")))
+        check_supported(f.data_type, f"{what} result")
+
+
+def _check_window_agg(f, what: str) -> None:
+    from ..expr import windowexprs as WX
+    name = type(f.func).__name__
+    if name not in _WINDOW_AGGREGATES:  # First and Last among them
+        _unsupported(f"{what}: {name} over a window")
+    child = f.func.child
+    if child is None:
+        return
+    ct = child.data_type
+    if name in ("Sum", "Average") and not isinstance(ct, _ARITH_TYPES):
+        _unsupported(f"{what}: {name.lower()} over {ct.simple_string()}")
+    if name == "Average" and isinstance(ct, T.DecimalType):
+        _unsupported(f"{what}: a window average over {ct.simple_string()}")
+    frame = f.frame
+    bounded = WX.is_value_range_frame(frame) or (
+        isinstance(frame, WX.RowFrame) and not (
+            frame.lower is None and frame.upper in (0, None)))
+    if name in ("Min", "Max") and bounded and isinstance(ct, T.StringType):
+        _unsupported(f"{what}: a bounded-frame window {name} over STRING")
 
 
 # join types in which a probe row without a build match never reaches the
