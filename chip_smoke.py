@@ -22,7 +22,11 @@ parquet on one device and distributed, exact against an int64 oracle, and
 over the same files the reports in TPC-DS's ORDER BY ... LIMIT 100 (top-k;
 Q36 ranked by a window), q51's running window over the 16.76 M
 per-(item, date) quantities, and their out-of-core sort under the
-distributed plan; it checks each against numpy oracles, holds kernels A
+distributed plan, and last the joins of TPC-DS q97 (a full outer join whose
+8.39 M-row build side takes the sub-partition join), q10 (existence joins),
+q58 (string keys with conditions) and q28 (cross joins) over store,
+catalog and web sales and their SF10 dimensions from parquet, both plans;
+it checks each against numpy oracles, holds kernels A
 and C to their exact launch counts there, and holds them against their
 twins on the inputs those paths hand them (a merged batch of 4 row
 groups). Each phase prints
@@ -43,7 +47,9 @@ WALL_ROUNDS times with CUDA events; each is reported as its median, min
 and max, and each star report's device idle share comes from one traced
 collect; the ordered reports, the running window and the out-of-core
 sort are timed ORDERED_ROUNDS times each, with the sort's host merge
-seconds beside its wall. Bounds are bytes moved (each input read once,
+seconds beside its wall, and the join queries JOINS_ROUNDS times each,
+with q97's device idle share from one traced collect. Bounds are bytes
+moved (each input read once,
 each output written once) over the H100's published memory rate. Launch
 counts are read per path: every count is set to 0 just before a run of
 the path and read just after.
@@ -1731,6 +1737,570 @@ def ordered_phases(torch, pa, mesh_conf: dict, counters,
     return launches, a_args, c_args
 
 
+# ---- tpcds_joins: TPC-DS q97, q10, q58 and q28 shapes: a full outer join
+# of two aggregates (the sub-partition join on one device), existence
+# joins under OR, string-keyed joins with conditions, and cross joins of
+# one-row aggregates
+JOIN_SIZES = {"store_sales": 16_777_216, "catalog_sales": 8_388_608,
+              "web_sales": 4_194_304, "date_dim": 73_049, "item": 102_000,
+              "customer": 500_000, "customer_address": 250_000,
+              "customer_demographics": 1_920_800}
+# customer_demographics is dsdgen's cross product of its eight attributes,
+# the first varying fastest: 2 x 5 x 7 x 20 x 4 x 7 x 7 x 7 = 1,920,800
+CD_ATTRS = (("cd_gender", ("M", "F")),
+            ("cd_marital_status", ("M", "S", "D", "W", "U")),
+            ("cd_education_status", ("Primary", "Secondary", "College",
+                                     "2 yr Degree", "4 yr Degree",
+                                     "Advanced Degree", "Unknown")),
+            ("cd_purchase_estimate", tuple(range(500, 10_001, 500))),
+            ("cd_credit_rating", ("Good", "High Risk", "Low Risk",
+                                  "Unknown")),
+            ("cd_dep_count", tuple(range(7))),
+            ("cd_dep_employed_count", tuple(range(7))),
+            ("cd_dep_college_count", tuple(range(7))))
+FIRST_DATE_SK = 2_415_022  # date_dim's d_date_sk of 1900-01-02
+SOLD_DATE_SK = (2_450_816, 2_452_642)  # the sales' five years
+Q10_COUNTIES = ("Rush County", "Toole County", "Jefferson County",
+                "Dona Ana County", "La Porte County")
+N_COUNTIES = 1_800
+# q28's six buckets: quantity from, to; the lower bounds of list price,
+# coupon amount and wholesale cost (ranges of 10, 1000 and 20)
+Q28_BUCKETS = ((0, 5, 8, 459, 57), (6, 10, 90, 2323, 31),
+               (11, 15, 142, 12214, 79), (16, 20, 135, 6071, 38),
+               (21, 25, 122, 836, 17), (26, 30, 154, 7326, 7))
+# q58's band: each channel's revenue within +-10 % of the others'
+Q58_BAND = 0.1
+# q97's month window: d_month_seq over the sales' whole five years
+Q97_MONTHS = (1176, 1236)
+JOINS_LIMIT = 100
+JOINS_ROUNDS = 3
+# sold dates are uniform over every row group, so dynamic pruning would
+# skip nothing, and a join carrying its filter is not fused (in either
+# engine): the phase turns it off so the date joins fuse and launch A
+JOINS_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
+
+
+def _item_ids(n: int):
+    """TPC-DS i_item_id: 16 characters, "AAAAAAAA" and then the id's
+    number in base 16 with the letters A to P; each id on two item rows,
+    as TPC-DS keeps two versions of an item."""
+    k = np.arange(n) // 2 + 1
+    chars = np.full((n, 16), ord("A"), np.uint8)
+    chars[:, 8:] += ((k[:, None] >> (4 * np.arange(7, -1, -1))) & 15) \
+        .astype(np.uint8)
+    return chars.view("S16").ravel().astype(str)
+
+
+def _cd_codes(n: int):
+    """The attribute codes of customer_demographics rows 1..n, the first
+    attribute varying fastest (dsdgen's order)."""
+    return np.unravel_index(np.arange(n), [len(v) for _, v in CD_ATTRS],
+                            order="F")
+
+
+def _first_day(sizes) -> int:
+    """date_dim's first day after 1900-01-02: none at full size, the
+    sales' first day when the table is cut (it then starts there)."""
+    return 0 if sizes["date_dim"] >= JOIN_SIZES["date_dim"] else \
+        SOLD_DATE_SK[0] - FIRST_DATE_SK
+
+
+def join_tables(pa, sizes=JOIN_SIZES, seed: int = 31) -> dict:
+    """The tables of the tpcds_joins phase at `sizes`, from one seed: the
+    date_dim of TPC-DS (d_date_sk from 2,415,022 for 1900-01-02, with
+    d_year, d_moy, d_qoy and d_month_seq; cut below its 73,049 days, it
+    starts at the sales' first day), items whose i_item_id each
+    stands on two rows, customers with an address and a demographics row
+    drawn uniformly, addresses whose ca_county is drawn from 1,800 names
+    (q10's five among them), customer_demographics as dsdgen's cross
+    product (cut to its first rows below full size), and the three sales
+    tables, sold dates uniform over 1998-01-02 .. 2003-01-02 and
+    customers and items uniform, their money columns decimal(7,2)."""
+    if sizes["customer_demographics"] > int(np.prod(
+            [len(v) for _, v in CD_ATTRS])):
+        raise ValueError("customer_demographics has 1,920,800 rows at most")
+    rng = np.random.default_rng(seed)
+    n_item, n_cust = sizes["item"], sizes["customer"]
+    n_addr, n_cd = sizes["customer_address"], sizes["customer_demographics"]
+    day = np.arange(sizes["date_dim"]) + _first_day(sizes)
+    when = np.datetime64("1900-01-02") + day
+    year = when.astype("datetime64[Y]").astype(np.int64) + 1970
+    moy = when.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    t = {"date_dim": pa.table({
+        "d_date_sk": FIRST_DATE_SK + day,
+        "d_year": year.astype(np.int32), "d_moy": moy.astype(np.int32),
+        "d_qoy": ((moy - 1) // 3 + 1).astype(np.int32),
+        "d_month_seq": ((year - 1900) * 12 + moy - 1).astype(np.int32)})}
+    t["item"] = pa.table({"i_item_sk": np.arange(1, n_item + 1),
+                          "i_item_id": pa.array(_item_ids(n_item))})
+    cd = {"cd_demo_sk": np.arange(1, n_cd + 1)}
+    for (name, vals), codes in zip(CD_ATTRS, _cd_codes(n_cd)):
+        col = np.array(vals)[codes]
+        cd[name] = pa.array(col.astype(np.int32) if col.dtype.kind == "i"
+                            else col)
+    t["customer_demographics"] = pa.table(cd)
+    counties = np.array(list(Q10_COUNTIES) + [
+        f"County {i}" for i in range(N_COUNTIES - len(Q10_COUNTIES))])
+    t["customer_address"] = pa.table({
+        "ca_address_sk": np.arange(1, n_addr + 1),
+        "ca_county": pa.array(counties[rng.integers(0, N_COUNTIES,
+                                                    n_addr)])})
+    t["customer"] = pa.table({
+        "c_customer_sk": np.arange(1, n_cust + 1),
+        "c_current_addr_sk": rng.integers(1, n_addr + 1, n_cust),
+        "c_current_cdemo_sk": rng.integers(1, n_cd + 1, n_cust)})
+
+    def sales(p: str, n: int, customers, money) -> None:
+        cols = {f"{p}_sold_date_sk": rng.integers(SOLD_DATE_SK[0],
+                                                  SOLD_DATE_SK[1] + 1, n),
+                f"{p}_item_sk": rng.integers(1, n_item + 1, n)}
+        for c in customers:
+            cols[f"{p}_{c}"] = rng.integers(1, n_cust + 1, n)
+        # quantities to 100 in store, 200 in catalog, 400 on the web: each
+        # channel's revenue an item is then of one size, as q58's +-10 %
+        # conditions expect (uniform items would leave no item otherwise)
+        qty = rng.integers(1, 100 * sizes["store_sales"] // n + 1, n)
+        wholesale = rng.integers(100, 10_001, n)  # 1.00 .. 100.00
+        lst = (wholesale * rng.uniform(1.0, 2.0, n)).astype(np.int64)
+        ext = (lst * rng.uniform(0.2, 1.0, n)).astype(np.int64) * qty
+        vals = {"quantity": qty.astype(np.int32),
+                "wholesale_cost": wholesale, "list_price": lst,
+                "coupon_amt": np.where(rng.random(n) < 0.2, (
+                    ext * rng.uniform(0, 0.5, n)).astype(np.int64), 0),
+                "ext_sales_price": ext}
+        for name in money:
+            v = vals[name]
+            cols[f"{p}_{name}"] = v if v.dtype == np.int32 else \
+                decimal_array(pa, v, *MONEY)
+        t[f"{p}_table"] = pa.table(cols)
+
+    sales("ss", sizes["store_sales"], ("customer_sk",),
+          ("quantity", "wholesale_cost", "list_price", "coupon_amt",
+           "ext_sales_price"))
+    sales("cs", sizes["catalog_sales"],
+          ("bill_customer_sk", "ship_customer_sk"), ("ext_sales_price",))
+    sales("ws", sizes["web_sales"], ("bill_customer_sk",),
+          ("ext_sales_price",))
+    for p, name in (("ss", "store_sales"), ("cs", "catalog_sales"),
+                    ("ws", "web_sales")):
+        t[name] = t.pop(f"{p}_table")
+    return t
+
+
+def join_namespace() -> SimpleNamespace:
+    """The port's constructors that join_queries uses, and its DOUBLE and
+    decimal(7,2) types."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    m = SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "Sum", "Count", "Average", "CaseWhen", "IsNull",
+        "IsNotNull", "In")})
+    m.double, m.money = T.DOUBLE, T.DecimalType(*MONEY)
+    return m
+
+
+def join_queries(sess, m, paths: dict) -> dict:
+    """q97, q10, q58 and q28 as DataFrames of `sess` over the parquet files
+    of join_tables, written once for either engine through the namespace
+    `m` (join_namespace for the port), and q58's joins before their
+    conditions (`q58_pairs`, the pairs counted). Departures from TPC-DS:
+    q97's months span the sales' five years; q10 reads
+    cs_ship_customer_sk and keeps its six counts; q58 takes the quarter
+    (d_year 2000, d_qoy 1) for its week and compares the revenues cast to
+    DOUBLE; q28 leaves out count(distinct)."""
+    from decimal import Decimal
+    from functools import reduce
+    c, lit = m.col, m.lit
+
+    def read(name, cols):
+        return sess.read_parquet(paths[name], columns=cols)
+
+    def dates(cond, key, cols):
+        return read("date_dim", ["d_date_sk"] + cols).filter(cond) \
+            .select(**{key: c("d_date_sk")})
+
+    def flag(cond):
+        return m.Sum(m.CaseWhen([(cond, lit(1))], lit(0)))
+
+    months = (c("d_month_seq") >= lit(Q97_MONTHS[0])) & \
+        (c("d_month_seq") <= lit(Q97_MONTHS[1]))
+
+    def pairs(table, p, cust, tag):
+        date = f"{p}_sold_date_sk"
+        return read(table, [date, cust, f"{p}_item_sk"]) \
+            .join(dates(months, date, ["d_month_seq"]), on=date) \
+            .select(customer_sk=c(cust), item_sk=c(f"{p}_item_sk")) \
+            .group_by("customer_sk", "item_sk").agg() \
+            .select("customer_sk", "item_sk", **{tag: c("customer_sk")})
+
+    s_cust, c_cust = c("s_cust"), c("c_cust")
+    q97 = pairs("store_sales", "ss", "ss_customer_sk", "s_cust").join(
+        pairs("catalog_sales", "cs", "cs_bill_customer_sk", "c_cust"),
+        on=["customer_sk", "item_sk"], how="full").agg(
+        store_only=flag(m.IsNotNull(s_cust) & m.IsNull(c_cust)),
+        catalog_only=flag(m.IsNull(s_cust) & m.IsNotNull(c_cust)),
+        store_and_catalog=flag(m.IsNotNull(s_cust) & m.IsNotNull(c_cust)))
+
+    early_2002 = (c("d_year") == lit(2002)) & (c("d_moy") >= lit(1)) & \
+        (c("d_moy") <= lit(4))
+
+    def buyers(table, p, cust):
+        date = f"{p}_sold_date_sk"
+        return read(table, [date, cust]) \
+            .join(dates(early_2002, date, ["d_year", "d_moy"]), on=date) \
+            .select(c_customer_sk=c(cust))
+
+    demo = [name for name, _ in CD_ATTRS]
+    addresses = read("customer_address", ["ca_address_sk", "ca_county"]) \
+        .filter(m.In(c("ca_county"), list(Q10_COUNTIES))) \
+        .select(c_current_addr_sk=c("ca_address_sk"))
+    demographics = read("customer_demographics", ["cd_demo_sk"] + demo) \
+        .select(*demo, c_current_cdemo_sk=c("cd_demo_sk"))
+    q10 = read("customer", ["c_customer_sk", "c_current_addr_sk",
+                            "c_current_cdemo_sk"]) \
+        .join(addresses, on="c_current_addr_sk") \
+        .join(demographics, on="c_current_cdemo_sk") \
+        .join(buyers("store_sales", "ss", "ss_customer_sk"),
+              on="c_customer_sk", how="semi") \
+        .join(buyers("web_sales", "ws", "ws_bill_customer_sk"),
+              on="c_customer_sk", how="existence") \
+        .select("c_customer_sk", *demo, exists_ws=c("exists")) \
+        .join(buyers("catalog_sales", "cs", "cs_ship_customer_sk"),
+              on="c_customer_sk", how="existence") \
+        .filter(c("exists_ws") | c("exists")) \
+        .group_by(*demo).agg(**{f"cnt{i}": m.Count(lit(1))
+                                for i in range(1, 7)}) \
+        .sort(*demo).limit(JOINS_LIMIT)
+
+    q1_2000 = (c("d_year") == lit(2000)) & (c("d_qoy") == lit(1))
+
+    def revenue(table, p, name):
+        date, item = f"{p}_sold_date_sk", f"{p}_item_sk"
+        items = read("item", ["i_item_sk", "i_item_id"]) \
+            .select("i_item_id", **{item: c("i_item_sk")})
+        return read(table, [date, item, f"{p}_ext_sales_price"]) \
+            .join(dates(q1_2000, date, ["d_year", "d_qoy"]), on=date) \
+            .join(items, on=item).group_by("i_item_id") \
+            .agg(**{name: m.Sum(c(f"{p}_ext_sales_price"))})
+
+    def d(name):
+        return c(name).cast(m.double)
+
+    def near(a, b):
+        return (d(a) >= lit(1 - Q58_BAND) * d(b)) & \
+            (d(a) <= lit(1 + Q58_BAND) * d(b))
+
+    ss, cs, ws = (revenue("store_sales", "ss", "ss_item_rev"),
+                  revenue("catalog_sales", "cs", "cs_item_rev"),
+                  revenue("web_sales", "ws", "ws_item_rev"))
+    q58_pairs = ss.join(cs, on="i_item_id").join(ws, on="i_item_id") \
+        .agg(pairs=m.Count(lit(1)))
+    total = d("ss_item_rev") + d("cs_item_rev") + d("ws_item_rev")
+    q58 = ss.join(cs, on="i_item_id",
+                  condition=near("ss_item_rev", "cs_item_rev")
+                  & near("cs_item_rev", "ss_item_rev")) \
+        .join(ws, on="i_item_id",
+              condition=near("ss_item_rev", "ws_item_rev")
+              & near("cs_item_rev", "ws_item_rev")
+              & near("ws_item_rev", "ss_item_rev")
+              & near("ws_item_rev", "cs_item_rev")) \
+        .select("i_item_id", "ss_item_rev", "cs_item_rev", "ws_item_rev",
+                ss_dev=d("ss_item_rev") / (total / lit(3.0)) * lit(100.0),
+                cs_dev=d("cs_item_rev") / (total / lit(3.0)) * lit(100.0),
+                ws_dev=d("ws_item_rev") / (total / lit(3.0)) * lit(100.0),
+                average=total / lit(3.0)) \
+        .sort("i_item_id", "ss_item_rev").limit(JOINS_LIMIT)
+
+    def between(name, lo, width):
+        return (c(name) >= lit(Decimal(lo), m.money)) & \
+            (c(name) <= lit(Decimal(lo + width), m.money))
+
+    buckets = [read("store_sales", ["ss_quantity", "ss_list_price",
+                                    "ss_coupon_amt", "ss_wholesale_cost"])
+               .filter((c("ss_quantity") >= lit(q_lo))
+                       & (c("ss_quantity") <= lit(q_hi))
+                       & (between("ss_list_price", lp, 10)
+                          | between("ss_coupon_amt", cp, 1000)
+                          | between("ss_wholesale_cost", wc, 20)))
+               .agg(**{f"B{i}_LP": m.Average(c("ss_list_price")),
+                       f"B{i}_CNT": m.Count(c("ss_list_price"))})
+               for i, (q_lo, q_hi, lp, cp, wc) in enumerate(Q28_BUCKETS, 1)]
+    q28 = reduce(lambda a, b: a.cross_join(b), buckets)
+    return {"q97": q97, "q10": q10, "q58": q58, "q58_pairs": q58_pairs,
+            "q28": q28}
+
+
+def _money(t, name: str) -> np.ndarray:
+    return unscaled(t.column(name))[0]
+
+
+def join_oracle(pa, t: dict) -> dict:
+    """numpy answers to join_queries over join_tables' tables: counts and
+    decimals (as unscaled ints) exact, q28's averages by decimal_mean's
+    HALF_UP, q58's doubles computed in the query's order."""
+    dd = t["date_dim"]
+    year, moy, qoy, mseq = (dd.column(n).to_numpy() for n in (
+        "d_year", "d_moy", "d_qoy", "d_month_seq"))
+    ss, cs, ws = t["store_sales"], t["catalog_sales"], t["web_sales"]
+
+    def col(tab, name):
+        return tab.column(name).to_numpy()
+
+    first = col(dd, "d_date_sk")[0]
+
+    def when(tab, p, ok):
+        return ok[col(tab, f"{p}_sold_date_sk") - first]
+
+    n_cust, n_item = t["customer"].num_rows, t["item"].num_rows
+    out = {}
+
+    window = (mseq >= Q97_MONTHS[0]) & (mseq <= Q97_MONTHS[1])
+    pair = {}
+    for tab, p, cust in ((ss, "ss", "ss_customer_sk"),
+                         (cs, "cs", "cs_bill_customer_sk")):
+        k = when(tab, p, window)
+        pair[p] = np.unique(col(tab, cust)[k] * (n_item + 1)
+                            + col(tab, f"{p}_item_sk")[k])
+    both = len(np.intersect1d(pair["ss"], pair["cs"], assume_unique=True))
+    out["q97"] = {"store_only": [len(pair["ss"]) - both],
+                  "catalog_only": [len(pair["cs"]) - both],
+                  "store_and_catalog": [both]}
+
+    early_2002 = (year == 2002) & (moy >= 1) & (moy <= 4)
+    bought = {}
+    for tab, p, cust in ((ss, "ss", "ss_customer_sk"),
+                         (ws, "ws", "ws_bill_customer_sk"),
+                         (cs, "cs", "cs_ship_customer_sk")):
+        b = np.zeros(n_cust + 1, bool)
+        b[col(tab, cust)[when(tab, p, early_2002)]] = True
+        bought[p] = b[1:]
+    county = np.isin(np.array(t["customer_address"].column("ca_county")
+                              .to_pylist()), Q10_COUNTIES)
+    cust = t["customer"]
+    keep = county[col(cust, "c_current_addr_sk") - 1] & bought["ss"] & \
+        (bought["ws"] | bought["cs"])
+    codes = _cd_codes(t["customer_demographics"].num_rows)
+    demo_row = col(cust, "c_current_cdemo_sk")[keep] - 1
+    keys = {}
+    for (name, vals), cd in zip(CD_ATTRS, codes):
+        vocab = sorted(vals)
+        rank = np.array([vocab.index(v) for v in vals])
+        keys[name] = (rank[cd[demo_row]], vocab)
+    ones = np.ones(len(demo_row), bool)
+    q10 = _grouped_exact(keys, {f"cnt{i}": ("count", ones, ones)
+                                for i in range(1, 7)})
+    out["q10"] = {k: v[:JOINS_LIMIT] for k, v in q10.items()}
+
+    q1_2000 = (year == 2000) & (qoy == 1)
+    n_ids = (n_item + 1) // 2
+    rev, seen = {}, {}
+    for tab, p in ((ss, "ss"), (cs, "cs"), (ws, "ws")):
+        k = when(tab, p, q1_2000)
+        ids = (col(tab, f"{p}_item_sk")[k] - 1) // 2
+        r = np.zeros(n_ids, np.int64)
+        np.add.at(r, ids, _money(tab, f"{p}_ext_sales_price")[k])
+        rev[p], seen[p] = r, np.bincount(ids, minlength=n_ids) > 0
+    present = seen["ss"] & seen["cs"] & seen["ws"]
+    out["q58_pairs"] = {"pairs": [int(present.sum())]}
+    dbl = {p: rev[p].astype(np.float64) / 100.0 for p in rev}
+
+    def near(a, b):
+        return (dbl[a] >= (1 - Q58_BAND) * dbl[b]) & \
+            (dbl[a] <= (1 + Q58_BAND) * dbl[b])
+
+    ok = present & near("ss", "cs") & near("cs", "ss") & \
+        near("ss", "ws") & near("cs", "ws") & near("ws", "ss") & \
+        near("ws", "cs")
+    ids = np.flatnonzero(ok)[:JOINS_LIMIT]  # ids sort as their numbers
+    total = dbl["ss"][ids] + dbl["cs"][ids] + dbl["ws"][ids]
+    out["q58"] = {"i_item_id": list(_item_ids(2 * n_ids)[2 * ids]),
+                  **{f"{p}_item_rev": rev[p][ids].tolist()
+                     for p in ("ss", "cs", "ws")},
+                  **{f"{p}_dev": (dbl[p][ids] / (total / 3.0)
+                                  * 100.0).tolist()
+                     for p in ("ss", "cs", "ws")},
+                  "average": (total / 3.0).tolist()}
+
+    qty = col(ss, "ss_quantity")
+    lst, cpn, wc = (_money(ss, f"ss_{n}") for n in (
+        "list_price", "coupon_amt", "wholesale_cost"))
+
+    def between(v, lo, width):
+        return (v >= lo * 100) & (v <= (lo + width) * 100)
+
+    q28 = {}
+    for i, (q_lo, q_hi, lp, cp, w) in enumerate(Q28_BUCKETS, 1):
+        k = (qty >= q_lo) & (qty <= q_hi) & (
+            between(lst, lp, 10) | between(cpn, cp, 1000)
+            | between(wc, w, 20))
+        n = int(k.sum())
+        q28[f"B{i}_LP"] = [int(decimal_mean(np.array([lst[k].sum()]),
+                                            np.array([n]))[0])
+                           if n else None]
+        q28[f"B{i}_CNT"] = [n]
+    out["q28"] = q28
+    return out
+
+
+# every decimal result's (precision, scale): a Sum over decimal(7,2) is
+# decimal(17,2), an Average decimal(11,6); doubles compare at rtol 1e-9
+JOIN_DECIMALS = {"q58": {f"{p}_item_rev": (17, 2) for p in ("ss", "cs",
+                                                             "ws")},
+                 "q28": {f"B{i}_LP": (11, 6) for i in range(1, 7)}}
+JOIN_APPROX = {"q58": ("ss_dev", "cs_dev", "ws_dev", "average")}
+
+
+def check_join_query(pa, name: str, out, want: dict) -> None:
+    """Raise unless `out` equals the oracle row for row, in the query's
+    order: decimals (with their types) as unscaled ints, q58's doubles
+    within rtol 1e-9, everything else exactly."""
+    n = len(next(iter(want.values())))
+    if out.num_rows != n or out.column_names != list(want):
+        raise AssertionError(f"{name}: {out.num_rows} rows of "
+                             f"{out.column_names}, oracle {n} of "
+                             f"{list(want)}")
+    for col, exp in want.items():
+        c = out.column(col)
+        if col in JOIN_DECIMALS.get(name, {}):
+            if c.type != pa.decimal128(*JOIN_DECIMALS[name][col]):
+                raise AssertionError(f"{name}: column {col} is {c.type}")
+            vals, valid = unscaled(c)
+            got = [int(v) if ok else None for v, ok in zip(vals, valid)]
+        else:
+            got = c.to_pylist()
+        if col in JOIN_APPROX.get(name, ()):
+            ok = np.allclose(got, exp, rtol=1e-9, atol=0.0)
+        else:
+            ok = got == exp
+        if not ok:
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+
+
+# kernel launches of one collect of each query, as PERF.md predicts them
+# for join_tables' files at JOIN_SIZES (store_sales 16 row groups: 4
+# merged batches; catalog_sales 2; web_sales 1). A: 2 per fused join per
+# merged batch of its stage's scan (one int64 key: the probe's and the
+# build's hash), on the date joins of q97 (store and catalog) and q10
+# (store, web, catalog) and on q58's date and item joins (both plans:
+# every other join is shuffled or a nested loop). C: the distributed
+# fused partial aggregates' int64 sums: q10's six counts over the 4 shard
+# batches of its existence join, q58's decimal sums (2 a batch) over 7
+# scan batches; none on one device
+JOINS_LAUNCHES = {
+    "one_device": {"q97": (12, 0), "q10": (14, 0), "q58": (28, 0),
+                   "q58_pairs": (28, 0), "q28": (0, 0)},
+    "distributed": {"q97": (12, 0), "q10": (14, 24), "q58": (28, 14),
+                    "q58_pairs": (28, 14), "q28": (0, 0)},
+}
+
+
+def join_data(pa, d: str, sizes=JOIN_SIZES) -> dict:
+    """join_tables, their oracle and their parquet files in directory d,
+    with the seconds each took."""
+    import pyarrow.parquet as pq
+    t0 = time.monotonic()
+    tables = join_tables(pa, sizes)
+    t1 = time.monotonic()
+    want = join_oracle(pa, tables)
+    t2 = time.monotonic()
+    paths = write_parquet(pq, tables, d, tag="_joins")
+    return {"tables": tables, "oracle": want, "paths": paths,
+            "tables_s": t1 - t0, "oracle_s": t2 - t1,
+            "write_s": time.monotonic() - t2}
+
+
+def joins_phases(torch, pa, mesh_conf: dict, counters, sizes=JOIN_SIZES,
+                 conf=None, device=None, rounds=JOINS_ROUNDS, warmup=True,
+                 want_launches=JOINS_LAUNCHES, data=None):
+    """Phase tpcds_joins: q97, q10, q58 (and its joins before their
+    conditions) and q28 over join_tables' parquet files, on one device and
+    under the distributed plan (`mesh_conf`), fusion on and dynamic
+    pruning off (JOINS_CONF). After a warm-up collect of each query (with
+    `warmup`), each is collected `rounds` times, timed: every result is
+    held against join_oracle row for row and every collect's launches of
+    A and C against `want_launches`, and q97's one-device collects must
+    take the sub-partition join (its build side, the catalog pairs, is
+    over subPartition.rows). q97's device idle share comes from one
+    traced collect. Returns the launch counts of each plan's run (one
+    collect of each query) and the arguments of A's first call in a
+    one-device q97 collect and of C's first in a distributed q58
+    collect."""
+    from spark_rapids_tpu_torch.exec import joins as J
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **JOINS_CONF,
+                **{"spark.rapids.tpu.fusion.enabled": True})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        J.COUNTERS.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}
+
+    launches, record = {}, {}
+    with (contextlib.nullcontext() if data is not None else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_joins_")) as d:
+        if data is None:
+            data = join_data(pa, d, sizes)
+        want, paths = data["oracle"], data["paths"]
+        m = join_namespace()
+        for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+            qs = join_queries(TpuSession(dict(conf, **extra), dev), m, paths)
+            shapes = {n: q.explain() for n, q in qs.items()}
+            if warmup:
+                for n, q in qs.items():
+                    check_join_query(pa, n, q.collect(), want[n])
+            per_query, run = {}, {}
+            for n, q in qs.items():
+                walls, a, c = [], *want_launches[plan][n]
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    out, run[n] = counted(q.collect)
+                    walls.append(time.perf_counter() - t0)
+                    check_join_query(pa, n, out, want[n])
+                    del out
+                    split = J.COUNTERS.snapshot()
+                    if (run[n]["murmur3_rows"], run[n]["segment_sum_i64"],
+                            run[n]["segment_sum_f64"]) != (a, c, 0):
+                        raise AssertionError(f"{n} ({plan}) launched "
+                                             f"{run[n]}, not A {a} and C {c}")
+                    if n == "q97" and plan == "one_device" and \
+                            split["sub_partition_builds"] != 1:
+                        raise AssertionError("q97 on one device did not take "
+                                             f"the sub-partition join: {split}")
+                per_query[n] = {
+                    "rows": len(next(iter(want[n].values()))),
+                    "warm_collect_s": spread(walls),
+                    "launches_per_collect": run[n], "join_counters": split,
+                    "joins": re.findall(r"(\w+JoinExec\[\w+)", shapes[n])}
+            path = "tpcds_joins" if plan == "one_device" else \
+                "tpcds_joins_distributed"
+            launches[path] = {k: sum(r[k] for r in run.values())
+                              for k in run["q97"]}
+            if plan == "one_device":
+                a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                         qs["q97"].collect)
+                per_query["q97"]["device_idle_share"] = idle_share(
+                    torch, qs["q97"].collect)
+            else:
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64", qs["q58"].collect)
+            record[plan] = {"queries": per_query,
+                            "launches_per_path_run": launches[path]}
+    emit({"phase": "tpcds_joins", "sizes": sizes,
+          "answers": {"q97": want["q97"], "q58_pairs": want["q58_pairs"],
+                      "q58_rows": len(want["q58"]["i_item_id"])},
+          "setup_s": {k: data[k] for k in ("tables_s", "oracle_s",
+                                           "write_s")},
+          "exact": "counts and decimals (unscaled ints) against the numpy "
+          "oracle, row for row", "rtol_double": 1e-9, **record})
+    return launches, a_args, c_args
+
 def main() -> int:
     try:
         import torch
@@ -2153,6 +2723,13 @@ def main() -> int:
             torch, pa, mesh_conf, kernels3, data=dec_data)
         del dec_data
 
+    # ---- tpcds_joins: q97 (full outer join, the sub-partition join), q10
+    # (existence joins), q58 (string keys with conditions) and q28 (cross
+    # joins) over TPC-DS tables from parquet, one device and distributed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joins_") as d:
+        join_launches, join_a_args, join_c_args = joins_phases(
+            torch, pa, mesh_conf, kernels3, data=join_data(pa, d))
+
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
     # of a one-device Q7 collect, from Arrow tables and from parquet (a
@@ -2167,7 +2744,9 @@ def main() -> int:
                 torch, dec_a_args, rate, path="star_decimal", query="q7"),
             "ordered_reports": murmur3_on_path(
                 torch, ord_a_args, rate, path="ordered_reports",
-                query="q7")}
+                query="q7"),
+            "tpcds_joins": murmur3_on_path(
+                torch, join_a_args, rate, path="tpcds_joins", query="q97")}
     c_on = {"star_query_distributed": segsum_i64_on_path(
                 torch, c_args, rate, path="star_query_distributed",
                 query="q7"),
@@ -2179,7 +2758,10 @@ def main() -> int:
                 query="q3"),
             "ordered_reports_distributed": segsum_i64_on_path(
                 torch, ord_c_args, rate, path="ordered_reports_distributed",
-                query="q3")}
+                query="q3"),
+            "tpcds_joins_distributed": segsum_i64_on_path(
+                torch, join_c_args, rate, path="tpcds_joins_distributed",
+                query="q58")}
     a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
     c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
     emit({"phase": "kernels_on_paths", "murmur3_rows": a_on,
@@ -2192,7 +2774,8 @@ def main() -> int:
                      "star_query_distributed": dstar_launches[name]},
                     **{p: n[name] for p, n in pq_launches.items()},
                     **{p: n[name] for p, n in dec_launches.items()},
-                    **{p: n[name] for p, n in ord_launches.items()})
+                    **{p: n[name] for p, n in ord_launches.items()},
+                    **{p: n[name] for p, n in join_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},
@@ -2201,20 +2784,19 @@ def main() -> int:
                 for p, n in runs.items()}
 
     # ---- 11. every kernel the run launched. A's and C's rows name the
-    # ordered reports' paths (this slice's) whose launches and inputs they
+    # TPC-DS joins' paths (this slice's) whose launches and inputs they
     # give; by_path holds every path's launches (one run of it: one collect
     # of each star query, one collect of each parquet query, one
-    # distributed Q7 collect, one collect of each decimal query, one
-    # collect of each ordered query) and, where measured, the times on that
-    # path's inputs
-    a_main = a_on["ordered_reports"]
-    c_main = c_on["ordered_reports_distributed"]
+    # distributed Q7 collect, one collect of each decimal, ordered and
+    # join query) and, where measured, the times on that path's inputs
+    a_main = a_on["tpcds_joins"]
+    c_main = c_on["tpcds_joins_distributed"]
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "ordered_reports",
-         "launches": ord_launches["ordered_reports"]["murmur3_rows"],
+         "path": "tpcds_joins",
+         "launches": join_launches["tpcds_joins"]["murmur3_rows"],
          "rows": a_main["rows"], "by_path": on_path("murmur3_rows", a_on),
          "max_abs_err": a_err, "ms": a_main["ms"],
          "plain_ms": a_main["plain_ms"], "bound_ms": a_main["bound_ms"],
@@ -2232,8 +2814,8 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "ordered_reports_distributed",
-         "launches": ord_launches["ordered_reports_distributed"][
+         "path": "tpcds_joins_distributed",
+         "launches": join_launches["tpcds_joins_distributed"][
              "segment_sum_i64"],
          "rows": c_main["rows"], "by_path": on_path("segment_sum_i64", c_on),
          "max_abs_err": c_err, "ms": c_main["ms"],

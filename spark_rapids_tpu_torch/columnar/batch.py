@@ -55,10 +55,13 @@ class Schema:
 
 
 def join_output_schema(left: Schema, right: Schema, join_type: str) -> Schema:
-    """semi/anti project the left side; everything else is the combined
-    row (the JAX package's one definition)."""
+    """semi/anti project the left side; existence appends the BOOLEAN
+    `exists` flag; everything else is the combined row (the JAX package's
+    one definition)."""
     if join_type in ("semi", "anti"):
         return left
+    if join_type == "existence":
+        return Schema(left.names + ("exists",), left.types + (T.BOOLEAN,))
     return Schema(left.names + right.names, left.types + right.types)
 
 

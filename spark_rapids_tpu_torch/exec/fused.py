@@ -20,6 +20,11 @@ What fusion keeps from the JAX engine:
     auto on a CUDA session, or force. The expand step still recomputes the
     plain hash, as the JAX engine does, so the kernel feeds only the sizing
     total and must match `_probe_counts` bit for bit.
+  * A join member evaluates its condition inside the expand, as the
+    unfused join does, and an existence member appends its `exists` flag.
+  * A build side above `spark.rapids.sql.join.subPartition.rows` needs the
+    sub-partition loop, so the whole stage then runs as its unfused member
+    chain (the members keep their child links), as in the JAX engine.
   * Under the same switch the partial aggregate member's int64 segmented
     sums run through the hand-written kernel of ops/pallas_groupby.py: the
     `ops.rowops._FUSED_SEGMENT_SUM` seam is set while that member runs, and
@@ -92,6 +97,7 @@ class TpuFusedStageExec(TpuExec):
                                       probe.row_mask(), build.row_mask())
         else:
             counts = _probe_counts(probe, build, m._lk_ix, m._rk_ix)[0]
+        # no right/full member here; existence sizes by its candidates
         slot = torch.clamp(counts, min=1) if m.join_type == "left" else counts
         return torch.where(probe.row_mask(), slot, 0).sum(dtype=torch.int64)
 
@@ -116,8 +122,9 @@ class TpuFusedStageExec(TpuExec):
         for m in members:
             if isinstance(m, TpuBroadcastHashJoinExec):
                 totals.append(self._probe_total(m, out, builds[ji]))
-                out_vecs, n = _expand_join(out, builds[ji], m._lk_ix,
-                                           m._rk_ix, caps[ji], m.join_type)
+                out_vecs, n, _ = _expand_join(
+                    out, builds[ji], m._lk_ix, m._rk_ix, caps[ji],
+                    m.join_type, m._bcond)
                 out = vecs_to_batch(m.output, out_vecs, n)
                 ji += 1
             elif isinstance(m, TpuProjectExec):
@@ -138,12 +145,18 @@ class TpuFusedStageExec(TpuExec):
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         builds = []
+        threshold = self.conf.get("spark.rapids.sql.join.subPartition.rows")
         for m in self._join_members:
             build = m.build_batch()
             if build is None:
                 if m.join_type in ("inner", "semi"):
                     return
                 build = m.empty_build()
+            if build.row_count() > threshold:
+                # the sub-partition join is a host loop: the members run
+                # unfused (the broadcast builds are not made again)
+                yield from self._members[-1].execute()
+                return
             builds.append(build)
         for b in self.children[0].execute():
             while True:

@@ -1,4 +1,4 @@
-"""Hash join exec (`spark_rapids_tpu/exec/joins.py`, inner/left/semi/anti).
+"""Hash and nested-loop join execs (`spark_rapids_tpu/exec/joins.py`).
 
 Equi-joins run as a hash-sorted probe:
   1. hash the build keys (Spark murmur3), sort build rows by hash;
@@ -7,15 +7,29 @@ Equi-joins run as a hash-sorted probe:
      capacity: counts are computed on the device, summed, and read once per
      probe batch to pick the bucket;
   4. gather both sides, check true key equality (hash collisions, null
-     keys), compact away false positives.
-Left-outer rows come from the unmatched masks; semi/anti reduce the
-matches instead of expanding. The build side is the right child. Under the
-distribution pass (exec/requirements.py) both children are co-partitioned
-key-exchanges and the join zips them: batch p against batch p.
-Payload columns of any carried type, strings included, ride the gathers.
-Join keys are the int and long families. Right/full outer joins, join
-conditions and the sub-partition path for oversized builds wait for a
-later slice.
+     keys) and the optional join condition over the combined row (a
+     condition that reads null is no match), compact away the rest.
+Left and full outer rows come from the per-probe matched flags. Right and
+full outer rows come from the build side's matched flags, carried across
+the probe stream and emitted once after it with the left columns null.
+Semi/anti reduce the matches instead of expanding; existence keeps every
+probe row and appends a never-null BOOLEAN `exists`. The build side is the
+right child. Under the distribution pass (exec/requirements.py) both
+children are co-partitioned key-exchanges and the join zips them: batch p
+against batch p.
+
+A build side (or a build shard) of more than
+`spark.rapids.sql.join.subPartition.rows` rows hash-splits into P
+key-aligned sub-partitions that join pairwise. Keyless joins (cross joins
+and pure-condition joins of every type) run in `TpuNestedLoopJoinExec` as
+bounded all-pairs tiles. The JAX engine runs both under its memory seams
+(spillable batches, OOM retry); those are not ported yet, so the calls here
+are direct.
+
+Keys: the int and long families (boolean, byte, short, int, date, long,
+timestamp, decimal of up to 18 digits), float, double and string. Floats
+match NaN to NaN and -0.0 to 0.0; strings compare bytes and lengths.
+Payload columns of any carried type ride the gathers.
 """
 
 from __future__ import annotations
@@ -27,19 +41,42 @@ import torch
 
 from .. import types as T
 from ..columnar.batch import ColumnarBatch, Schema, empty_batch, \
-    join_output_schema
+    empty_column, join_output_schema
 from ..columnar.column import to_arrow as col_to_arrow
 from ..columnar.padding import row_bucket
-from ..expr.base import BoundReference, Expression, Vec, bind_references
+from ..expr.base import BoundReference, EvalContext, Expression, Vec, \
+    bind_references
 from ..expr.hashing import hash_vecs
+from ..expr.predicates import string_equal
 from ..ops.rowops import compact_vecs, gather_vecs
 from .base import TpuExec, batch_vecs, vecs_to_batch
 from .coalesce import concat_batches
+from .sort import SortCounters
 
 __all__ = ["TpuShuffledHashJoinExec", "TpuBroadcastHashJoinExec",
-           "SUPPORTED_JOIN_TYPES"]
+           "TpuNestedLoopJoinExec", "SUPPORTED_JOIN_TYPES", "COUNTERS"]
 
-SUPPORTED_JOIN_TYPES = ("inner", "left", "semi", "anti")
+SUPPORTED_JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti",
+                        "existence")
+# probe rows without a match still emit one row (build side null)
+_PROBE_OUTER = ("left", "full")
+# build rows no probe row matched are emitted after the stream
+_BUILD_OUTER = ("right", "full")
+# an empty build side gives no rows at all
+_NEEDS_BUILD = ("inner", "right", "semi")
+
+
+class JoinCounters(SortCounters):
+    """Since the last reset(): build sides (or shards) split into
+    sub-partitions (`sub_partition_builds`), the sub-partition pairs joined
+    (`sub_partition_pairs`), and the all-pairs tiles of the nested-loop
+    join (`nested_loop_tiles`)."""
+
+    _FIELDS = ("sub_partition_builds", "sub_partition_pairs",
+               "nested_loop_tiles")
+
+
+COUNTERS = JoinCounters()
 
 
 def _keys_valid(keys: List[Vec]):
@@ -52,13 +89,28 @@ def _keys_valid(keys: List[Vec]):
 def _keys_equal(a: List[Vec], b: List[Vec]):
     eq = None
     for ka, kb in zip(a, b):
-        if T.is_floating(ka.dtype):
+        if ka.is_string:
+            e = string_equal(ka, kb)
+        elif T.is_floating(ka.dtype):
             e = (ka.data == kb.data) | (torch.isnan(ka.data) &
                                         torch.isnan(kb.data))
         else:
             e = ka.data == kb.data
         eq = e if eq is None else (eq & e)
     return eq
+
+
+def _any_by(idx: torch.Tensor, flags: torch.Tensor, n: int) -> torch.Tensor:
+    """bool[n]: True at each index some True flag points to."""
+    hits = torch.zeros(n, dtype=torch.int32, device=flags.device)
+    return hits.index_add_(0, idx, flags.to(torch.int32)) > 0
+
+
+def _condition_holds(condition: Expression, vecs: List[Vec],
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The bound join condition over combined rows: true and not null."""
+    c = condition.eval(EvalContext(mask), vecs)
+    return c.data.to(torch.bool) & c.validity
 
 
 def _probe_counts(probe: ColumnarBatch, build: ColumnarBatch,
@@ -86,10 +138,12 @@ def _probe_counts(probe: ColumnarBatch, build: ColumnarBatch,
 def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
                  probe_key_ix: Tuple[int, ...],
                  build_key_ix: Tuple[int, ...], out_cap: int,
-                 join_type: str):
-    """Phase 2: expand candidate ranges to pairs, equality-check, compact,
-    attach left-outer rows. Recomputes phase 1 (the plain hash) like the
-    JAX engine, whatever computed the sizing. Returns (out_vecs, n)."""
+                 join_type: str, condition: Expression = None):
+    """Phase 2: expand candidate ranges to pairs, check equality and the
+    condition, compact, attach left-outer rows. Recomputes phase 1 (the
+    plain hash) like the JAX engine, whatever computed the sizing. Returns
+    (out_vecs, n, bmatched): bmatched flags the build rows that met a match
+    (all False unless the join is right or full)."""
     counts, lo, order, pvalid, bvalid = _probe_counts(
         probe, build, probe_key_ix, build_key_ix)
     pvecs = batch_vecs(probe)
@@ -100,7 +154,7 @@ def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
     pcap, bcap = probe.capacity, build.capacity
     device = pmask.device
 
-    outer_left = join_type == "left"
+    outer_left = join_type in _PROBE_OUTER
     slot_counts = torch.clamp(counts, min=1) if outer_left else counts
     slot_counts = torch.where(pmask, slot_counts, 0)
     offsets = torch.cumsum(slot_counts, dim=0, dtype=torch.int64)
@@ -116,30 +170,100 @@ def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
     # true equality check (hash collision + sentinel guard)
     eq = _keys_equal(gather_vecs(pkeys, pi), gather_vecs(bkeys, bi)) & \
         pvalid[pi] & bvalid[bi] & (k < counts[pi])
+    wide = join_type not in ("semi", "anti", "existence")
+    if wide or condition is not None:
+        left_out = gather_vecs(pvecs, pi)
+        right_out = gather_vecs(bvecs, bi)
+    if condition is not None:
+        # applied before the per-probe "any match", so a condition that
+        # reads null (or false) leaves the probe row unmatched
+        eq = eq & _condition_holds(condition, left_out + right_out,
+                                   eq & live)
     matched = eq & live
     # per-probe-row "any true match": candidate ranges can be pure hash
     # collisions, so counts[pi] > 0 alone must not suppress the outer row
-    hits = torch.zeros(pcap, dtype=torch.int32, device=device)
-    pmatched = hits.index_add_(0, pi, matched.to(torch.int32)) > 0
+    pmatched = _any_by(pi, matched, pcap)
+    bmatched = _any_by(bi, matched, bcap) if join_type in _BUILD_OUTER \
+        else torch.zeros(bcap, dtype=torch.bool, device=device)
 
+    if join_type == "existence":
+        exists = Vec(T.BOOLEAN, pmatched,
+                     torch.ones(pcap, dtype=torch.bool, device=device))
+        return (*compact_vecs(pvecs + [exists], pmask), bmatched)
     if join_type in ("semi", "anti"):
         want = pmatched if join_type == "semi" else ~pmatched
-        return compact_vecs(pvecs, want & pmask)
+        return (*compact_vecs(pvecs, want & pmask), bmatched)
 
     keep = live & (matched | (outer_left & ~pmatched[pi] & (k == 0)))
-    left_out = gather_vecs(pvecs, pi)
-    right_out = gather_vecs(bvecs, bi)
     if outer_left:  # null out the right side where no match
         right_out = [v.with_validity(v.validity & matched)
                      for v in right_out]
-    return compact_vecs(left_out + right_out, keep)
+    return (*compact_vecs(left_out + right_out, keep), bmatched)
+
+
+def _null_vecs(schema: Schema, cap: int, device) -> List[Vec]:
+    """All-null columns for one side of an outer join."""
+    return [Vec.from_column(empty_column(dt, cap, device))
+            for dt in schema.types]
+
+
+def _sub_partitions(n_build: int, threshold: int) -> int:
+    """P, the power of two (at most 64) that brings the build side's rows
+    per sub-partition to the threshold or under."""
+    p = 1
+    while n_build // p > threshold and p < 64:
+        p *= 2
+    return p
+
+
+# the sub-partition hash's seed. The JAX engine's `_hash_pid` uses 42, the
+# exchange's seed: a zipped shard's rows all share pmod(murmur3_42, n), so
+# whenever P divides the mesh size n they all land in one sub-partition
+# and the split bounds nothing. Another seed spreads them.
+SUB_PARTITION_SEED = 100
+
+
+def _hash_split(batch: ColumnarBatch, key_ix: Tuple[int, ...],
+                p: int) -> List[ColumnarBatch]:
+    """The batch's rows in P key-aligned sub-partitions, sub-partition q
+    holding the rows whose uint32 murmur3 of the keys is q mod P (the JAX
+    `_hash_pid` form, with SUB_PARTITION_SEED). One stable sort by
+    sub-partition and one host read of the P counts; each part is cut to
+    its own row bucket (padding contents unspecified)."""
+    vecs = batch_vecs(batch)
+    h = hash_vecs([vecs[i] for i in key_ix], SUB_PARTITION_SEED) \
+        .to(torch.int64) & 0xFFFFFFFF
+    pid = torch.where(batch.row_mask(), h % p, p)  # padding sorts last
+    order = torch.sort(pid, stable=True).indices
+    counts = torch.bincount(pid, minlength=p + 1)[:p].tolist()
+    parts, start = [], 0
+    last = batch.capacity - 1
+    for n in counts:
+        cap = row_bucket(max(n, 1))
+        at = torch.arange(start, start + cap, device=order.device)
+        parts.append(vecs_to_batch(batch.schema, gather_vecs(
+            vecs, order[at.clamp(max=last)]), n))
+        start += n
+    return parts
+
+
+def _slice_rows(batch: ColumnarBatch, lo: int, hi: int,
+                n: int) -> ColumnarBatch:
+    """Rows [lo, hi) of a compacted batch of n rows; the count clamps."""
+    vecs = [v.gather(slice(lo, hi)) for v in batch_vecs(batch)]
+    return vecs_to_batch(batch.schema, vecs, max(0, min(n - lo, hi - lo)))
+
+
+def _combined(left: Schema, right: Schema) -> Schema:
+    return Schema(left.names + right.names, left.types + right.types)
 
 
 class TpuShuffledHashJoinExec(TpuExec):
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression],
-                 join_type: str = "inner", conf=None):
+                 join_type: str = "inner", conf=None,
+                 condition: Expression = None):
         super().__init__([left, right], conf)
         if join_type not in SUPPORTED_JOIN_TYPES:
             raise NotImplementedError(
@@ -154,6 +278,10 @@ class TpuShuffledHashJoinExec(TpuExec):
         self.zip_partitions = False
         self._schema = join_output_schema(left.output, right.output,
                                           join_type)
+        # optional non-equi condition over the combined (left ++ right) row
+        self.condition = condition
+        self._bcond = None if condition is None else bind_references(
+            condition, _combined(left.output, right.output))
         self._lk_ix = tuple(self._key_ordinal(e, left.output)
                             for e in self.left_keys)
         self._rk_ix = tuple(self._key_ordinal(e, right.output)
@@ -177,16 +305,7 @@ class TpuShuffledHashJoinExec(TpuExec):
     def build_batch(self):
         """The whole build side as one batch; None when it is empty."""
         batches = list(self.children[1].execute())
-        if not batches:
-            return None
-        build = concat_batches(batches)
-        threshold = self.conf.get("spark.rapids.sql.join.subPartition.rows")
-        if build.row_count() > threshold:
-            raise NotImplementedError(
-                f"build side of {build.row_count()} rows exceeds "
-                "spark.rapids.sql.join.subPartition.rows; the sub-partition "
-                "join is not in spark_rapids_tpu_torch yet")
-        return build
+        return concat_batches(batches) if batches else None
 
     def empty_build(self) -> ColumnarBatch:
         return empty_batch(self.children[1].output, self.device, 1)
@@ -197,17 +316,16 @@ class TpuShuffledHashJoinExec(TpuExec):
             return
         build = self.build_batch()
         if build is None:
-            if self.join_type in ("inner", "semi"):
+            if self.join_type in _NEEDS_BUILD:
                 return
             build = self.empty_build()
         if self.dpp_filters:
             self._fill_dpp_filters(build)
-        for probe in self.children[0].execute():
-            if probe.row_count() == 0:
-                continue
-            out = self.join_pair(probe, build)
-            if out.row_count() > 0:
-                yield out
+        threshold = self.conf.get("spark.rapids.sql.join.subPartition.rows")
+        if build.row_count() > threshold:
+            yield from self._streamed_sub_partition(build, threshold)
+        else:
+            yield from self._streamed_join(build)
 
     def _fill_dpp_filters(self, build: ColumnarBatch) -> None:
         """The build side's key values (nulls dropped) into each filter: one
@@ -218,6 +336,55 @@ class TpuShuffledHashJoinExec(TpuExec):
             filt.set_values(arr.to_pylist() if isinstance(
                 build.schema.types[ordinal], T.StringType)
                 else arr.to_numpy())
+
+    def _probe_stream(self) -> Iterator[ColumnarBatch]:
+        for probe in self.children[0].execute():
+            if probe.row_count() > 0:
+                yield probe
+
+    def _streamed_join(self, build: ColumnarBatch
+                       ) -> Iterator[ColumnarBatch]:
+        """Each probe batch against the whole build table; right and full
+        joins emit the build rows no batch matched after the stream."""
+        bmatched = None
+        for probe in self._probe_stream():
+            out, bm = self._join_pair_core(probe, build)
+            if bm is not None:
+                bmatched = bm if bmatched is None else (bmatched | bm)
+            if out.row_count() > 0:
+                yield out
+        if self.join_type in _BUILD_OUTER:
+            extra = self._unmatched_batch(build, bmatched)
+            if extra is not None:
+                yield extra
+
+    def _streamed_sub_partition(self, build: ColumnarBatch, threshold: int
+                                ) -> Iterator[ColumnarBatch]:
+        """An oversized build side with a streamed probe: the build splits
+        once into P key-aligned sub-partitions, each probe batch the same
+        way, and part joins part. Matching keys share a part, so the part
+        joins compose exactly; right/full matched flags accumulate per part
+        across the whole probe stream."""
+        p = _sub_partitions(build.row_count(), threshold)
+        COUNTERS.add(sub_partition_builds=1)
+        build_parts = _hash_split(build, self._rk_ix, p)
+        bmatched = [None] * p
+        for probe in self._probe_stream():
+            for i, pp in enumerate(_hash_split(probe, self._lk_ix, p)):
+                if pp.row_count() == 0:
+                    continue  # unmatched build rows surface at the end
+                COUNTERS.add(sub_partition_pairs=1)
+                out, bm = self._join_pair_core(pp, build_parts[i])
+                if bm is not None:
+                    bmatched[i] = bm if bmatched[i] is None \
+                        else (bmatched[i] | bm)
+                if out.row_count() > 0:
+                    yield out
+        if self.join_type in _BUILD_OUTER:
+            for part, bm in zip(build_parts, bmatched):
+                extra = self._unmatched_batch(part, bm)
+                if extra is not None:
+                    yield extra
 
     def _zipped_execute(self) -> Iterator[ColumnarBatch]:
         """Co-partitioned per-shard join: matching keys land in the same
@@ -233,33 +400,81 @@ class TpuShuffledHashJoinExec(TpuExec):
                     "zip_partitions requires positionally-aligned exchange "
                     "outputs (one stream ended early)")
             n_probe, n_build = probe.row_count(), build.row_count()
-            if n_build == 0 and self.join_type in ("inner", "semi"):
+            if n_build == 0 and self.join_type in _NEEDS_BUILD:
                 continue
             if n_probe == 0:
+                if n_build and self.join_type in _BUILD_OUTER:
+                    yield self._right_only(build)
                 continue
             if n_build > threshold:
-                raise NotImplementedError(
-                    f"a build shard of {n_build} rows exceeds "
-                    "spark.rapids.sql.join.subPartition.rows; the "
-                    "sub-partition join is not in spark_rapids_tpu_torch yet")
-            out = self.join_pair(probe, build)
-            if out.row_count() > 0:
-                yield out
+                yield from self._sub_partition_join(probe, build, threshold)
+            else:
+                yield from self._join_pair(probe, build)
 
-    def join_pair(self, probe: ColumnarBatch,
-                  build: ColumnarBatch) -> ColumnarBatch:
-        """One probe batch against the built table: size (one host sync for
-        the slot total), then expand."""
+    def _join_pair_core(self, probe: ColumnarBatch, build: ColumnarBatch):
+        """One probe batch against a build table: size (one host sync for
+        the slot total), then expand. Returns (out_batch, bmatched), the
+        build rows' matched flags for right/full joins, else None."""
         counts = _probe_counts(probe, build, self._lk_ix, self._rk_ix)[0]
-        slot = torch.clamp(counts, min=1) if self.join_type == "left" \
-            else counts
+        slot = torch.clamp(counts, min=1) \
+            if self.join_type in _PROBE_OUTER else counts
         total = int(torch.where(probe.row_mask(), slot, 0).sum())
         out_cap = row_bucket(max(total, 1))
-        if self.join_type in ("semi", "anti"):
+        if self.join_type in ("semi", "anti", "existence"):
             out_cap = max(out_cap, probe.capacity)
-        out_vecs, n = _expand_join(probe, build, self._lk_ix, self._rk_ix,
-                                   out_cap, self.join_type)
-        return vecs_to_batch(self._schema, out_vecs, n)
+        out_vecs, n, bmatched = _expand_join(
+            probe, build, self._lk_ix, self._rk_ix, out_cap, self.join_type,
+            self._bcond)
+        out = vecs_to_batch(self._schema, out_vecs, n)
+        return out, (bmatched if self.join_type in _BUILD_OUTER else None)
+
+    def _join_pair(self, probe: ColumnarBatch,
+                   build: ColumnarBatch) -> Iterator[ColumnarBatch]:
+        """Join one disjoint (probe, build) pair and emit its unmatched
+        build rows at once: right only where this build slice meets no
+        other probe rows (a zipped shard, a sub-partition pair)."""
+        out, bmatched = self._join_pair_core(probe, build)
+        if out.row_count() > 0:
+            yield out
+        if self.join_type in _BUILD_OUTER:
+            extra = self._unmatched_batch(build, bmatched)
+            if extra is not None:
+                yield extra
+
+    def _sub_partition_join(self, probe: ColumnarBatch, build: ColumnarBatch,
+                            threshold: int) -> Iterator[ColumnarBatch]:
+        """An oversized build shard: both sides split into P key-aligned
+        sub-partitions that join pairwise (outer, semi, anti and existence
+        too, since each is decided per key)."""
+        p = _sub_partitions(build.row_count(), threshold)
+        COUNTERS.add(sub_partition_builds=1)
+        for pb, bb in zip(_hash_split(probe, self._lk_ix, p),
+                          _hash_split(build, self._rk_ix, p)):
+            if pb.row_count() == 0 and bb.row_count() == 0:
+                continue
+            COUNTERS.add(sub_partition_pairs=1)
+            yield from self._join_pair(pb, bb)
+
+    def _unmatched_batch(self, build: ColumnarBatch, bmatched):
+        """Right/full: the build rows never matched, left columns null;
+        None when there are none."""
+        if bmatched is None:  # no probe batch ever met this build slice
+            bmatched = torch.zeros(build.capacity, dtype=torch.bool,
+                                   device=build.device)
+        rvecs, n = compact_vecs(batch_vecs(build),
+                                build.row_mask() & ~bmatched)
+        if int(n) == 0:
+            return None
+        return self._null_left_batch(rvecs, n, build.capacity)
+
+    def _right_only(self, build: ColumnarBatch) -> ColumnarBatch:
+        return self._null_left_batch(batch_vecs(build), build.num_rows,
+                                     build.capacity)
+
+    def _null_left_batch(self, rvecs: List[Vec], n, cap: int
+                         ) -> ColumnarBatch:
+        lvecs = _null_vecs(self.children[0].output, cap, rvecs[0].data.device)
+        return vecs_to_batch(self._schema, lvecs + rvecs, n)
 
     def _arg_string(self):
         return f"[{self.join_type}, keys={[repr(e) for e in self.left_keys]}]"
@@ -268,3 +483,158 @@ class TpuShuffledHashJoinExec(TpuExec):
 class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """Broadcast variant: the same device join, with a broadcast exchange as
     the build child."""
+
+
+def _tile_pairs(pcap: int, ccap: int, device):
+    """Probe and build row of each pair of a pcap x ccap tile, row-major."""
+    pi = torch.arange(pcap, device=device).repeat_interleave(ccap)
+    bi = torch.arange(ccap, device=device).repeat(pcap)
+    return pi, bi
+
+
+def _nl_matched(probe: ColumnarBatch, bchunk: ColumnarBatch, cond):
+    """All-pairs tile: the matched mask over the P x C grid (flattened
+    row-major), with per-probe-row and per-build-row any-match."""
+    pcap, ccap = probe.capacity, bchunk.capacity
+    pi, bi = _tile_pairs(pcap, ccap, probe.device)
+    m = probe.row_mask()[pi] & bchunk.row_mask()[bi]
+    if cond is not None:
+        m = m & _condition_holds(
+            cond, gather_vecs(batch_vecs(probe), pi) +
+            gather_vecs(batch_vecs(bchunk), bi), m)
+    grid = m.reshape(pcap, ccap)
+    return m, grid.any(dim=1), grid.any(dim=0)
+
+
+def _nl_expand(probe: ColumnarBatch, bchunk: ColumnarBatch,
+               matched: torch.Tensor, n: int) -> List[Vec]:
+    """The surviving pairs of an all-pairs tile as output columns, at the
+    row bucket of their count."""
+    pi, bi = _tile_pairs(probe.capacity, bchunk.capacity, probe.device)
+    order = torch.sort((~matched).to(torch.int8), stable=True).indices
+    order = order[:min(row_bucket(n), order.shape[0])]
+    return gather_vecs(batch_vecs(probe), pi[order]) + \
+        gather_vecs(batch_vecs(bchunk), bi[order])
+
+
+class TpuNestedLoopJoinExec(TpuExec):
+    """Nested-loop and cartesian join (the JAX `TpuNestedLoopJoinExec`):
+    every probe row meets every build row, filtered by an optional
+    condition. The build (right) side is materialised once and sliced into
+    chunks of C rows; each probe batch is sliced into tiles of
+    PROBE_TILE_ROWS, and each tile meets each chunk as one bounded P x C
+    all-pairs grid, within TILE_BUDGET pairs however large the probe batch.
+    Matched flags accumulate per probe tile (left/semi/anti/existence) and
+    per build chunk across the stream (right/full)."""
+
+    TILE_BUDGET = 1 << 20   # max pairs per tile
+    PROBE_TILE_ROWS = 4096  # probe rows per tile; C = TILE_BUDGET / this
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 condition: Expression = None, join_type: str = "inner",
+                 conf=None):
+        super().__init__([left, right], conf)
+        self.join_type = "inner" if join_type == "cross" else join_type
+        if self.join_type not in SUPPORTED_JOIN_TYPES:
+            raise NotImplementedError(
+                f"join type {join_type} is not supported by "
+                f"spark_rapids_tpu_torch yet ({SUPPORTED_JOIN_TYPES})")
+        self.condition = condition
+        lo, ro = left.output, right.output
+        self._schema = join_output_schema(lo, ro, self.join_type)
+        self._bcond = None if condition is None else bind_references(
+            condition, _combined(lo, ro))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        batches = list(self.children[1].execute())
+        if not batches and self.join_type in _NEEDS_BUILD:
+            return
+        build = concat_batches(batches) if batches else \
+            empty_batch(self.children[1].output, self.device, 1)
+        chunks = self._slice_build(build)
+        del build, batches
+        bmatched = [None] * len(chunks)
+        jt, pt = self.join_type, self.PROBE_TILE_ROWS
+        for whole in self.children[0].execute():
+            n_whole = whole.row_count()
+            if n_whole == 0:
+                continue
+            # each row-slice of live rows is an independent probe unit
+            # (tails are per row, rows are disjoint)
+            pcap = whole.capacity
+            tiles = [whole] if pcap <= pt else \
+                [_slice_rows(whole, lo, min(lo + pt, pcap), n_whole)
+                 for lo in range(0, n_whole, pt)]
+            for probe in tiles:
+                pmatched = None
+                for ci, bchunk in enumerate(chunks):
+                    COUNTERS.add(nested_loop_tiles=1)
+                    m, pm, bm = _nl_matched(probe, bchunk, self._bcond)
+                    pmatched = pm if pmatched is None else (pmatched | pm)
+                    if jt in _BUILD_OUTER:
+                        bmatched[ci] = bm if bmatched[ci] is None \
+                            else (bmatched[ci] | bm)
+                    if jt in ("semi", "anti", "existence"):
+                        continue  # only the flags are needed
+                    n = int(m.sum())
+                    if n:
+                        yield vecs_to_batch(self._schema, _nl_expand(
+                            probe, bchunk, m, n), n)
+                yield from self._emit_probe_tail(probe, pmatched)
+        if jt in _BUILD_OUTER:
+            for bchunk, bm in zip(chunks, bmatched):
+                extra = self._unmatched_chunk(bchunk, bm)
+                if extra is not None:
+                    yield extra
+
+    def _slice_build(self, build: ColumnarBatch) -> List[ColumnarBatch]:
+        """Capacity-C chunks of the build table's live rows; C is sized so
+        that a PROBE_TILE_ROWS x C tile stays within TILE_BUDGET pairs."""
+        bcap, n = build.capacity, build.row_count()
+        c = max(1, min(bcap, self.TILE_BUDGET // self.PROBE_TILE_ROWS))
+        return [_slice_rows(build, lo, min(lo + c, bcap), n)
+                for lo in range(0, n, c)]
+
+    def _emit_probe_tail(self, probe: ColumnarBatch,
+                         pmatched) -> Iterator[ColumnarBatch]:
+        """Per-probe-tile epilogue once every build chunk was seen."""
+        jt = self.join_type
+        pcap, dev = probe.capacity, probe.device
+        if pmatched is None:
+            pmatched = torch.zeros(pcap, dtype=torch.bool, device=dev)
+        pvecs, pmask = batch_vecs(probe), probe.row_mask()
+        if jt in _PROBE_OUTER:
+            vecs, n = compact_vecs(pvecs, pmask & ~pmatched)
+            if int(n):
+                yield vecs_to_batch(self._schema, vecs + _null_vecs(
+                    self.children[1].output, pcap, dev), n)
+        elif jt in ("semi", "anti"):
+            want = pmatched if jt == "semi" else ~pmatched
+            vecs, n = compact_vecs(pvecs, pmask & want)
+            if int(n):
+                yield vecs_to_batch(self._schema, vecs, n)
+        elif jt == "existence":
+            exists = Vec(T.BOOLEAN, pmatched,
+                         torch.ones(pcap, dtype=torch.bool, device=dev))
+            vecs, n = compact_vecs(pvecs + [exists], pmask)
+            yield vecs_to_batch(self._schema, vecs, n)
+
+    def _unmatched_chunk(self, bchunk: ColumnarBatch, bmatched):
+        if bmatched is None:
+            bmatched = torch.zeros(bchunk.capacity, dtype=torch.bool,
+                                   device=bchunk.device)
+        vecs, n = compact_vecs(batch_vecs(bchunk),
+                               bchunk.row_mask() & ~bmatched)
+        if int(n) == 0:
+            return None
+        return vecs_to_batch(self._schema, _null_vecs(
+            self.children[0].output, bchunk.capacity, bchunk.device) + vecs,
+            n)
+
+    def _arg_string(self):
+        cond = "" if self.condition is None else f", cond={self.condition!r}"
+        return f"[{self.join_type}{cond}]"

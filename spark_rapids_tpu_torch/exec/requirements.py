@@ -5,8 +5,10 @@ The frontend builds plans without exchanges. Under
 `spark.rapids.shuffle.mode=ICI` with a mesh of at least two positions, this
 pass rewrites the converted device plan:
 
-  * a shuffled hash join gets a hash key-exchange under each child, sized
-    to the mesh, and joins co-partitioned batches position by position;
+  * a shuffled hash join (right and full ones too) gets a hash
+    key-exchange under each child, sized to the mesh, and joins
+    co-partitioned batches position by position; a nested-loop join is
+    left as it is, as the JAX pass leaves it;
   * a complete grouped aggregate splits into partial -> key-exchange ->
     final, and the final side reduces each shard on its own (groups are
     disjoint across partitions).

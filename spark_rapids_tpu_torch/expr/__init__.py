@@ -5,7 +5,8 @@ from .arithmetic import (Add, Subtract, Multiply, Divide,  # noqa: F401
                          IntegralDivide, Remainder, Pmod, UnaryMinus, Abs)
 from .cast import Cast  # noqa: F401
 from .predicates import (EqualTo, LessThan, LessThanOrEqual,  # noqa: F401
-                         GreaterThan, GreaterThanOrEqual, And, Or, Not)
+                         GreaterThan, GreaterThanOrEqual, And, Or, Not,
+                         In)
 from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401
 from .conditional import If, CaseWhen, Least, Greatest  # noqa: F401
 from .hashing import hash_vecs  # noqa: F401

@@ -301,7 +301,9 @@ class Literal(LeafExpression):
             b = self.value.encode("utf-8")
             row = torch.zeros((1, width_bucket(max(len(b), 1))),
                               dtype=torch.uint8)
-            row[0, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+            if b:  # torch.frombuffer refuses an empty buffer
+                row[0, :len(b)] = torch.frombuffer(bytearray(b),
+                                                   dtype=torch.uint8)
             row = self._rows[dev] = row.to(dev)
         return row
 

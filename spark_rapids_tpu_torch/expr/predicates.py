@@ -1,6 +1,6 @@
 """Comparison and boolean predicates with Spark semantics
 (`spark_rapids_tpu/expr/predicates.py`: numeric, boolean and string
-operands).
+operands, and IN over a list of literals).
 
 NaN equals NaN and sorts greater than everything (DOUBLE and FLOAT); And/Or
 use Kleene three-valued logic (false AND null = false, true OR null =
@@ -23,7 +23,7 @@ from .base import EvalContext, Expression, Vec, and_validity, \
     pad_common_width
 
 __all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual", "And", "Or", "Not", "string_equal",
+           "GreaterThanOrEqual", "And", "Or", "Not", "In", "string_equal",
            "string_compare"]
 
 
@@ -171,3 +171,33 @@ class Not(Expression):
 
     def _compute(self, ctx, c: Vec) -> Vec:
         return Vec(T.BOOLEAN, ~c.data, c.validity)
+
+
+class In(Expression):
+    """value IN (literals...). Null where the value is null, and where
+    nothing matched and the list holds a null (the JAX rule). Each item
+    compares as EqualTo does, so NaN IN (NaN) is true (Spark's order; the
+    JAX engine compares with ==)."""
+
+    def __init__(self, value: Expression, items):
+        super().__init__([value])
+        self.items = list(items)
+
+    def __repr__(self):
+        return f"{self.name}({self.children[0]!r}, {self.items!r})"
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+    def _compute(self, ctx: EvalContext, v: Vec) -> Vec:
+        from .base import Literal
+        eq = EqualTo(self.children[0], self.children[0])  # its typed compare
+        matched = torch.zeros_like(v.validity)
+        for item in self.items:
+            if item is not None:
+                lv = Literal(item, v.dtype)._compute(ctx)
+                matched = matched | eq._compute(ctx, v, lv).data
+        has_null_item = any(i is None for i in self.items)
+        return Vec(T.BOOLEAN, matched,
+                   v.validity & (matched | (not has_null_item)))

@@ -1,6 +1,6 @@
 """DataFrame frontend (`spark_rapids_tpu/frontend.py`: select, filter,
-join, group_by, agg, sort/order_by, limit, union, window, collect). It
-builds plan nodes; the session rewrites and runs them."""
+join, cross_join, group_by, agg, sort/order_by, limit, union, window,
+collect). It builds plan nodes; the session rewrites and runs them."""
 
 from __future__ import annotations
 
@@ -66,15 +66,19 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on: Union[str, Sequence[str]] = None,
              how: str = "inner", condition: Expression = None) -> "DataFrame":
-        """Equi join on the `on` key columns. The JAX package's signature:
-        a `condition`, or no keys, is planned and then refused at plan time
-        (plan/overrides.py), since join conditions and nested-loop joins are
-        not in this engine yet."""
+        """Equi join on `on` keys (optionally with an extra `condition`
+        predicate over the combined row), or, with no keys, a cartesian /
+        pure-condition nested loop join. `how` is inner, left, right, full,
+        semi, anti, and also "cross" and "existence" (left rows + bool
+        `exists` column)."""
         keys = [] if on is None else ([on] if isinstance(on, str)
                                       else list(on))
         return DataFrame(self.session, N.CpuHashJoinExec(
             self.plan, other.plan, [_as_expr(k) for k in keys],
             [_as_expr(k) for k in keys], how, condition=condition))
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        return self.join(other, how="cross")
 
     def sort(self, *orders, ascending: bool = True,
              nulls_first: Optional[bool] = None) -> "DataFrame":

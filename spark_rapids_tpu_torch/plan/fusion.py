@@ -5,8 +5,10 @@ batch-shape-compatible operators:
 
   * `TpuProjectExec` / `TpuFilterExec`,
   * the probe side of a `TpuBroadcastHashJoinExec` whose build child is a
-    `TpuBroadcastExchangeExec` (inner/left/semi/anti, no condition, not
-    zipped),
+    `TpuBroadcastExchangeExec` (inner/left/semi/anti/existence: the join
+    types with no unmatched-build pass after the stream; with or without a
+    condition, since every expression of this engine runs on the device;
+    not zipped),
   * a stage-TERMINAL partial `TpuHashAggregateExec`, which the distribution
     pass (exec/requirements.py) creates under a mesh,
 
@@ -23,7 +25,7 @@ KEY_ENABLED = "spark.rapids.tpu.fusion.enabled"
 KEY_MIN_OPS = "spark.rapids.tpu.fusion.minOps"
 KEY_PALLAS = "spark.rapids.tpu.fusion.pallas.mode"
 
-FUSIBLE_JOIN_TYPES = ("inner", "left", "semi", "anti")
+FUSIBLE_JOIN_TYPES = ("inner", "left", "semi", "anti", "existence")
 
 __all__ = ["apply_fusion", "FusedStageSpec", "KEY_ENABLED", "KEY_MIN_OPS",
            "KEY_PALLAS", "FUSIBLE_JOIN_TYPES"]
@@ -59,8 +61,10 @@ def _member_sig(m) -> str:
     if isinstance(m, TpuFilterExec):
         return f"Filter[{m._bound!r} @ {_schema_sig(m.child.output)}]"
     if isinstance(m, TpuBroadcastHashJoinExec):
+        cond = "None" if m._bcond is None else repr(m._bcond)
         return (f"BroadcastHashJoin[{m.join_type}, lk={m._lk_ix!r}, "
-                f"rk={m._rk_ix!r}, build={_schema_sig(m.children[1].output)}, "
+                f"rk={m._rk_ix!r}, cond={cond}, "
+                f"build={_schema_sig(m.children[1].output)}, "
                 f"out={_schema_sig(m.output)}]")
     if isinstance(m, TpuHashAggregateExec):
         aggs = [(repr(a.func), a.name) for a in m._bound_aggs]

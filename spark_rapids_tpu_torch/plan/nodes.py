@@ -143,8 +143,11 @@ class CpuHashJoinExec(PhysicalPlan):
         self.condition = condition
         self._bl = [bind_references(e, left.output) for e in self.left_keys]
         self._br = [bind_references(e, right.output) for e in self.right_keys]
-        self._schema = join_output_schema(left.output, right.output,
-                                          self.join_type)
+        lo, ro = left.output, right.output
+        # the condition reads the combined (left ++ right) row
+        self._bcond = None if condition is None else bind_references(
+            condition, Schema(lo.names + ro.names, lo.types + ro.types))
+        self._schema = join_output_schema(lo, ro, self.join_type)
 
     @property
     def output(self) -> Schema:

@@ -41,14 +41,17 @@ _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus,
                     A.Abs, CA.Cast, P.EqualTo, P.LessThan,
                     P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
-                    P.And, P.Or, P.Not, NE.IsNull, NE.IsNotNull, NE.IsNaN,
-                    NE.Coalesce, C.If, C.CaseWhen, C.Least, C.Greatest)
+                    P.And, P.Or, P.Not, P.In, NE.IsNull, NE.IsNotNull,
+                    NE.IsNaN, NE.Coalesce, C.If, C.CaseWhen, C.Least,
+                    C.Greatest)
 _ARITH_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                 T.FloatType, T.DoubleType, T.DecimalType)
 _COMPARISONS = (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
                 P.GreaterThanOrEqual)
-# join types whose build (right) side may be broadcast
-_BROADCASTABLE = ("inner", "left", "semi", "anti")
+# join types whose build (right) side may be broadcast: no output depends
+# on the build side's matched flags being global (right and full would
+# emit unmatched build rows once per consumer), so those stay shuffled
+_BROADCASTABLE = ("inner", "cross", "left", "semi", "anti", "existence")
 
 
 def _unsupported(what: str):
@@ -106,6 +109,34 @@ def _check_expr(e: Expression) -> None:
                          "type")
         if any(strings) and isinstance(node, (C.Least, C.Greatest)):
             _unsupported(f"{type(node).__name__} over strings")
+        if isinstance(node, P.In):
+            _check_in_items(node)
+
+
+def _check_in_items(node: "P.In") -> None:
+    """IN's items are literals of the value's kind: strings for a string
+    value (each within the flat layout), numbers otherwise (a decimal
+    value's as Decimal or int)."""
+    import decimal
+    vt = node.children[0].data_type
+    for item in node.items:
+        if item is None:
+            continue
+        if isinstance(vt, T.StringType):
+            ok = isinstance(item, str)
+            if ok:
+                check_string_length(len(item.encode("utf-8")))
+        elif isinstance(vt, T.DecimalType):
+            ok = isinstance(item, (int, decimal.Decimal)) and \
+                not isinstance(item, bool)
+        elif isinstance(vt, T.BooleanType):
+            ok = isinstance(item, bool)
+        else:
+            ok = isinstance(item, (int, float)) and \
+                not isinstance(item, bool)
+        if not ok:
+            _unsupported(f"In over {vt.simple_string()} with the item "
+                         f"{item!r}")
 
 
 def _check_arithmetic(node: Expression) -> None:
@@ -330,40 +361,59 @@ class Overrides:
                                     self.conf)
 
     def _convert_join(self, plan: N.CpuHashJoinExec, children):
+        """JAX `_tag_join` as errors, then `_c_join`: a keyless join is the
+        nested-loop exec (its build broadcast when small), a small build of
+        a broadcastable type a broadcast hash join, the rest (right and
+        full always) a shuffled hash join."""
         from ..exec.broadcast import TpuBroadcastExchangeExec
         from ..exec.joins import (SUPPORTED_JOIN_TYPES,
                                   TpuBroadcastHashJoinExec,
+                                  TpuNestedLoopJoinExec,
                                   TpuShuffledHashJoinExec)
-        if plan.join_type not in SUPPORTED_JOIN_TYPES:
-            _unsupported(f"join type {plan.join_type}")
-        if plan.condition is not None:
-            _unsupported("a join condition")
-        if not plan.left_keys:
-            _unsupported("a keyless (nested loop) join")
         for e in plan.left_keys + plan.right_keys:
             if not isinstance(e, AttributeReference):
-                _unsupported("a join key that is not a column reference")
+                _unsupported("a join key that is not a column reference "
+                             "(join keys must be column references: project "
+                             "them first)")
+        if plan.join_type not in SUPPORTED_JOIN_TYPES:
+            _unsupported(f"join type {plan.join_type}")
         for e in plan._bl + plan._br:
-            if not isinstance(e.data_type, INT_FAMILY + LONG_FAMILY):
-                _unsupported(f"join key type {e.data_type.simple_string()}")
+            check_supported(e.data_type, "join key")
+        ints = INT_FAMILY + LONG_FAMILY
         for lk, rk in zip(plan._bl, plan._br):
-            # keys hash by their stored values: two decimals must share
-            # their scale and precision (Spark casts them to one type)
-            if T.DecimalType in (type(lk.data_type), type(rk.data_type)) \
-                    and lk.data_type != rk.data_type:
+            # keys hash by their stored values, so both sides must share one
+            # type (Spark casts them to one; a decimal also shares its scale
+            # and precision); only the int and long families mix, as before
+            if lk.data_type != rk.data_type and not (
+                    isinstance(lk.data_type, ints)
+                    and isinstance(rk.data_type, ints)
+                    and T.DecimalType not in (type(lk.data_type),
+                                              type(rk.data_type))):
                 _unsupported(f"join keys {lk.data_type.simple_string()} and "
                              f"{rk.data_type.simple_string()}")
+        if plan._bcond is not None:
+            _check_expr(plan._bcond)
+            if not isinstance(plan._bcond.data_type, T.BooleanType):
+                _unsupported("a non-boolean join condition")
         threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
-        if (threshold >= 0 and plan.join_type in _BROADCASTABLE
-                and _estimated_bytes(plan.children[1]) <= threshold):
+        small_build = (threshold >= 0 and plan.join_type in _BROADCASTABLE
+                       and _estimated_bytes(plan.children[1]) <= threshold)
+        if not plan.left_keys:
+            build = TpuBroadcastExchangeExec(children[1], self.conf) \
+                if small_build else children[1]
+            return TpuNestedLoopJoinExec(children[0], build, plan.condition,
+                                         plan.join_type, self.conf)
+        if small_build:
             join = TpuBroadcastHashJoinExec(
                 children[0], TpuBroadcastExchangeExec(children[1], self.conf),
-                plan.left_keys, plan.right_keys, plan.join_type, self.conf)
+                plan.left_keys, plan.right_keys, plan.join_type, self.conf,
+                condition=plan.condition)
             _wire_dynamic_pruning(join, plan, self.conf)
             return join
         return TpuShuffledHashJoinExec(children[0], children[1],
                                        plan.left_keys, plan.right_keys,
-                                       plan.join_type, self.conf)
+                                       plan.join_type, self.conf,
+                                       condition=plan.condition)
 
 
 def _check_orders(bound_orders) -> None:

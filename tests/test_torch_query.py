@@ -350,10 +350,15 @@ class TestBoundaries:
             df = sess.from_arrow(t.append_column(
                 "y", pa.array(np.arange(4, dtype=np.int8)).cast(
                     pa.decimal128(20, 2))))
-        elif case == "right_join":
-            df = df.join(sess.from_arrow(t), on="k", how="right")
-        elif case == "double_join_key":
-            df = df.join(sess.from_arrow(t), on="x")
+        elif case == "right_join":  # right joins run; not on the limbs
+            d20 = pa.array(np.arange(4, dtype=np.int8)).cast(
+                pa.decimal128(20, 2))
+            df = df.join(sess.from_arrow(pa.table({"k": d20})), on="k",
+                         how="right")
+        elif case == "double_join_key":  # double keys join; not a double
+            # against a long (tests/test_torch_joins.py)
+            df = df.join(sess.from_arrow(pa.table({"k": np.arange(
+                4, dtype=np.float64)})), on="k")
         elif case == "sum_of_boolean":
             df = df.group_by("k").agg(s=Sum(col("b")))
         with pytest.raises(NotImplementedError):

@@ -516,13 +516,20 @@ class TestBoundaries:
             df.explain()  # planning alone raises, before any data moves
 
     def test_jax_form_join_condition_reaches_the_planner(self):
-        """The JAX signature's `condition=` is accepted by DataFrame.join
-        and refused at plan time, not by a TypeError."""
-        sess = TpuSession(device="cpu")
-        a = sess.from_arrow(pa.table({"x": np.arange(3, dtype=np.int64)}))
-        b = sess.from_arrow(pa.table({"y": np.arange(3, dtype=np.int64)}))
-        with pytest.raises(NotImplementedError):
-            a.join(b, condition=PE.col("x") == PE.col("y")).collect()
+        """The JAX signature's `condition=` (here a keyless join, so the
+        nested-loop exec) gives the JAX engine's rows."""
+        a = pa.table({"x": np.arange(3, dtype=np.int64)})
+        b = pa.table({"y": np.array([2, 0, 2, 5], dtype=np.int64)})
+
+        def run(sess, m):
+            return sess.from_arrow(a).join(
+                sess.from_arrow(b), condition=m.col("x") == m.col("y"))
+
+        got = run(TpuSession(BASE, device="cpu"), PE).collect()
+        want = run(JaxSession(BASE), JE).collect()
+        assert got.sort_by("y").to_pylist() == \
+            want.sort_by("y").to_pylist() == \
+            [{"x": 0, "y": 0}, {"x": 2, "y": 2}, {"x": 2, "y": 2}]
 
     def test_literal_and_batch_widths(self):
         ctx = EvalContext(torch.ones(5, dtype=torch.bool))
