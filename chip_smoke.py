@@ -2301,6 +2301,666 @@ def joins_phases(torch, pa, mesh_conf: dict, counters, sizes=JOIN_SIZES,
           "oracle, row for row", "rtol_double": 1e-9, **record})
     return launches, a_args, c_args
 
+
+# ---- tpcds_aggregates (slice 9): TPC-DS q65 (an average of revenue sums,
+# a 128-bit decimal partial sum across the exchange) and q39a/q39b
+# (stddev_samp over inventory, a self-join of the grouped result), and the
+# sales price as Spark's decimal(38,18) from parquet (FIXED_LEN_BYTE_ARRAY
+# of 16 bytes). TPC-DS v3.2.0 at SF10 (Table 3-2): store_sales cut from
+# 28.8 M rows, inventory from 261 weeks to 33 (q39 reads January and
+# February of 2001 alone), every dimension at full size
+AGG_SIZES = {"store_sales": 16_777_216, "date_dim": 73_049, "item": 102_000,
+             "store": 102, "warehouse": 10, "inventory_weeks": 33}
+INV_FIRST_WEEK = "2001-01-01"  # the cut inventory's weeks start here
+INV_NULL_SHARE = 0.05  # inv_quantity_on_hand
+PRICE_NULL_SHARE = 0.03  # ss_sales_price
+Q65_MONTHS = (1176, 1187)  # TPC-DS's d_month_seq window: 1998
+Q65_BAND = 0.1  # sc.revenue <= 0.1 * sb.ave
+Q39_YEAR = 2001
+Q39_COVS = (1.0, 1.5)  # q39a's and q39b's cut-offs on cov
+AGG_LIMIT = 100
+AGG_ROUNDS = 3
+DEC38 = (38, 18)  # Spark's SYSTEM_DEFAULT decimal
+DEC38_SHIFT = DEC38[1] - MONEY[1]  # decimal(7,2) cents -> scale 18
+WAREHOUSE_WORDS = ("Conventional", "Important", "Doors", "Bad", "Matters",
+                   "Significant", "Just", "Hard", "Old", "New")
+# the rows q39 keeps and q65's ORDER BY: a store name and an item
+# description are unique, so both orders are total
+ITEM_DESC_BYTES = (4, 200)
+
+
+def _words(rng, n: int, lo: int, hi: int, prefix=None):
+    """n random lowercase texts of lo..hi bytes (with spaces), built as one
+    Arrow string array from numpy buffers; `prefix` (uint8[n, k]) opens
+    each one."""
+    import pyarrow as pa
+    lens = rng.integers(lo, hi + 1, n)
+    chars = rng.integers(ord("a"), ord("z") + 2, (n, hi)).astype(np.uint8)
+    chars[chars > ord("z")] = ord(" ")
+    if prefix is not None:
+        chars[:, :prefix.shape[1]] = prefix
+    keep = np.arange(hi)[None, :] < lens[:, None]
+    offsets = np.concatenate(([0], np.cumsum(lens))).astype(np.int32)
+    return pa.Array.from_buffers(pa.string(), n, [
+        None, pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(chars[keep].tobytes())])
+
+
+def _item_codes(rng, n: int):
+    """uint8[n, 4]: four letters unique to each item, in shuffled order."""
+    code = rng.permutation(26 ** 4)[:n]
+    return (ord("a") + (code[:, None] // 26 ** np.arange(3, -1, -1)) % 26) \
+        .astype(np.uint8)
+
+
+def dec38_array(pa, cents, valid=None):
+    """decimal(7,2) cents -> the same values as an Arrow decimal(38,18)
+    array (unscaled cents x 10^16, two 64-bit words a value), vectorised:
+    the words of each distinct cents value are computed once."""
+    vals, inv = np.unique(np.asarray(cents, np.int64), return_inverse=True)
+    table = np.array([[(v * 10 ** DEC38_SHIFT) & (2 ** 64 - 1),
+                       ((v * 10 ** DEC38_SHIFT) >> 64) & (2 ** 64 - 1)]
+                      for v in vals.tolist()], np.uint64).reshape(-1, 2)
+    words = table[inv.ravel()].view(np.int64)
+    nulls = 0 if valid is None else int((~valid).sum())
+    bitmap = pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()) \
+        if nulls else None
+    return pa.Array.from_buffers(pa.decimal128(*DEC38), len(words),
+                                 [bitmap, pa.py_buffer(words.tobytes())],
+                                 null_count=nulls)
+
+
+def agg_tables(pa, sizes=AGG_SIZES, seed: int = 47) -> dict:
+    """The tables of the tpcds_aggregates phase from one seed: date_dim as
+    join_tables builds it; item with i_item_desc (text of 4-200 bytes, its
+    first four letters unique to the item), i_brand, and i_current_price
+    and i_wholesale_cost as decimal(7,2); store with a unique
+    s_store_name; warehouse with w_warehouse_name of up to 20 bytes;
+    store_sales (sold dates uniform over 1998-01-02 .. 2003-01-02, items
+    and stores uniform, ss_sales_price decimal(7,2) with 3 % null) and the
+    same prices as decimal(38,18) (`store_sales_dec38`); and inventory:
+    `inventory_weeks` weekly dates of 2001, every second item in every
+    warehouse, inv_quantity_on_hand uniform over 0..1000 with 5 % null."""
+    rng = np.random.default_rng(seed)
+    n_item, n_store = sizes["item"], sizes["store"]
+    n_wh, n_ss = sizes["warehouse"], sizes["store_sales"]
+    day = np.arange(sizes["date_dim"]) + _first_day(sizes)
+    when = np.datetime64("1900-01-02") + day
+    year = when.astype("datetime64[Y]").astype(np.int64) + 1970
+    moy = when.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    t = {"date_dim": pa.table({  # join_tables' date_dim
+        "d_date_sk": FIRST_DATE_SK + day,
+        "d_year": year.astype(np.int32), "d_moy": moy.astype(np.int32),
+        "d_month_seq": ((year - 1900) * 12 + moy - 1).astype(np.int32)})}
+    wholesale = rng.integers(100, 10_001, n_item)  # 1.00 .. 100.00
+    t["item"] = pa.table({
+        "i_item_sk": np.arange(1, n_item + 1),
+        "i_item_desc": _words(rng, n_item, *ITEM_DESC_BYTES,
+                              _item_codes(rng, n_item)),
+        "i_brand": pa.array(np.array([f"{w} #{k}" for w in STAR_SYLLABLES
+                                      for k in range(1, 11)])[
+            rng.integers(0, 10 * len(STAR_SYLLABLES), n_item)]),
+        "i_current_price": decimal_array(
+            pa, (wholesale * rng.uniform(1.0, 2.0, n_item)).astype(np.int64),
+            *MONEY),
+        "i_wholesale_cost": decimal_array(pa, wholesale, *MONEY)})
+    t["store"] = pa.table({
+        "s_store_sk": np.arange(1, n_store + 1),
+        "s_store_name": pa.array([f"{STAR_SYLLABLES[k % 5]}{k // 5}"
+                                  for k in rng.permutation(n_store)])})
+    t["warehouse"] = pa.table({
+        "w_warehouse_sk": np.arange(1, n_wh + 1),
+        "w_warehouse_name": pa.array([
+            f"{WAREHOUSE_WORDS[k % 10]} {k // 10} stock"[:20]
+            for k in range(n_wh)])})
+    item = rng.integers(1, n_item + 1, n_ss)
+    lst = (wholesale[item - 1] * rng.uniform(1.0, 2.0, n_ss)).astype(np.int64)
+    price = (lst * rng.uniform(0.2, 1.0, n_ss)).astype(np.int64)
+    valid = rng.random(n_ss) >= PRICE_NULL_SHARE
+    store = rng.integers(1, n_store + 1, n_ss)
+    t["store_sales"] = pa.table({
+        "ss_sold_date_sk": rng.integers(SOLD_DATE_SK[0], SOLD_DATE_SK[1] + 1,
+                                        n_ss),
+        "ss_item_sk": item, "ss_store_sk": store,
+        "ss_sales_price": decimal_array(pa, price, *MONEY, valid)})
+    t["store_sales_dec38"] = pa.table({
+        "ss_store_sk": store, "ss_sales_price": dec38_array(pa, price,
+                                                             valid)})
+    first = FIRST_DATE_SK + int((np.datetime64(INV_FIRST_WEEK)
+                                 - np.datetime64("1900-01-02")).astype(int))
+    weeks = first + 7 * np.arange(sizes["inventory_weeks"])
+    items = np.arange(1, n_item + 1, 2)
+    n_inv = len(weeks) * len(items) * n_wh
+    date, it, wh = (a.ravel() for a in np.meshgrid(
+        weeks, items, np.arange(1, n_wh + 1), indexing="ij"))
+    t["inventory"] = pa.table({
+        "inv_date_sk": date, "inv_item_sk": it, "inv_warehouse_sk": wh,
+        "inv_quantity_on_hand": pa.array(
+            rng.integers(0, 1001, n_inv).astype(np.int32),
+            mask=rng.random(n_inv) < INV_NULL_SHARE)})
+    return t
+
+
+def agg_namespace() -> SimpleNamespace:
+    """The port's constructors that agg_queries uses, and its types."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    m = SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "Sum", "Count", "Average", "Min", "Max", "StddevSamp",
+        "CaseWhen")})
+    m.double = T.DOUBLE
+    return m
+
+
+def agg_queries(sess, m, paths: dict) -> dict:
+    """q65, q39a, q39b and the decimal(38,18) report (`dec38`) as
+    DataFrames of `sess` over agg_tables' parquet files, written once for
+    either engine through the namespace `m`. One departure from TPC-DS:
+    q65's `sc.revenue <= 0.1 * sb.ave` needs a decimal Multiply, which
+    neither engine has; it compares the two cast to DOUBLE."""
+    c, lit = m.col, m.lit
+
+    def read(name, cols):
+        return sess.read_parquet(paths[name], columns=cols)
+
+    months = (c("d_month_seq") >= lit(Q65_MONTHS[0])) & \
+        (c("d_month_seq") <= lit(Q65_MONTHS[1]))
+    dates = read("date_dim", ["d_date_sk", "d_month_seq"]).filter(months) \
+        .select(ss_sold_date_sk=c("d_date_sk"))
+
+    def revenue():
+        return read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                    "ss_item_sk", "ss_sales_price"]) \
+            .join(dates, on="ss_sold_date_sk") \
+            .select("ss_store_sk", "ss_item_sk", "ss_sales_price") \
+            .group_by("ss_store_sk", "ss_item_sk") \
+            .agg(revenue=m.Sum(c("ss_sales_price")))
+
+    sb = revenue().group_by("ss_store_sk").agg(ave=m.Average(c("revenue")))
+    stores = read("store", ["s_store_sk", "s_store_name"]).select(
+        "s_store_name", ss_store_sk=c("s_store_sk"))
+    items = read("item", ["i_item_sk", "i_item_desc", "i_current_price",
+                          "i_wholesale_cost", "i_brand"]).select(
+        "i_item_desc", "i_current_price", "i_wholesale_cost", "i_brand",
+        ss_item_sk=c("i_item_sk"))
+    q65 = revenue().join(sb, on="ss_store_sk") \
+        .filter(c("revenue").cast(m.double)
+                <= lit(Q65_BAND) * c("ave").cast(m.double)) \
+        .join(stores, on="ss_store_sk").join(items, on="ss_item_sk") \
+        .select("s_store_name", "i_item_desc", "revenue", "i_current_price",
+                "i_wholesale_cost", "i_brand") \
+        .sort("s_store_name", "i_item_desc").limit(AGG_LIMIT)
+
+    def inv(k: int):
+        year = read("date_dim", ["d_date_sk", "d_year", "d_moy"]) \
+            .filter(c("d_year") == lit(Q39_YEAR)) \
+            .select("d_moy", inv_date_sk=c("d_date_sk"))
+        whs = read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]) \
+            .select("w_warehouse_name", inv_warehouse_sk=c("w_warehouse_sk"))
+        its = read("item", ["i_item_sk"]).select(inv_item_sk=c("i_item_sk"))
+        mean = c("mean")
+        cov = c("stdev") / mean
+        foo = read("inventory", ["inv_date_sk", "inv_item_sk",
+                                 "inv_warehouse_sk", "inv_quantity_on_hand"]) \
+            .join(its, on="inv_item_sk").join(whs, on="inv_warehouse_sk") \
+            .join(year, on="inv_date_sk") \
+            .group_by("w_warehouse_name", "inv_warehouse_sk", "inv_item_sk",
+                      "d_moy") \
+            .agg(stdev=m.StddevSamp(c("inv_quantity_on_hand")),
+                 mean=m.Average(c("inv_quantity_on_hand")))
+        return foo.filter(m.CaseWhen([(mean == lit(0.0), lit(0.0))], cov)
+                          > lit(Q39_COVS[0])) \
+            .filter(c("d_moy") == lit(k)) \
+            .select(w_warehouse_sk=c("inv_warehouse_sk"),
+                    i_item_sk=c("inv_item_sk"), **{
+                        f"d_moy{k}": c("d_moy"), f"mean{k}": mean,
+                        f"cov{k}": m.CaseWhen([(mean == lit(0.0),
+                                               lit(None, m.double))], cov)})
+
+    def q39(b: bool):
+        left = inv(1)
+        if b:
+            left = left.filter(c("cov1") > lit(Q39_COVS[1]))
+        return left.join(inv(2), on=["w_warehouse_sk", "i_item_sk"]) \
+            .select("w_warehouse_sk", "i_item_sk", "d_moy1", "mean1", "cov1",
+                    "d_moy2", "mean2", "cov2") \
+            .sort("w_warehouse_sk", "i_item_sk", "d_moy1", "mean1", "cov1",
+                  "d_moy2", "mean2", "cov2")
+
+    p = c("ss_sales_price")
+    dec38 = read("store_sales_dec38", ["ss_store_sk", "ss_sales_price"]) \
+        .select("ss_store_sk", "ss_sales_price").group_by("ss_store_sk") \
+        .agg(total=m.Sum(p), mean=m.Average(p), lowest=m.Min(p),
+             highest=m.Max(p)) \
+        .sort("ss_store_sk")
+    return {"q65": q65, "q39a": q39(False), "q39b": q39(True),
+            "dec38": dec38}
+
+
+def agg_oracle(pa, t: dict) -> dict:
+    """numpy answers to agg_queries over agg_tables, column by column in
+    the queries' order: decimals as unscaled ints (q65's revenue and the
+    decimal(38,18) report's as Python ints), q65's average by the divmod
+    HALF_UP of decimal_mean and compared with the revenues as the engine
+    casts them to DOUBLE; q39's stddev_samp and mean by the JAX moment form
+    over f64 sums of integers (exact in any order). Also returns q65's
+    `ave` per store and the distance of the nearest q39 cov to each
+    cut-off and of the nearest q65 revenue to its bound."""
+    ss, dd = t["store_sales"], t["date_dim"]
+    dsk = dd.column("d_date_sk").to_numpy()
+    seq = np.zeros(dsk.max() + 1, np.int32)
+    seq[dsk] = dd.column("d_month_seq").to_numpy()
+    moy = np.zeros(dsk.max() + 1, np.int32)
+    moy[dsk] = dd.column("d_moy").to_numpy()
+    yr = np.zeros(dsk.max() + 1, np.int32)
+    yr[dsk] = dd.column("d_year").to_numpy()
+    # q65: revenue by (store, item) over TPC-DS's twelve months
+    n_item = t["item"].num_rows
+    date = ss.column("ss_sold_date_sk").to_numpy()
+    store = ss.column("ss_store_sk").to_numpy()
+    item = ss.column("ss_item_sk").to_numpy()
+    cents, valid = unscaled(ss.column("ss_sales_price"))
+    inm = (seq[date] >= Q65_MONTHS[0]) & (seq[date] <= Q65_MONTHS[1])
+    key = store[inm] * (n_item + 1) + item[inm]
+    groups, gid = np.unique(key, return_inverse=True)
+    ok = valid[inm]
+    rev = np.zeros(len(groups), np.int64)
+    np.add.at(rev, gid[ok], cents[inm][ok])
+    has = np.bincount(gid[ok], minlength=len(groups)) > 0
+    g_store, g_item = groups // (n_item + 1), groups % (n_item + 1)
+    q65_groups = len(groups)
+    n_store = t["store"].num_rows
+    s_sum = np.zeros(n_store + 1, np.int64)
+    s_cnt = np.zeros(n_store + 1, np.int64)
+    np.add.at(s_sum, g_store[has], rev[has])
+    np.add.at(s_cnt, g_store[has], 1)
+    ave = decimal_mean(s_sum, s_cnt)  # decimal(21,6), unscaled
+    lhs = rev.astype(np.float64) / 10.0 ** MONEY[1]
+    rhs = Q65_BAND * (ave[g_store].astype(np.float64)
+                      / 10.0 ** (MONEY[1] + AVG_EXTRA_SCALE))
+    keep = has & (lhs <= rhs)
+    names = np.array(t["store"].column("s_store_name").to_pylist())
+    st = t["store"].column("s_store_sk").to_numpy()
+    name_of = np.empty(n_store + 1, object)
+    name_of[st] = names
+    descs = np.array(t["item"].column("i_item_desc").to_pylist(), object)
+    rows = sorted(zip(name_of[g_store[keep]], descs[g_item[keep] - 1],
+                      rev[keep], g_item[keep]))[:AGG_LIMIT]
+    price, _ = unscaled(t["item"].column("i_current_price"))
+    cost, _ = unscaled(t["item"].column("i_wholesale_cost"))
+    brand = t["item"].column("i_brand").to_pylist()
+    q65 = {"s_store_name": [r[0] for r in rows],
+           "i_item_desc": [r[1] for r in rows],
+           "revenue": [int(r[2]) for r in rows],
+           "i_current_price": [int(price[r[3] - 1]) for r in rows],
+           "i_wholesale_cost": [int(cost[r[3] - 1]) for r in rows],
+           "i_brand": [brand[r[3] - 1] for r in rows]}
+    # q39: stddev_samp and mean by (warehouse, item, month) of 2001
+    inv = t["inventory"]
+    idate = inv.column("inv_date_sk").to_numpy()
+    iitem = inv.column("inv_item_sk").to_numpy()
+    iwh = inv.column("inv_warehouse_sk").to_numpy()
+    qty = inv.column("inv_quantity_on_hand")
+    qv = ~qty.is_null().to_numpy(zero_copy_only=False)
+    q = qty.fill_null(0).to_numpy().astype(np.float64)
+    in_year = yr[idate] == Q39_YEAR
+    key = ((iwh * (n_item + 1) + iitem) * 13 + moy[idate])[in_year]
+    groups, gid = np.unique(key, return_inverse=True)
+    ok = qv[in_year]
+    x = q[in_year][ok]
+    cnt = np.bincount(gid[ok], minlength=len(groups)).astype(np.float64)
+    s1 = np.bincount(gid[ok], weights=x, minlength=len(groups))
+    s2 = np.bincount(gid[ok], weights=x * x, minlength=len(groups))
+    mean = s1 / np.maximum(cnt, 1.0)
+    m2 = np.maximum(s2 - cnt * mean * mean, 0.0)
+    stdev = np.sqrt(m2 / np.maximum(cnt - 1.0, 1.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cov = stdev / mean
+    defined = (cnt > 1) & (mean != 0)  # stdev null at n <= 1; cov at 0
+    g_moy = groups % 13
+    g_wi = groups // 13
+    sel = defined & (cov > Q39_COVS[0])
+    by_month = {k: {int(w): i for i, w in zip(np.flatnonzero(sel & (
+        g_moy == k)), g_wi[sel & (g_moy == k)])} for k in (1, 2)}
+    near = {cut: float(np.min(np.abs(cov[defined] - cut)))
+            for cut in Q39_COVS}
+    out = {}
+    for name, cut in (("q39a", None), ("q39b", Q39_COVS[1])):
+        pairs = sorted((wi, by_month[1][wi], j) for wi, j in
+                       by_month[2].items() if wi in by_month[1]
+                       and (cut is None or cov[by_month[1][wi]] > cut))
+        cols = {k: [] for k in ("w_warehouse_sk", "i_item_sk", "d_moy1",
+                                "mean1", "cov1", "d_moy2", "mean2", "cov2")}
+        for wi, i1, i2 in pairs:
+            cols["w_warehouse_sk"].append(int(wi // (n_item + 1)))
+            cols["i_item_sk"].append(int(wi % (n_item + 1)))
+            for k, ix in ((1, i1), (2, i2)):
+                cols[f"d_moy{k}"].append(k)
+                cols[f"mean{k}"].append(float(mean[ix]))
+                cols[f"cov{k}"].append(float(cov[ix]))
+        out[name] = cols
+    # the decimal(38,18) report by store: Python ints from cents
+    d38 = t["store_sales_dec38"]
+    store = d38.column("ss_store_sk").to_numpy()
+    tot = np.zeros(n_store + 1, np.int64)
+    np.add.at(tot, store[valid], cents[valid])
+    cnt = np.bincount(store[valid], minlength=n_store + 1)
+    lo = np.full(n_store + 1, np.iinfo(np.int64).max)
+    hi = np.full(n_store + 1, np.iinfo(np.int64).min)
+    np.minimum.at(lo, store[valid], cents[valid])
+    np.maximum.at(hi, store[valid], cents[valid])
+    unit = 10 ** DEC38_SHIFT
+    sks = [int(k) for k in np.unique(store)]
+
+    def half_up(num: int, den: int) -> int:
+        qq, r = divmod(abs(num), den)
+        qq += 2 * r >= den
+        return -qq if num < 0 else qq
+    dec38 = {"ss_store_sk": sks,
+             "total": [int(tot[k]) * unit if cnt[k] else None for k in sks],
+             "mean": [half_up(int(tot[k]) * unit * 10 ** AVG_EXTRA_SCALE,
+                              int(cnt[k])) if cnt[k] else None for k in sks],
+             "lowest": [int(lo[k]) * unit if cnt[k] else None for k in sks],
+             "highest": [int(hi[k]) * unit if cnt[k] else None for k in sks]}
+    bound = np.abs(lhs - rhs)[has]
+    return {"q65": q65, "q39a": out["q39a"], "q39b": out["q39b"],
+            "dec38": dec38, "q65_ave": {int(k): int(ave[k]) for k in sks},
+            "q39_groups": int(len(groups)), "q65_groups": int(q65_groups),
+            "nearest_cov": near,
+            "nearest_q65_bound": float(bound.min()) if len(bound) else None}
+
+
+def unscaled128(col) -> list:
+    """An Arrow decimal128 column -> its unscaled values as Python ints
+    (None where null), from its 16-byte words."""
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], np.int64,
+                          count=2 * (arr.offset + n)).reshape(-1, 2)[
+        arr.offset:]
+    valid = np.asarray(arr.is_valid()) if arr.null_count else \
+        np.ones(n, bool)
+    return [((int(h) << 64) | (int(lo) & (2 ** 64 - 1))) if ok else None
+            for (lo, h), ok in zip(words.tolist(), valid)]
+
+
+AGG_DECIMALS = {"q65": {"revenue": (17, 2), "i_current_price": MONEY,
+                        "i_wholesale_cost": MONEY},
+                "dec38": {"total": DEC38, "mean": (38, 22),
+                          "lowest": DEC38, "highest": DEC38}}
+AGG_APPROX = ("mean1", "cov1", "mean2", "cov2")
+
+
+def check_agg_query(pa, name: str, out, want: dict) -> None:
+    """Raise unless `out` equals the oracle row for row, in the query's
+    order: decimals (with their types) as unscaled ints, q39's means and
+    covs within rtol 1e-12, everything else exactly."""
+    n = len(next(iter(want.values())))
+    if out.num_rows != n or out.column_names != list(want):
+        raise AssertionError(f"{name}: {out.num_rows} rows of "
+                             f"{out.column_names}, oracle {n} of "
+                             f"{list(want)}")
+    for col, exp in want.items():
+        c = out.column(col)
+        if col in AGG_DECIMALS.get(name, {}):
+            if c.type != pa.decimal128(*AGG_DECIMALS[name][col]):
+                raise AssertionError(f"{name}: column {col} is {c.type}")
+            got = unscaled128(c)
+        else:
+            got = c.to_pylist()
+        if col in AGG_APPROX:
+            ok = n == 0 or np.allclose(got, exp, rtol=1e-12, atol=0.0)
+        else:
+            ok = got == exp
+        if not ok:
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+
+
+def parity_table(pa, n: int, seed: int = 53):
+    """One batch for the module parity check: 1,024 groups, nulls in every
+    value column, NaN among the doubles, a column `u` with one valid value
+    a group. The doubles hold integers of at most 1,000, so every power
+    sum of the moments (below 2^53) is exact in any order: the card's
+    atomic adds and the CPU's sequential ones give the same sums, and
+    skewness and kurtosis, which cancel sums of x^3 and x^4, compare to
+    rtol 1e-12."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 1024, n).astype(np.int32)
+    null = rng.random(n) < 0.1
+    x = rng.integers(-1000, 1001, n).astype(np.float64)
+    x[rng.random(n) < 0.001] = np.nan
+    first = np.zeros(n, bool)
+    first[np.unique(g, return_index=True)[1]] = True
+    words = np.array(["", "a", "ab", "b", "zz", "é", "a\x00", "x" * 40,
+                      "amalg", "edu pack"], object)
+    return pa.table({
+        "g": g, "x": pa.array(x, mask=null),
+        "i": pa.array(rng.integers(-1000, 1000, n).astype(np.int32),
+                      mask=null),
+        "b": pa.array(rng.random(n) < 0.7, mask=null),
+        "l": pa.array(rng.integers(-2 ** 62, 2 ** 62, n), mask=null),
+        "y": pa.array(rng.integers(-128, 128, n).astype(np.int8), mask=null),
+        "h": pa.array(rng.integers(-2 ** 15, 2 ** 15, n).astype(np.int16),
+                      mask=null),
+        "s": pa.array(list(words[rng.integers(0, len(words), n)]),
+                      mask=null),
+        "d": dec38_array(pa, rng.integers(-10 ** 7 + 1, 10 ** 7, n), ~null),
+        "u": pa.array(rng.integers(0, 99, n), mask=~first)})
+
+
+def parity_aggregates():
+    """Every aggregate of slice 9, as the port's constructors."""
+    from spark_rapids_tpu_torch import expr as E
+    c = E.col
+    return dict(
+        vp=E.VariancePop(c("x")), vs=E.VarianceSamp(c("x")),
+        sp=E.StddevPop(c("i")), ss=E.StddevSamp(c("x")),
+        sk=E.Skewness(c("x")), ku=E.Kurtosis(c("i")),
+        ci=E.CountIf(c("b")), ba=E.BoolAnd(c("b")), bo=E.BoolOr(c("b")),
+        band=E.BitAndAgg(c("l")), bor=E.BitOrAgg(c("y")),
+        bx=E.BitXorAgg(c("h")), f=E.First(c("s")), la=E.Last(c("x")),
+        fi=E.First(c("u"), True), li=E.Last(c("d"), True),
+        mins=E.Min(c("s")), maxs=E.Max(c("s")), mind=E.Min(c("d")),
+        maxd=E.Max(c("d")), sd=E.Sum(c("d")), ad=E.Average(c("d")))
+
+
+def module_parity(torch, pa, dev, n: int = ARROW_BATCH_ROWS) -> dict:
+    """Every aggregate of the slice over one batch of n rows, through the
+    same exec on `dev` and on the CPU: equal results (doubles within rtol
+    1e-12, NaN equal to NaN; every other value exactly)."""
+    from spark_rapids_tpu_torch.plugin import TpuSession
+    t = parity_table(pa, n)
+    conf = {"spark.rapids.sql.batchSizeRows": n}
+    outs = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        outs[str(where)] = (TpuSession(conf, device=where).from_arrow(t)
+                            .group_by("g").agg(**parity_aggregates())
+                            .collect().sort_by("g"),
+                            time.perf_counter() - t0)
+    (got, got_s), (want, want_s) = outs[str(dev)], outs["cpu"]
+    if got.schema != want.schema or got.num_rows != want.num_rows:
+        raise AssertionError("module parity: the results' shapes differ")
+    for name in want.column_names:
+        a, b = want.column(name), got.column(name)
+        if not a.is_null().equals(b.is_null()):
+            raise AssertionError(f"module parity: {name}'s nulls differ")
+        if pa.types.is_floating(a.type):
+            ok = np.allclose(b.drop_null().to_numpy(),
+                             a.drop_null().to_numpy(), rtol=1e-12, atol=0.0,
+                             equal_nan=True)
+        else:
+            ok = a.equals(b)
+        if not ok:
+            raise AssertionError(f"module parity: {name} differs between "
+                                 f"{dev} and the CPU")
+    return {"rows": n, "groups": got.num_rows,
+            "aggregates": list(parity_aggregates()),
+            "device_s": got_s, "cpu_s": want_s, "rtol_double": 1e-12}
+
+
+# sold dates are uniform over every row group (as in tpcds_joins): the
+# phase turns dynamic pruning off so that the date joins fuse and launch A
+AGG_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
+# kernel launches of one collect of each query, as PERF.md predicts them
+# for agg_tables' files at AGG_SIZES (store_sales 16 row groups: 4 merged
+# batches; inventory 17: 5). A: 2 per fused join per merged batch (one
+# int64 key each), on q65's two date joins (2 x 4 x 2) and its sb, store
+# and item joins (one batch on one device, 4 shard batches distributed:
+# 3 x 2 or 3 x 4 x 2), and on q39's item, warehouse and date joins of each
+# inventory scan (2 x 3 x 5 x 2); q39's self-join is shuffled. C: the
+# distributed fused partial aggregates' int64 sums: q65's revenue Sum
+# (its sum and its count) over 2 x 4 scan batches, q39's two counts
+# (stddev_samp's and avg's; their sums are f64) over 2 x 5, and the
+# decimal(38,18) report's 12 a batch over 4 (Sum and Average: four chunk
+# sums and a count each; Min and Max: a count each); none on one device,
+# and sb's Average (whose chunk sums are 128-bit) is not fused
+AGG_LAUNCHES = {
+    "one_device": {"q65": (22, 0), "q39a": (60, 0), "q39b": (60, 0),
+                   "dec38": (0, 0)},
+    "distributed": {"q65": (40, 16), "q39a": (60, 20), "q39b": (60, 20),
+                    "dec38": (0, 48)},
+}
+
+
+def agg_data(pa, d: str, sizes=AGG_SIZES) -> dict:
+    """agg_tables, their oracle and their parquet files in directory d,
+    with the seconds each took."""
+    import pyarrow.parquet as pq
+    t0 = time.monotonic()
+    tables = agg_tables(pa, sizes)
+    t1 = time.monotonic()
+    want = agg_oracle(pa, tables)
+    t2 = time.monotonic()
+    paths = write_parquet(pq, tables, d, tag="_aggs")
+    return {"tables": tables, "oracle": want, "paths": paths,
+            "tables_s": t1 - t0, "oracle_s": t2 - t1,
+            "write_s": time.monotonic() - t2}
+
+
+def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
+                      conf=None, device=None, rounds=AGG_ROUNDS, warmup=True,
+                      want_launches=AGG_LAUNCHES, data=None,
+                      parity_rows=ARROW_BATCH_ROWS):
+    """Phase tpcds_aggregates: q65, q39a, q39b and the decimal(38,18)
+    report over agg_tables' parquet files, on one device and under the
+    distributed plan (`mesh_conf`), fusion on and dynamic pruning off
+    (AGG_CONF). After a warm-up collect of each query (with `warmup`),
+    each is collected `rounds` times, timed: every result is held against
+    agg_oracle row for row and every collect's launches of A and C against
+    `want_launches`. Then the decimal(38,18) file is decoded on the device
+    and held against pq.read_table (both timed), and every aggregate of the
+    slice runs over one batch on the device and on the CPU (module_parity).
+    q39a's device idle share comes from one traced collect. Returns the
+    launch counts of each plan's run (one collect of each query) and the
+    arguments of A's first call in a one-device q39a collect and of C's
+    first in a distributed q65 collect."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.io import parquet_device as P
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **AGG_CONF,
+                **{"spark.rapids.tpu.fusion.enabled": True})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}
+
+    launches, record = {}, {}
+    with (contextlib.nullcontext() if data is not None else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_aggs_")) as d:
+        if data is None:
+            data = agg_data(pa, d, sizes)
+        want, paths = data["oracle"], data["paths"]
+        m = agg_namespace()
+        for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+            qs = agg_queries(TpuSession(dict(conf, **extra), dev), m, paths)
+            shapes = {n: q.explain() for n, q in qs.items()}
+            if warmup:
+                for n, q in qs.items():
+                    check_agg_query(pa, n, q.collect(), want[n])
+            per_query, run = {}, {}
+            for n, q in qs.items():
+                walls, a, c = [], *want_launches[plan][n]
+                for _ in range(rounds):
+                    t0 = time.perf_counter()
+                    out, run[n] = counted(q.collect)
+                    walls.append(time.perf_counter() - t0)
+                    check_agg_query(pa, n, out, want[n])
+                    del out
+                    if (run[n]["murmur3_rows"], run[n]["segment_sum_i64"],
+                            run[n]["segment_sum_f64"]) != (a, c, 0):
+                        raise AssertionError(f"{n} ({plan}) launched "
+                                             f"{run[n]}, not A {a} and C {c}")
+                per_query[n] = {
+                    "rows": len(next(iter(want[n].values()))),
+                    "warm_collect_s": spread(walls),
+                    "launches_per_collect": run[n],
+                    "fused_joins": fused_joins(shapes[n]),
+                    "exchanges": shapes[n].count("TpuShuffleExchangeExec")}
+            path = "tpcds_aggregates" if plan == "one_device" else \
+                "tpcds_aggregates_distributed"
+            launches[path] = {k: sum(r[k] for r in run.values())
+                              for k in run["q65"]}
+            if plan == "one_device":
+                a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                         qs["q39a"].collect)
+                per_query["q39a"]["device_idle_share"] = idle_share(
+                    torch, qs["q39a"].collect)
+            else:
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64", qs["q65"].collect)
+            record[plan] = {"queries": per_query,
+                            "launches_per_path_run": launches[path]}
+        # the decimal(38,18) column decoded on the device against pyarrow
+        path38 = paths["store_sales_dec38"]
+        schema = Schema.from_arrow(pq.read_schema(path38))
+        decode_s, read_s = [], []
+        for _ in range(max(rounds, 1)):
+            t0 = time.perf_counter()
+            batches = list(P.device_decode_file(
+                pq.ParquetFile(path38), path38, schema, dev,
+                CHUNKS_PER_DISPATCH))
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ref = pq.read_table(path38)
+            read_s.append(time.perf_counter() - t0)
+        check_decoded(pa, batches, ref, "decimal(38,18) decode")
+        del batches, ref
+        parity = module_parity(torch, pa, dev, parity_rows)
+    emit({"phase": "tpcds_aggregates", "sizes": sizes,
+          "reduced": {"store_sales": "16,777,216 of 28.8 M rows at SF10",
+                      "inventory": f"{sizes['inventory_weeks']} weeks of "
+                      "2001 of 261 (q39 reads January and February)"},
+          "answers": {"q65_rows": len(want["q65"]["revenue"]),
+                      "q39a_rows": len(want["q39a"]["i_item_sk"]),
+                      "q39b_rows": len(want["q39b"]["i_item_sk"]),
+                      "q39_groups": want["q39_groups"],
+                      "q65_groups": want["q65_groups"],
+                      "nearest_cov_to_cut": want["nearest_cov"],
+                      "nearest_q65_revenue_to_bound":
+                      want["nearest_q65_bound"]},
+          "setup_s": {k: data[k] for k in ("tables_s", "oracle_s",
+                                           "write_s")},
+          "decode_dec38": {"rows": sizes["store_sales"],
+                           "device_decode_s": spread(decode_s),
+                           "pq_read_table_s": spread(read_s),
+                           "equal_to_pq_read_table": True},
+          "module_parity": parity,
+          "exact": "decimals (unscaled ints) and keys against the numpy "
+          "oracle, row for row", "rtol_q39": 1e-12, **record})
+    return launches, a_args, c_args
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2730,6 +3390,15 @@ def main() -> int:
         join_launches, join_a_args, join_c_args = joins_phases(
             torch, pa, mesh_conf, kernels3, data=join_data(pa, d))
 
+    # ---- tpcds_aggregates: q65 (an average of revenue sums, 128-bit
+    # partial sums), q39a/q39b (stddev_samp over inventory) and the
+    # decimal(38,18) report from parquet, one device and distributed; the
+    # decimal(38,18) decode; every aggregate of slice 9 on the card and the
+    # CPU
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aggs_") as d:
+        agg_launches, agg_a_args, agg_c_args = aggregates_phases(
+            torch, pa, mesh_conf, kernels3, data=agg_data(pa, d))
+
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
     # of a one-device Q7 collect, from Arrow tables and from parquet (a
@@ -2746,7 +3415,10 @@ def main() -> int:
                 torch, ord_a_args, rate, path="ordered_reports",
                 query="q7"),
             "tpcds_joins": murmur3_on_path(
-                torch, join_a_args, rate, path="tpcds_joins", query="q97")}
+                torch, join_a_args, rate, path="tpcds_joins", query="q97"),
+            "tpcds_aggregates": murmur3_on_path(
+                torch, agg_a_args, rate, path="tpcds_aggregates",
+                query="q39a")}
     c_on = {"star_query_distributed": segsum_i64_on_path(
                 torch, c_args, rate, path="star_query_distributed",
                 query="q7"),
@@ -2761,7 +3433,10 @@ def main() -> int:
                 query="q3"),
             "tpcds_joins_distributed": segsum_i64_on_path(
                 torch, join_c_args, rate, path="tpcds_joins_distributed",
-                query="q58")}
+                query="q58"),
+            "tpcds_aggregates_distributed": segsum_i64_on_path(
+                torch, agg_c_args, rate,
+                path="tpcds_aggregates_distributed", query="q65")}
     a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
     c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
     emit({"phase": "kernels_on_paths", "murmur3_rows": a_on,
@@ -2775,7 +3450,8 @@ def main() -> int:
                     **{p: n[name] for p, n in pq_launches.items()},
                     **{p: n[name] for p, n in dec_launches.items()},
                     **{p: n[name] for p, n in ord_launches.items()},
-                    **{p: n[name] for p, n in join_launches.items()})
+                    **{p: n[name] for p, n in join_launches.items()},
+                    **{p: n[name] for p, n in agg_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},
@@ -2784,19 +3460,20 @@ def main() -> int:
                 for p, n in runs.items()}
 
     # ---- 11. every kernel the run launched. A's and C's rows name the
-    # TPC-DS joins' paths (this slice's) whose launches and inputs they
+    # TPC-DS aggregates' paths (slice 9's) whose launches and inputs they
     # give; by_path holds every path's launches (one run of it: one collect
     # of each star query, one collect of each parquet query, one
-    # distributed Q7 collect, one collect of each decimal, ordered and
-    # join query) and, where measured, the times on that path's inputs
-    a_main = a_on["tpcds_joins"]
-    c_main = c_on["tpcds_joins_distributed"]
+    # distributed Q7 collect, one collect of each decimal, ordered, join
+    # and aggregate query) and, where measured, the times on that path's
+    # inputs
+    a_main = a_on["tpcds_aggregates"]
+    c_main = c_on["tpcds_aggregates_distributed"]
     emit({"kernels": [
         {"name": "murmur3_rows", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3_rows.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_probe.py:152",
-         "path": "tpcds_joins",
-         "launches": join_launches["tpcds_joins"]["murmur3_rows"],
+         "path": "tpcds_aggregates",
+         "launches": agg_launches["tpcds_aggregates"]["murmur3_rows"],
          "rows": a_main["rows"], "by_path": on_path("murmur3_rows", a_on),
          "max_abs_err": a_err, "ms": a_main["ms"],
          "plain_ms": a_main["plain_ms"], "bound_ms": a_main["bound_ms"],
@@ -2814,8 +3491,8 @@ def main() -> int:
         {"name": "segment_sum_i64", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/segment_sum_i64.cu",
          "replaces": "spark_rapids_tpu/ops/pallas_groupby.py:140",
-         "path": "tpcds_joins_distributed",
-         "launches": join_launches["tpcds_joins_distributed"][
+         "path": "tpcds_aggregates_distributed",
+         "launches": agg_launches["tpcds_aggregates_distributed"][
              "segment_sum_i64"],
          "rows": c_main["rows"], "by_path": on_path("segment_sum_i64", c_on),
          "max_abs_err": c_err, "ms": c_main["ms"],

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import types as T
-from .column import Column, from_arrow as col_from_arrow, \
+from .column import Column, data_shape, from_arrow as col_from_arrow, \
     to_arrow as col_to_arrow, torch_dtype
 from .padding import row_bucket
 
@@ -129,8 +129,8 @@ def empty_column(dt: T.DataType, cap: int, device: torch.device) -> Column:
         return Column(dt, torch.zeros((cap, 8), dtype=torch.uint8,
                                       device=device), valid,
                       torch.zeros(cap, dtype=torch.int32, device=device))
-    return Column(dt, torch.zeros(cap, dtype=torch_dtype(dt), device=device),
-                  valid)
+    return Column(dt, torch.zeros(data_shape(dt, cap), dtype=torch_dtype(dt),
+                                  device=device), valid)
 
 
 def empty_batch(schema: Schema, device: torch.device,

@@ -19,16 +19,17 @@ at scan conversion.
 
 Fixed-width columns: BOOLEAN, BYTE (int8), SHORT (int16), INT, LONG,
 FLOAT (float32), DOUBLE, DATE (int32 days), TIMESTAMP (int64 microseconds
-since the epoch, UTC) and DECIMAL of precision <= 18 (the int64 unscaled
-value). A wider decimal needs the JAX package's [cap, 2] limb layout,
-which is not ported: it raises NotImplementedError at plan time, as do
-the nested types.
+since the epoch, UTC) and DECIMAL: of precision <= 18 the int64 unscaled
+value, wider the JAX package's limb layout, int64[cap, 2] with the signed
+high limb in column 0 and the low limb's bit pattern in column 1
+(expr/decimal128.py). The nested types raise NotImplementedError at plan
+time.
 
 The Arrow round trip of a decimal is vectorised: Arrow's decimal128 holds
-each value as 16 little-endian bytes of two's complement, and a value of
-18 digits or fewer is its low 8 bytes read as an int64 (the high 8 are its
-sign extension). The JAX package converts one Python Decimal a row; the
-values are the same.
+each value as 16 little-endian bytes of two's complement, that is the
+(lo, hi) pair of int64 words read by a numpy view; a value of 18 digits or
+fewer is its low word (the high one is its sign extension). The JAX
+package converts one Python Decimal a row; the values are the same.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from .padding import row_bucket, width_bucket
 
 __all__ = ["Column", "torch_dtype", "check_supported", "MAX_STRING_WIDTH",
            "check_string_length", "check_string_widths", "from_arrow",
-           "to_arrow"]
+           "to_arrow", "data_shape"]
 
 # widest row of the flat string layout, in bytes (the JAX package's default
 # spark.rapids.tpu.string.headWidth, past which it uses its overflow layout)
@@ -60,7 +61,7 @@ _TORCH_DTYPES = {
     T.DoubleType: torch.float64,
     T.DateType: torch.int32,
     T.TimestampType: torch.int64,
-    T.DecimalType: torch.int64,  # precision <= 18: the unscaled value
+    T.DecimalType: torch.int64,  # the unscaled value, or its two limbs
     T.StringType: torch.uint8,
 }
 
@@ -73,20 +74,20 @@ def check_supported(dt: T.DataType, what: str = "column") -> None:
         raise NotImplementedError(
             f"{what} type {dt.simple_string()} is not supported by "
             "spark_rapids_tpu_torch yet (it carries boolean, byte, short, "
-            "int, long, float, double, date, timestamp, decimal of up to "
-            "18 digits and string)")
-    if isinstance(dt, T.DecimalType) and \
-            dt.precision > T.DecimalType.MAX_LONG_DIGITS:
-        raise NotImplementedError(
-            f"{what} type {dt.simple_string()}: a decimal of more than "
-            f"{T.DecimalType.MAX_LONG_DIGITS} digits needs the 128-bit limb "
-            "layout, which is not supported by spark_rapids_tpu_torch yet")
+            "int, long, float, double, date, timestamp, decimal and "
+            "string)")
 
 
 def torch_dtype(dt: T.DataType) -> torch.dtype:
     """The element type of the data buffer (uint8 bytes for STRING)."""
     check_supported(dt)
     return _TORCH_DTYPES[type(dt)]
+
+
+def data_shape(dt: T.DataType, cap: int) -> tuple:
+    """The data buffer's shape for a fixed-width type: [cap], or [cap, 2]
+    for a decimal of more than 18 digits."""
+    return (cap, 2) if T.is_dec128(dt) else (cap,)
 
 
 def check_string_length(longest: int) -> None:
@@ -167,24 +168,31 @@ def _string_matrix(arr, cap: int):
     return chars, _pad_to(lens.astype(np.int32), cap)
 
 
-def _decimal_unscaled(arr) -> np.ndarray:
-    """Arrow decimal128 array (precision <= 18) -> int64 unscaled values,
-    the low 8 bytes of each 16-byte value; null slots hold 0."""
+def _decimal_unscaled(arr, wide: bool) -> np.ndarray:
+    """Arrow decimal128 array -> its unscaled values: int64 (the low word
+    of each 16-byte value) for precision <= 18, else int64[n, 2] limbs
+    (hi, lo); null slots hold 0."""
     n = len(arr)
     words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
-                          count=2 * (arr.offset + n))[2 * arr.offset::2]
+                          count=2 * (arr.offset + n)).reshape(-1, 2)
+    words = words[arr.offset:]
+    vals = words[:, ::-1] if wide else words[:, 0]
     if arr.null_count:
-        return np.where(np.asarray(arr.is_valid()), words, 0)
-    return words.copy()
+        valid = np.asarray(arr.is_valid())
+        return np.where(valid[:, None] if wide else valid, vals, 0)
+    return np.ascontiguousarray(vals)
 
 
 def _decimal_array(vals: np.ndarray, valid: np.ndarray, dt: T.DecimalType):
-    """int64 unscaled values -> Arrow decimal128 array: each value's 8
-    bytes, then its sign extension."""
+    """Unscaled values (int64, or int64[n, 2] limbs hi, lo) -> Arrow
+    decimal128 array: each value's low word, then its high word."""
     import pyarrow as pa
     words = np.empty((len(vals), 2), np.int64)
-    words[:, 0] = vals
-    words[:, 1] = vals >> 63
+    if vals.ndim == 2:
+        words[:, 0], words[:, 1] = vals[:, 1], vals[:, 0]
+    else:
+        words[:, 0] = vals
+        words[:, 1] = vals >> 63
     nulls = int((~valid).sum())
     bitmap = pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()) \
         if nulls else None
@@ -224,7 +232,7 @@ def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
     if isinstance(dtype, T.DecimalType):
         if pa.types.is_decimal256(arr.type):
             arr = arr.cast(pa.decimal128(dtype.precision, dtype.scale))
-        vals = _decimal_unscaled(arr)
+        vals = _decimal_unscaled(arr, T.is_dec128(dtype))
     elif isinstance(dtype, T.TimestampType):
         vals = _timestamp_micros(arr)
     elif isinstance(dtype, T.DateType):

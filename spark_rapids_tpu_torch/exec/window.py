@@ -32,8 +32,10 @@ Differences from the JAX exec:
     rank among the batch's distinct strings, and gather the winning row's
     bytes, where the JAX exec scans byte matrices with a lexicographic
     combine. The results are the same strings.
-  * First/Last frames need the First/Last aggregates, which are not ported
-    yet; the planner refuses them.
+  * First/Last frames pick each row's first/last index of its frame (its
+    first/last valid index for IGNORE NULLS, by a search over the prefix
+    count of valid rows) and gather it, as the JAX exec does; limbs and
+    string rows gather whole, as in Lead, Lag and NthValue.
 """
 
 from __future__ import annotations
@@ -425,6 +427,8 @@ def _eval_device_agg(fn: WindowAggregate, env: _WinEnv) -> Vec:
         frame.upper == 0
     running_range = isinstance(frame, RangeFrame) and \
         frame.lower is None and frame.upper == 0
+    if name in ("First", "Last"):
+        return _first_last(name, func, v, frame, env)
     is_string = v is not None and v.is_string
     vcount_all = segment_sum(valid.to(torch.int64), gid, cap)[gid]
 
@@ -502,6 +506,30 @@ def _eval_device_agg(fn: WindowAggregate, env: _WinEnv) -> Vec:
     wsum = p_acc[hi_s] - p_acc[lo_s] + acc[lo_s]
     wsum = torch.where(empty, torch.zeros_like(wsum), wsum)
     return _finish(name, out_t, wsum, wcnt)
+
+
+def _first_last(name: str, func, v: Vec, frame, env: _WinEnv) -> Vec:
+    """First/Last over each row's frame [lo, hi] (JAX `_eval_device_agg`):
+    the bound itself, or with IGNORE NULLS the first/last valid index in
+    the frame, where the prefix count of valid rows first reaches its
+    target."""
+    lo, hi = _frame_bounds(frame, env)
+    lo, hi = lo.to(torch.int64), hi.to(torch.int64)
+    empty = hi < lo
+    cap = env.cap
+    if func.ignore_nulls:
+        p = torch.cumsum(v.validity & env.mask, dim=0, dtype=torch.int64)
+        before = torch.where(lo > 0, p[torch.clamp(lo - 1, min=0)], 0)
+        in_frame = p[torch.clamp(hi, 0, cap - 1)] - before
+        target = before + 1 if name == "First" else before + in_frame
+        j = torch.searchsorted(p, target)
+        got = (in_frame > 0) & ~empty
+    else:
+        j = lo if name == "First" else hi
+        got = ~empty
+    safe = torch.clamp(j, 0, cap - 1)
+    out = v.gather(safe)
+    return out.with_validity(out.validity & got & env.mask[safe])
 
 
 def _window_count(valid, lo_s, hi_s, empty) -> torch.Tensor:

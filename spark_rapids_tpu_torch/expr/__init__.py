@@ -11,7 +11,11 @@ from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401
 from .conditional import If, CaseWhen, Least, Greatest  # noqa: F401
 from .hashing import hash_vecs  # noqa: F401
 from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
-                         Max, Average, First, Last)
+                         Max, Average, First, Last, CountDistinct,
+                         VariancePop, VarianceSamp, StddevPop, StddevSamp,
+                         CollectList, CollectSet, ApproximatePercentile,
+                         CountIf, BoolAnd, BoolOr, BitAndAgg, BitOrAgg,
+                         BitXorAgg, Skewness, Kurtosis)
 from .windowexprs import (RowFrame, RangeFrame, default_frame,  # noqa: F401
                           is_value_range_frame, WindowFunction, RowNumber,
                           Rank, DenseRank, PercentRank, CumeDist, NTile,

@@ -1,5 +1,4 @@
-"""Aggregate function descriptors (`spark_rapids_tpu/expr/aggregates.py`:
-Sum, Count, Min, Max, Average).
+"""Aggregate function descriptors (`spark_rapids_tpu/expr/aggregates.py`).
 
 Each aggregate declares its partial-buffer types; the hash-aggregate exec
 lowers them to sort-based segmented reductions. `Sum` over integrals widens
@@ -10,9 +9,19 @@ decimal(p, s) the exact int64 sum, decimal(p + 10, s), whose mean is
 rounded HALF_UP to decimal(p + 4, s + 4) (Spark's result type). The JAX
 package keeps a DOUBLE sum there and returns a double of the unscaled mean.
 
-`First` and `Last` are descriptors only, with the JAX signature: no exec
-carries them yet, so a grouped aggregate or a window frame over them
-raises at plan time.
+Over a decimal the Average's sum may pass 18 digits (p >= 9): it is then a
+128-bit limb sum, and its mean is rounded HALF_UP in limbs.
+
+The rest of the JAX `_agg_one` family: `First`/`Last` (optionally
+ignoring nulls), the variance family (VariancePop, VarianceSamp,
+StddevPop, StddevSamp: DOUBLE sum, sum of squares and LONG count
+partials), `CountIf`, `BoolAnd`/`BoolOr`, the bitwise `BitAndAgg`/
+`BitOrAgg`/`BitXorAgg`, and `Skewness`/`Kurtosis` (four power sums and a
+count). `CountDistinct`, `CollectList`, `CollectSet` and
+`ApproximatePercentile` are descriptors only, with the JAX signatures: the
+JAX exec computes the single-pass ones over array columns, which the port
+does not carry, and no JAX exec computes CountDistinct, so the planner
+refuses all four.
 """
 
 from __future__ import annotations
@@ -23,10 +32,16 @@ from .. import types as T
 from .base import Expression
 
 __all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average",
-           "First", "Last"]
+           "First", "Last", "CountDistinct", "VariancePop", "VarianceSamp",
+           "StddevPop", "StddevSamp", "CollectList", "CollectSet",
+           "ApproximatePercentile", "CountIf", "BoolAnd", "BoolOr",
+           "BitAndAgg", "BitOrAgg", "BitXorAgg", "Skewness", "Kurtosis"]
 
 
 class AggregateFunction(Expression):
+    # data-dependent output fanout (the JAX single-pass path)
+    single_pass = False
+
     def __init__(self, child: Optional[Expression] = None):
         super().__init__([] if child is None else [child])
 
@@ -108,4 +123,140 @@ class First(AggregateFunction):
 
 
 class Last(First):
+    pass
+
+
+class CountDistinct(AggregateFunction):
+    """count(distinct x): a descriptor only (no JAX exec computes it)."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+
+class _VarianceFamily(AggregateFunction):
+    """var_pop/var_samp/stddev_pop/stddev_samp from (sum, sum of squares,
+    count) partials, the JAX moment form."""
+    sample = False
+    sqrt = False
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    def partial_types(self) -> List[T.DataType]:
+        return [T.DOUBLE, T.DOUBLE, T.LONG]
+
+
+class VariancePop(_VarianceFamily):
+    pass
+
+
+class VarianceSamp(_VarianceFamily):
+    sample = True
+
+
+class StddevPop(_VarianceFamily):
+    sqrt = True
+
+
+class StddevSamp(_VarianceFamily):
+    sample = True
+    sqrt = True
+
+
+class CollectList(AggregateFunction):
+    """collect_list: a descriptor only (array results are not carried)."""
+    single_pass = True
+
+    @property
+    def data_type(self):
+        return T.ArrayType(self.child.data_type)
+
+
+class CollectSet(CollectList):
+    """collect_set: a descriptor only."""
+
+
+class ApproximatePercentile(AggregateFunction):
+    """approx_percentile(col, percentage[, accuracy]): a descriptor only."""
+    single_pass = True
+
+    def __init__(self, child, percentages, accuracy: int = 10000):
+        super().__init__(child)
+        self.scalar = not isinstance(percentages, (list, tuple))
+        self.percentages = [percentages] if self.scalar else \
+            list(percentages)
+        self.accuracy = accuracy
+
+    def __repr__(self):
+        return (f"{self.name}({self.children[0]!r}, "
+                f"{self.percentages}, {self.accuracy})")
+
+    @property
+    def data_type(self):
+        return T.DOUBLE if self.scalar else T.ArrayType(T.DOUBLE)
+
+
+class CountIf(AggregateFunction):
+    """count_if(predicate): rows where the predicate is true."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+
+class BoolAnd(AggregateFunction):
+    """bool_and / every."""
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+
+class BoolOr(AggregateFunction):
+    """bool_or / any / some."""
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+
+class _BitAgg(AggregateFunction):
+    """bit_and/bit_or/bit_xor over integral inputs."""
+    op = "and"
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+
+class BitAndAgg(_BitAgg):
+    op = "and"
+
+
+class BitOrAgg(_BitAgg):
+    op = "or"
+
+
+class BitXorAgg(_BitAgg):
+    op = "xor"
+
+
+class _MomentFamily(AggregateFunction):
+    """skewness / kurtosis from the power sums s1..s4 and a count."""
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    def partial_types(self) -> List[T.DataType]:
+        return [T.DOUBLE] * 4 + [T.LONG]
+
+
+class Skewness(_MomentFamily):
+    pass
+
+
+class Kurtosis(_MomentFamily):
     pass

@@ -9,9 +9,11 @@ IntegralDivide LONG; IntegralDivide, Remainder and Pmod truncate toward
 zero as Java does, and x / 0 is null. This engine is non-ANSI only: the
 planner rejects ANSI mode before any of this runs.
 
-Decimals (precision <= 18): Add and Subtract rescale both sides to the
-larger scale in 128-bit limbs (expr/decimal128.py) and a result past its
-precision is null (JAX `_decimal_addsub`). Divide with a decimal operand
+Decimals: Add and Subtract rescale both sides to the larger scale in
+128-bit limbs, or in the 256-bit chain where a rescaled operand passes 38
+digits or the result scale drops (expr/decimal128.py), and a result past
+its precision is null (JAX `_decimal_addsub`); UnaryMinus and Abs negate
+limbs (-2^127 stays itself, as in the JAX package). Divide with a decimal operand
 divides the operands' values, the unscaled integers times 10^-scale, which
 is Spark's rule; the JAX engine divides the unscaled integers and is off by
 the scales' difference. Decimal Multiply, decimal operands of the integral
@@ -89,21 +91,39 @@ class BinaryArithmetic(BinaryExpression):
         return T.numeric_promote(lt, rt)
 
     def _decimal_addsub(self, l: Vec, r: Vec) -> Vec:
-        """Exact decimal +/-: both sides rescaled to the larger scale in
-        128-bit limbs, added, and a result past the result precision null.
-        The planner admits only results of <= 18 digits, so the result
-        scale is the larger input scale and no rounding happens."""
-        from .decimal128 import (add128, in_bounds, neg128, rescale_up,
-                                 widen_operand)
+        """Exact decimal +/- (JAX `_decimal_addsub`): both sides rescaled
+        to the larger input scale, added, rounded HALF_UP to the result
+        scale, and a result past the result precision null. While the
+        rescaled operands stay within 38 digits and the scale is kept, in
+        128-bit limbs (a sum that wraps lands out of bounds); otherwise in
+        the 256-bit chain, where nothing wraps."""
+        from . import decimal128 as D
         out_t = self.data_type
         s = max(l.dtype.scale, r.dtype.scale)
-        lhi, llo = rescale_up(*widen_operand(l.data), s - l.dtype.scale)
-        rhi, rlo = rescale_up(*widen_operand(r.data), s - r.dtype.scale)
-        if isinstance(self, Subtract):
-            rhi, rlo = neg128(rhi, rlo)
-        hi, lo = add128(lhi, llo, rhi, rlo)
-        ok = in_bounds(hi, lo, out_t.precision)
-        return Vec(out_t, lo, and_validity(l.validity, r.validity) & ok)
+        k_l, k_r = s - l.dtype.scale, s - r.dtype.scale
+        lhi, llo = D.widen_operand(l.data)
+        rhi, rlo = D.widen_operand(r.data)
+        if out_t.scale == s and l.dtype.precision + k_l <= 38 and \
+                r.dtype.precision + k_r <= 38:
+            lhi, llo = D.mul_pow10(lhi, llo, k_l)
+            rhi, rlo = D.mul_pow10(rhi, rlo, k_r)
+            if isinstance(self, Subtract):
+                rhi, rlo = D.neg128(rhi, rlo)
+            hi, lo = D.add128(lhi, llo, rhi, rlo)
+            ok = D.in_bounds(hi, lo, out_t.precision)
+        else:
+            wl = D.wide_mul_pow10(D.wide_from128(lhi, llo), k_l)
+            wr = D.wide_mul_pow10(D.wide_from128(rhi, rlo), k_r)
+            if isinstance(self, Subtract):
+                wr = D.wide_neg(wr)
+            ws = D.wide_div_pow10_half_up(D.wide_add(wl, wr),
+                                          s - out_t.scale)
+            hi, lo, fits = D.wide_to128(ws)
+            ok = fits & D.in_bounds(hi, lo, out_t.precision)
+        validity = and_validity(l.validity, r.validity) & ok
+        if D.is_dec128(out_t):
+            return Vec(out_t, D.pack_limbs(hi, lo), validity)
+        return Vec(out_t, lo, validity)
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         if isinstance(l.dtype, T.DecimalType) and \
@@ -232,6 +252,11 @@ class UnaryMinus(Expression):
         return self.children[0].data_type
 
     def _compute(self, ctx, c: Vec) -> Vec:
+        if c.data.dim() == 2:  # decimal128 limbs
+            from .decimal128 import neg128, pack_limbs
+            return Vec(c.dtype, pack_limbs(*neg128(c.data[:, 0],
+                                                   c.data[:, 1])),
+                       c.validity)
         return Vec(c.dtype, (-c.data).to(c.data.dtype), c.validity)
 
 
@@ -244,4 +269,8 @@ class Abs(Expression):
         return self.children[0].data_type
 
     def _compute(self, ctx, c: Vec) -> Vec:
+        if c.data.dim() == 2:  # decimal128 limbs
+            from .decimal128 import abs128, pack_limbs
+            hi, lo, _ = abs128(c.data[:, 0], c.data[:, 1])
+            return Vec(c.dtype, pack_limbs(hi, lo), c.validity)
         return Vec(c.dtype, torch.abs(c.data), c.validity)

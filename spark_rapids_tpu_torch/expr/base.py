@@ -283,15 +283,17 @@ class Literal(LeafExpression):
         self._rows = {}
 
     def _decimal_row(self, dev: torch.device) -> torch.Tensor:
-        """The unscaled value, copied to each device once."""
+        """The unscaled value, copied to each device once: int64[1], or
+        int64[1, 2] limbs (hi, lo) past 18 digits."""
         row = self._rows.get(dev)
         if row is None:
+            from .decimal128 import is_dec128, split_int, unscaled_int
             v = self.value
             if isinstance(v, _decimal.Decimal):
-                from .decimal128 import unscaled_int
                 v = unscaled_int(v, self._dtype.scale)
-            row = self._rows[dev] = torch.tensor([int(v)],
-                                                 dtype=torch.int64).to(dev)
+            v = [list(split_int(int(v)))] if is_dec128(self._dtype) else \
+                [int(v)]
+            row = self._rows[dev] = torch.tensor(v, dtype=torch.int64).to(dev)
         return row
 
     def _string_row(self, dev: torch.device) -> torch.Tensor:
@@ -330,7 +332,8 @@ class Literal(LeafExpression):
                                   dtype=torch.int32, device=dev))
         if isinstance(self._dtype, T.DecimalType):
             # broadcast as a string literal is: one row, read by every row
-            return Vec(self._dtype, self._decimal_row(dev).expand(n), ones)
+            row = self._decimal_row(dev)
+            return Vec(self._dtype, row.expand((n,) + row.shape[1:]), ones)
         return Vec(self._dtype, torch.full((n,), self.value,
                                            dtype=torch_dtype(self._dtype),
                                            device=dev), ones)

@@ -5,7 +5,9 @@ timestamp casts), non-ANSI.
 Java semantics: integral narrowing wraps; float -> integral truncates
 toward zero, clamps to the target's range and maps NaN to 0; -> BOOLEAN is
 `!= 0`. Decimal casts rescale the unscaled value, HALF_UP when the scale
-drops, and a value past the target precision or integral range is null.
+drops, and a value past the target precision or integral range is null;
+a decimal of more than 18 digits on either side rescales in limbs
+(`_decimal128_cast`).
 DATE -> TIMESTAMP is midnight UTC, TIMESTAMP -> DATE and -> LONG
 floor-divide (days, seconds), LONG -> TIMESTAMP multiplies seconds.
 Casts from and to strings and float -> decimal are not ported: the
@@ -117,7 +119,10 @@ def _numeric_cast(c: Vec, dst: T.DataType) -> Vec:
 
 
 def _decimal_cast(c: Vec, dst: T.DataType) -> Vec:
+    from .decimal128 import is_dec128
     src = c.dtype
+    if is_dec128(src) or is_dec128(dst):
+        return _decimal128_cast(c, dst)
     a = c.data.to(torch.int64)
     if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
         shift = dst.scale - src.scale
@@ -156,3 +161,40 @@ def _half_up_div(a: torch.Tensor, p: int) -> torch.Tensor:
     q = torch.div(m, p, rounding_mode="floor")
     q = q + ((m - q * p) * 2 >= p).to(torch.int64)
     return torch.where(a < 0, -q, q)
+
+
+def _decimal128_cast(c: Vec, dst: T.DataType) -> Vec:
+    """Casts touching a decimal of more than 18 digits (JAX
+    `_decimal128_cast`): a rescale up is exact in the 256-bit chain, a
+    rescale down rounds HALF_UP in limbs, and a value past the target
+    precision is null; integral sources widen through limbs; to an
+    integral type the value truncates exactly through the limbs (null past
+    the type's range), to a floating type it goes through the JAX engine's
+    double formula (decimal128.to_float64)."""
+    from . import decimal128 as D
+    src = c.dtype
+    if isinstance(dst, T.DecimalType):
+        hi, lo = D.widen_operand(c.data)
+        shift = dst.scale - src.scale if isinstance(src, T.DecimalType) \
+            else dst.scale
+        if shift >= 0:
+            hi, lo, ok = D.wide_to128(D.wide_mul_pow10(
+                D.wide_from128(hi, lo), shift))
+        else:
+            hi, lo = D.div_pow10_half_up(hi, lo, -shift)
+            ok = torch.ones_like(c.validity)
+        ok = ok & D.in_bounds(hi, lo, dst.precision)
+        data = D.pack_limbs(hi, lo) if D.is_dec128(dst) else lo
+        return Vec(dst, data, c.validity & ok)
+    # decimal128 -> numeric
+    hi, lo = D.widen_operand(c.data)
+    if isinstance(dst, T.BooleanType):
+        return Vec(dst, (hi != 0) | (lo != 0), c.validity)
+    if T.is_floating(dst):
+        return Vec(dst, D.to_float64(hi, lo, src.scale).to(torch_dtype(dst)),
+                   c.validity)
+    qhi, qlo = D.div_pow10_trunc(hi, lo, src.scale)
+    lo_b, hi_b = _INT_BOUNDS[torch_dtype(dst)]
+    ok = (qhi == (qlo >> 63)) & (qlo >= lo_b) & (qlo <= hi_b)
+    return Vec(dst, torch.where(ok, qlo, 0).to(torch_dtype(dst)),
+               c.validity & ok)

@@ -5,7 +5,10 @@ Every branch is evaluated over every row and `_select` picks per row. The
 JAX package narrows each branch's row mask under ANSI so that untaken rows
 raise no error; this engine rejects ANSI mode at plan time, so no branch
 needs its own context here. String branches of different width buckets
-merge at the wider width, zero-padded (`pad_common_width`).
+merge at the wider width, zero-padded (`pad_common_width`); decimal128
+branches select whole limb rows. Least and Greatest over decimals of more
+than 18 digits are refused at plan time (the JAX package compares their
+limbs one by one).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ def _select(cond: torch.Tensor, then_v: Vec, else_v: Vec) -> Vec:
                    torch.where(cond, then_v.lengths, else_v.lengths))
     dt = else_v.dtype if isinstance(then_v.dtype, T.NullType) else \
         then_v.dtype
-    return Vec(dt, torch.where(cond, then_v.data,
+    pick = cond[:, None] if then_v.data.dim() == 2 else cond  # limbs
+    return Vec(dt, torch.where(pick, then_v.data,
                                else_v.data.to(then_v.data.dtype)), validity)
 
 

@@ -30,7 +30,8 @@ __all__ = ["hash_vec", "hash_vecs", "hash_int", "hash_long", "hash_double",
 
 INT_FAMILY = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
               T.DateType)
-# a DecimalType column is always of <= 18 digits here (column.py)
+# a decimal of <= 18 digits hashes its int64 unscaled value; a wider one
+# is refused (hash_vec)
 LONG_FAMILY = (T.LongType, T.TimestampType, T.DecimalType)
 
 
@@ -127,6 +128,12 @@ def hash_string(chars: torch.Tensor, lengths: torch.Tensor,
 def hash_vec(v: Vec, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the int32 running hash; null rows pass the seed
     through (Spark)."""
+    if v.data.dim() == 2 and not v.is_string:
+        # the JAX murmur3 stops at 18 digits; the planner refuses 128-bit
+        # join and partition keys before any row gets here
+        raise NotImplementedError(
+            f"murmur3 over {v.dtype.simple_string()} (a 128-bit decimal) is "
+            "not supported by spark_rapids_tpu_torch")
     if isinstance(v.dtype, INT_FAMILY):
         h = hash_int(v.data.to(torch.int32), seed)
     elif isinstance(v.dtype, LONG_FAMILY):

@@ -1,5 +1,5 @@
 """Null-handling expressions (`spark_rapids_tpu/expr/nullexprs.py`: IsNull,
-IsNotNull, IsNaN, Coalesce)."""
+IsNotNull, IsNaN, Coalesce). Coalesce merges decimal128 limb rows whole."""
 
 from __future__ import annotations
 
@@ -70,6 +70,7 @@ class Coalesce(Expression):
                           validity,
                           torch.where(take_out, out.lengths, v.lengths))
             else:
+                pick = take_out[:, None] if out.data.dim() == 2 else take_out
                 out = Vec(out.dtype, torch.where(
-                    take_out, out.data, v.data.to(out.data.dtype)), validity)
+                    pick, out.data, v.data.to(out.data.dtype)), validity)
         return out

@@ -5,9 +5,9 @@ operands, and IN over a list of literals).
 NaN equals NaN and sorts greater than everything (DOUBLE and FLOAT); And/Or
 use Kleene three-valued logic (false AND null = false, true OR null =
 true). Decimals compare by value: both sides rescale to the larger scale
-in 128-bit limbs (expr/decimal128.py), so decimal(18,0) against
-decimal(18,18) is exact; a decimal against a non-decimal needs a cast and
-is refused at plan time. Strings
+in 128-bit limbs, or in the 256-bit chain past 38 digits
+(expr/decimal128.py), so decimal(38,0) against decimal(38,10) is exact; a
+decimal against a non-decimal needs a cast and is refused at plan time. Strings
 compare bytewise on the zero-padded byte matrix, so a prefix sorts before
 its extensions, which is UTF-8 byte order; equal byte images tie-break on
 length (UTF8String.compareTo).
@@ -77,18 +77,30 @@ class BinaryComparison(BinaryExpression):
         return self._cmp(a, b)
 
     def _cmp_decimal(self, l: Vec, r: Vec):
-        """Both sides rescaled to the common scale, then a signed 128-bit
-        order (JAX `_cmp_decimal`, its 128-bit branch)."""
-        from .decimal128 import eq128, lt128, rescale_up, widen_operand
+        """Both sides rescaled to the common scale, then a signed order
+        (JAX `_cmp_decimal`): in 128-bit limbs while the rescaled operands
+        stay within 38 digits, else exactly in the 256-bit chain (a
+        128-bit rescale of a 38-digit operand would wrap)."""
+        from . import decimal128 as D
         if not (isinstance(l.dtype, T.DecimalType) and
                 isinstance(r.dtype, T.DecimalType)):
             raise NotImplementedError(
                 "decimal vs non-decimal comparison needs an explicit cast")
         s = max(l.dtype.scale, r.dtype.scale)
-        lhi, llo = rescale_up(*widen_operand(l.data), s - l.dtype.scale)
-        rhi, rlo = rescale_up(*widen_operand(r.data), s - r.dtype.scale)
-        lt = lt128(lhi, llo, rhi, rlo)
-        gt = ~(lt | eq128(lhi, llo, rhi, rlo))
+        k_l, k_r = s - l.dtype.scale, s - r.dtype.scale
+        lhi, llo = D.widen_operand(l.data)
+        rhi, rlo = D.widen_operand(r.data)
+        if l.dtype.precision + k_l <= 38 and r.dtype.precision + k_r <= 38:
+            lhi, llo = D.mul_pow10(lhi, llo, k_l)
+            rhi, rlo = D.mul_pow10(rhi, rlo, k_r)
+            lt = D.lt128(lhi, llo, rhi, rlo)
+            eq = D.eq128(lhi, llo, rhi, rlo)
+        else:
+            lt, eq = D.wide_cmp(D.wide_mul_pow10(D.wide_from128(lhi, llo),
+                                                 k_l),
+                                D.wide_mul_pow10(D.wide_from128(rhi, rlo),
+                                                 k_r))
+        gt = ~(lt | eq)
         # -1/0/1 as string_compare gives, compared with 0
         return self._cmp(gt.to(torch.int8) - lt.to(torch.int8), 0)
 

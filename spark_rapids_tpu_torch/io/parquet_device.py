@@ -21,7 +21,7 @@ Device, eager torch ops on an explicit device:
   * fixed-width byte values (FIXED_LEN_BYTE_ARRAY decimals, INT96
     timestamps) arrive as a uint8[n, flen] matrix, dictionary rows by the
     same gather, and convert by vector shifts: big-endian two's complement
-    sign-extended to int64 (`_flba_to_i64`), or INT96's nanos of the day
+    sign-extended to int64 limbs (`_flba_to_limbs`), or INT96's nanos of the day
     and julian day to microseconds (`_int96_to_micros`);
   * strings gather their byte spans into the flat `uint8[cap, w]` layout;
   * non-null values land in their row slots by the rank cumsum(defined) - 1.
@@ -41,11 +41,12 @@ traced. Differences from the JAX module, none of which changes a value:
     other than snappy or none, a truncated stream) and a string longer than
     MAX_STRING_WIDTH raise DeviceDecodeUnsupported. Columns the JAX module
     host-decodes are refused at plan time (`columns_supported`): BYTE and
-    SHORT (INT32 with an 8- or 16-bit annotation), decimals of more than 18
-    digits or on a FIXED_LEN_BYTE_ARRAY wider than 8 bytes, TIMESTAMP in
-    nanoseconds, and nested columns.
-  * The 128-bit limb layout (`post` 'dec128') is not ported: a decimal
-    column holds at most 18 digits.
+    SHORT (INT32 with an 8- or 16-bit annotation), decimals on a
+    FIXED_LEN_BYTE_ARRAY wider than 16 bytes, TIMESTAMP in nanoseconds,
+    and nested columns.
+  * A FIXED_LEN_BYTE_ARRAY decimal of 1-16 bytes converts by vector
+    shifts (`_flba_to_limbs`): to int64 for precision <= 18 ('dec64'),
+    to the [cap, 2] limbs past it ('dec128').
   * The scan always takes the native walk. The Python walkers here
     (`_decode_chunk_py`, `_rle_runs`, `_byte_array_scan_py`) are its plain
     twins, held against it by the tests.
@@ -366,8 +367,9 @@ def _scatter_values(vals: torch.Tensor, defined: torch.Tensor):
     """Dense non-null values (padded to cap) + defined mask -> row slots."""
     rank = torch.cumsum(defined.to(torch.int32), 0) - 1
     data = vals[rank.clamp(0, vals.shape[0] - 1)]
-    return torch.where(defined, data, torch.zeros((), dtype=vals.dtype,
-                                                  device=vals.device)), \
+    keep = defined[:, None] if data.dim() == 2 else defined  # limbs
+    return torch.where(keep, data, torch.zeros((), dtype=vals.dtype,
+                                               device=vals.device)), \
         defined
 
 
@@ -634,8 +636,8 @@ _EXPECTED_PHYS = {
     T.DateType: "INT32",
     T.StringType: "BYTE_ARRAY",
 }
-# the widest FIXED_LEN_BYTE_ARRAY decimal held in an int64
-_MAX_DEC64_BYTES = 8
+# the widest FIXED_LEN_BYTE_ARRAY decimal the decode converts
+_MAX_FLBA_DECIMAL_BYTES = 16
 
 
 class _ColSpec:
@@ -643,7 +645,8 @@ class _ColSpec:
     kind: 'prim' (viewed or dictionary values), 'string' (BYTE_ARRAY) or
     'flba' (fixed-width byte values: FLBA decimals, INT96).
     post: the conversion after the decode: None, 'ts_ms' (millis ->
-    micros), 'dec64' (big-endian FLBA -> int64) or 'int96'.
+    micros), 'dec64' (big-endian FLBA -> int64), 'dec128' (big-endian
+    FLBA -> int64[n, 2] limbs) or 'int96'.
     flen: the byte width of a 'flba' value."""
     __slots__ = ("kind", "post", "flen")
 
@@ -663,8 +666,7 @@ def _timestamp_unit(pqcol):
 
 def _column_spec(pqcol, dt) -> _ColSpec:
     """Footer column descriptor + engine type -> decode spec, or
-    DeviceDecodeUnsupported with the reason (JAX `_column_spec` without
-    its 'dec128' kind)."""
+    DeviceDecodeUnsupported with the reason (JAX `_column_spec`)."""
     phys = pqcol.physical_type
     if isinstance(dt, T.DecimalType):
         lt = pqcol.logical_type
@@ -675,15 +677,15 @@ def _column_spec(pqcol, dt) -> _ColSpec:
             raise DeviceDecodeUnsupported(
                 f"decimal({pqcol.precision},{pqcol.scale}) in file vs "
                 f"{dt.simple_string()} in schema")
-        if dt.precision > T.DecimalType.MAX_LONG_DIGITS:
-            raise DeviceDecodeUnsupported(f"{phys} for {dt.simple_string()}")
-        if phys in ("INT32", "INT64"):  # the unscaled value itself
+        wide = dt.precision > T.DecimalType.MAX_LONG_DIGITS
+        if phys in ("INT32", "INT64") and not wide:  # the unscaled value
             return _ColSpec("prim")
         if phys == "FIXED_LEN_BYTE_ARRAY":
-            if not 0 < pqcol.length <= _MAX_DEC64_BYTES:
+            if not 0 < pqcol.length <= _MAX_FLBA_DECIMAL_BYTES:
                 raise DeviceDecodeUnsupported(
                     f"FLBA length {pqcol.length}")
-            return _ColSpec("flba", "dec64", pqcol.length)
+            return _ColSpec("flba", "dec128" if wide else "dec64",
+                            pqcol.length)
         raise DeviceDecodeUnsupported(f"{phys} for {dt.simple_string()}")
     if isinstance(dt, T.TimestampType):
         if phys == "INT96":
@@ -910,17 +912,27 @@ def _engine_data(data: torch.Tensor, dt, post=None) -> torch.Tensor:
     return data * 1000 if post == "ts_ms" else data
 
 
-def _flba_to_i64(mat: torch.Tensor, flen: int) -> torch.Tensor:
-    """Big-endian two's complement uint8[n, flen] (flen <= 8) -> int64,
-    sign-extended past flen bytes (JAX `_flba_to_limbs`, its low limb)."""
+def _flba_to_limbs(mat: torch.Tensor, flen: int):
+    """Big-endian two's complement uint8[n, flen] (flen <= 16) -> (hi, lo)
+    int64 limbs (the expr/decimal128 layout), sign-extended past flen
+    bytes, by vector shifts (JAX `_flba_to_limbs`)."""
     fill = torch.where(mat[:, 0] >= 128, 0xFF, 0).to(torch.int64) \
-        if flen < 8 else None
-    out = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
-    for j in range(8):  # byte j counts from the least significant end
+        if flen < 16 else None
+    lo = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
+    hi = torch.zeros_like(lo)
+    for j in range(16):  # byte j counts from the least significant end
         src = flen - 1 - j
         b = mat[:, src].to(torch.int64) if src >= 0 else fill
-        out |= b << (8 * j)
-    return out
+        if j < 8:
+            lo |= b << (8 * j)
+        else:
+            hi |= b << (8 * (j - 8))
+    return hi, lo
+
+
+def _flba_to_i64(mat: torch.Tensor, flen: int) -> torch.Tensor:
+    """The low limb: the int64 value of a decimal of <= 18 digits."""
+    return _flba_to_limbs(mat, flen)[1]
 
 
 _JULIAN_EPOCH_DAY = 2_440_588  # julian day of 1970-01-01
@@ -946,7 +958,9 @@ def _flba_values(mat: torch.Tensor, post: str, flen: int) -> torch.Tensor:
     """A value-dense byte matrix -> the column's int64 values."""
     if post == "int96":
         return _int96_to_micros(mat)
-    return _flba_to_i64(mat, flen)  # 'dec64'
+    if post == "dec128":
+        return torch.stack(_flba_to_limbs(mat, flen), dim=1)
+    return _flba_to_i64(mat, flen)
 
 
 # -- eager assembles: the page interleavings the packed path declines ---------

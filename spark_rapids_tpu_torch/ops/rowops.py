@@ -11,6 +11,11 @@ values), which is the same order in an eighth of the sorts. torch's
 `index_add_` and `scatter_reduce_` raise on out-of-range indices where JAX
 drops them, so `segment_reduce` sends such rows to a spare slot.
 
+A decimal of more than 18 digits (int64[cap, 2] limbs) sorts by two keys,
+its signed high limb and its low limb with the sign bit flipped (the
+unsigned order in signed space), which is the signed 128-bit order; two
+rows are the same key when both limbs are equal.
+
 Floating keys sort with NaN greatest and -0.0 equal to 0.0 (the stable
 sort keeps them adjacent, and the key-change test sees them equal); Min
 and Max over DOUBLE and FLOAT follow the same order, Spark's: NaN is
@@ -72,6 +77,8 @@ def sort_keys_for(v: Vec, ascending: bool = True,
       * Integers, dates, timestamps and decimals of <= 18 digits (the
         int64 unscaled value) sort by their value, descending by its
         complement (no overflow at the type's minimum).
+      * A wider decimal sorts by its high limb and its flipped low limb,
+        descending by the complement of each.
       * A float sorts NaN greatest (first when descending) and descending
         by its negation. Zeros are made 0.0 after any negation: the
         card's radix sort orders the bit patterns of -0.0 and 0.0 apart,
@@ -82,6 +89,10 @@ def sort_keys_for(v: Vec, ascending: bool = True,
     if v.is_string:
         require_flat_strings(v, "sort key over string")
         words = string_sort_words(v.data) + [v.lengths]
+        keys.extend(words if ascending else [~w for w in words])
+    elif v.data.dim() == 2:  # decimal128 limbs
+        from ..expr.decimal128 import cmp_keys
+        words = list(cmp_keys(v.data[:, 0], v.data[:, 1]))
         keys.extend(words if ascending else [~w for w in words])
     elif T.is_floating(v.dtype):
         nan = torch.isnan(v.data)
@@ -128,6 +139,8 @@ def key_change_flags(key_vecs: Sequence[Vec], n: int) -> torch.Tensor:
         if v.is_string:  # zero-tailed rows: equal strings, equal bytes
             neq = (v.data[1:] != v.data[:-1]).any(dim=1) | \
                 (v.lengths[1:] != v.lengths[:-1])
+        elif v.data.dim() == 2:  # decimal128 limbs
+            neq = (v.data[1:] != v.data[:-1]).any(dim=1)
         else:
             neq = v.data[1:] != v.data[:-1]
         if v.data.is_floating_point():
@@ -168,7 +181,8 @@ def segment_sum(contrib: torch.Tensor, gid: torch.Tensor,
     """Plain segmented sum into `cap` groups. Ids are range-checked in their
     own width and rows outside [0, cap) go to a spare slot that is cut off."""
     idx = torch.where((gid >= 0) & (gid < cap), gid, cap).to(torch.int64)
-    out = torch.zeros(cap + 1, dtype=contrib.dtype, device=contrib.device)
+    out = torch.zeros((cap + 1,) + contrib.shape[1:], dtype=contrib.dtype,
+                      device=contrib.device)
     return out.index_add_(0, idx, contrib)[:cap]
 
 
@@ -176,7 +190,8 @@ def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
                    valid: torch.Tensor = None) -> torch.Tensor:
     """Segmented reduction over rows with group ids; invalid rows are
     excluded (null-skipping aggregates). Returns a per-group tensor of
-    length cap. Ids outside [0, cap) contribute nothing."""
+    length cap. Ids outside [0, cap) contribute nothing. A 2-D `data`
+    (rows along dim 0) sums column by column."""
     if valid is None:
         valid = torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
     if op == "count":
@@ -185,8 +200,9 @@ def segment_reduce(op: str, data: torch.Tensor, gid: torch.Tensor, cap: int,
             return _FUSED_SEGMENT_SUM(ones, gid, cap)
         return segment_sum(ones, gid, cap)
     if op == "sum":
-        contrib = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
-                                                       device=data.device))
+        keep = valid if data.dim() == 1 else valid[:, None]
+        contrib = torch.where(keep, data, torch.zeros((), dtype=data.dtype,
+                                                      device=data.device))
         if _FUSED_SEGMENT_SUM is not None and contrib.dim() == 1:
             return _FUSED_SEGMENT_SUM(contrib, gid, cap)
         return segment_sum(contrib, gid, cap)

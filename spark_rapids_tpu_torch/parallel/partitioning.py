@@ -3,7 +3,9 @@
 
 Hash placement matches Spark exactly, pmod(murmur3(keys, seed 42), n)
 through `expr/hashing.py`, so a row lands in the same partition in both
-engines. Range, round-robin and single partitioning wait for the exchanges
+engines. A key of a decimal past 18 digits has no murmur3 in the JAX
+package, and is refused when the partitioner is planned. Range,
+round-robin and single partitioning wait for the exchanges
 that other plan nodes make.
 """
 
@@ -14,6 +16,7 @@ from typing import Sequence
 
 import torch
 
+from .. import types as T
 from ..columnar.batch import ColumnarBatch
 from ..expr.base import BoundReference, Expression, Vec, bind_references
 from ..expr.hashing import hash_vecs
@@ -63,6 +66,11 @@ class HashPartitioning(TpuPartitioning):
             if not isinstance(b, BoundReference):
                 raise ValueError("partition keys must be column references "
                                  "after planning")
+            if T.is_dec128(b.data_type):
+                # the JAX murmur3 stops at 18 digits (expr/hashing.py)
+                raise NotImplementedError(
+                    f"hash partitioning by a {b.data_type.simple_string()} "
+                    "key is not supported by spark_rapids_tpu_torch")
             ords.append(b.ordinal)
         return HashPartitioning(tuple(ords), num_partitions)
 

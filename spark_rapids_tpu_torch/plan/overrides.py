@@ -27,7 +27,8 @@ from ..expr import cast as CA
 from ..expr import conditional as C
 from ..expr import nullexprs as NE
 from ..expr import predicates as P
-from ..expr.aggregates import Average, Max, Min, Sum
+from ..expr import aggregates as AG
+from ..expr.decimal128 import is_dec128
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
 from ..expr.hashing import INT_FAMILY, LONG_FAMILY
@@ -109,7 +110,14 @@ def _check_expr(e: Expression) -> None:
                          "type")
         if any(strings) and isinstance(node, (C.Least, C.Greatest)):
             _unsupported(f"{type(node).__name__} over strings")
+        if isinstance(node, (C.Least, C.Greatest)) and \
+                any(is_dec128(c.data_type) for c in node.children):
+            _unsupported(f"{type(node).__name__} over a decimal of more "
+                         "than 18 digits")
         if isinstance(node, P.In):
+            if is_dec128(node.children[0].data_type):
+                # the JAX In broadcasts one value a row against the limbs
+                _unsupported("In over a decimal of more than 18 digits")
             _check_in_items(node)
 
 
@@ -142,13 +150,16 @@ def _check_in_items(node: "P.In") -> None:
 def _check_arithmetic(node: Expression) -> None:
     """Numeric operands, before the node's type is read (numeric_promote
     has no answer for others). Decimal Multiply, Remainder and Pmod, and a
-    decimal mixed with another type in +/-, raise from the node's type;
-    IntegralDivide has a LONG type, so its decimal operands are refused
-    here."""
+    decimal mixed with another type in +/-, raise from the node's type (the
+    JAX package has neither decimal Multiply nor Spark's decimal
+    promotion); IntegralDivide has a LONG type, so its decimal operands are
+    refused here, as is Divide over a decimal of more than 18 digits (the
+    JAX Divide reads one int64 a row)."""
     types = [c.data_type for c in node.children]
     if not all(isinstance(t, _ARITH_TYPES) for t in types) or (
             isinstance(node, A.IntegralDivide)
-            and any(isinstance(t, T.DecimalType) for t in types)):
+            and any(isinstance(t, T.DecimalType) for t in types)) or (
+            isinstance(node, A.Divide) and any(map(is_dec128, types))):
         _unsupported(f"{type(node).__name__} over " + ", ".join(
             t.simple_string() for t in types))
 
@@ -336,27 +347,11 @@ class Overrides:
         return TpuFileScanExec(plan, self.conf, self.device)
 
     def _convert_agg(self, plan: N.CpuHashAggregateExec, children):
-        from ..exec.aggregate import SUPPORTED_AGGREGATES, TpuHashAggregateExec
+        from ..exec.aggregate import TpuHashAggregateExec
         for e in plan._bound_groups:
             _check_expr(e)
         for a in plan._bound_aggs:
-            if not isinstance(a.func, SUPPORTED_AGGREGATES):
-                _unsupported(f"aggregate {type(a.func).__name__}")
-            if a.func.child is not None:
-                ct = a.func.child.data_type
-                what = f"{type(a.func).__name__.lower()} over " \
-                    f"{ct.simple_string()}"
-                if isinstance(a.func, (Sum, Average)) and \
-                        not isinstance(ct, _ARITH_TYPES):
-                    _unsupported(what)
-                for pt in a.func.partial_types():
-                    check_supported(pt, f"{what}: its partial buffer")
-                if isinstance(a.func, (Min, Max)) and \
-                        isinstance(ct, T.StringType):
-                    _unsupported(what)
-                _check_expr(a.func.child)
-            check_supported(a.func.data_type,
-                            f"{type(a.func).__name__} result")
+            _check_aggregate(a.func)
         return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],
                                     self.conf)
 
@@ -379,6 +374,8 @@ class Overrides:
             _unsupported(f"join type {plan.join_type}")
         for e in plan._bl + plan._br:
             check_supported(e.data_type, "join key")
+            if is_dec128(e.data_type):  # the JAX murmur3 stops at 18 digits
+                _unsupported(f"a {e.data_type.simple_string()} join key")
         ints = INT_FAMILY + LONG_FAMILY
         for lk, rk in zip(plan._bl, plan._br):
             # keys hash by their stored values, so both sides must share one
@@ -416,6 +413,45 @@ class Overrides:
                                        condition=plan.condition)
 
 
+# the aggregates over values of the numeric types only (their moments are
+# computed in DOUBLE): the JAX exec reads a decimal's unscaled value there
+_DOUBLE_MOMENTS = (AG._VarianceFamily, AG._MomentFamily)
+_NUMERIC_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                  T.FloatType, T.DoubleType)
+_INTEGRAL_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
+
+
+def _check_aggregate(func) -> None:
+    """A grouped aggregate of the slice over a child of a type it takes:
+    every aggregate of the JAX `_agg_one`; CollectList, CollectSet and
+    ApproximatePercentile (array results and the single-pass path) and
+    CountDistinct (no JAX exec computes it) raise."""
+    from ..exec.aggregate import SUPPORTED_AGGREGATES
+    name = type(func).__name__
+    if func.single_pass or not isinstance(func, SUPPORTED_AGGREGATES):
+        _unsupported(f"aggregate {name}")
+    if func.child is None:
+        return
+    ct = func.child.data_type
+    what = f"{name.lower()} over {ct.simple_string()}"
+    if isinstance(func, (AG.Sum, AG.Average)):
+        ok = isinstance(ct, _ARITH_TYPES)
+    elif isinstance(func, _DOUBLE_MOMENTS):
+        ok = isinstance(ct, _NUMERIC_TYPES)
+    elif isinstance(func, (AG.CountIf, AG.BoolAnd, AG.BoolOr)):
+        ok = isinstance(ct, T.BooleanType)
+    elif isinstance(func, AG._BitAgg):
+        ok = isinstance(ct, _INTEGRAL_TYPES)
+    else:
+        ok = True
+    if not ok:
+        _unsupported(what)
+    for pt in func.partial_types():
+        check_supported(pt, f"{what}: its partial buffer")
+    _check_expr(func.child)
+    check_supported(func.data_type, f"{name} result")
+
+
 def _check_orders(bound_orders) -> None:
     """Sort keys: expressions of the slice, each of a carried type."""
     for e, _, _ in bound_orders:
@@ -440,17 +476,21 @@ def _convert_limit(plan: N.CpuLimitExec, children, conf):
     return TpuLimitExec(plan.limit, child, plan.offset, conf)
 
 
-_WINDOW_AGGREGATES = ("Sum", "Count", "Min", "Max", "Average")
+_WINDOW_AGGREGATES = ("Sum", "Count", "Min", "Max", "Average", "First",
+                      "Last")
 
 
 def _check_window(plan: N.CpuWindowExec) -> None:
     """`_tag_window` and `_tag_window_agg` of the JAX package, as errors:
     every function needing an ORDER BY has one; value-offset RANGE frames
     have one order column of a numeric, date or timestamp type; window
-    aggregates are Sum, Count, Min, Max or Average, with no bounded frame
-    over a string MIN/MAX. So First/Last frames raise (the aggregates are
-    not ported yet); beyond the JAX checks, so do an Average over a
-    decimal and a value-offset RANGE frame over a decimal order key."""
+    aggregates are Sum, Count, Min, Max, Average, First or Last, with no
+    bounded frame over a string MIN/MAX. Beyond the JAX checks, these
+    raise: an Average over a decimal, a value-offset RANGE frame over a
+    decimal order key, a Sum whose result passes 18 digits (the JAX window
+    accumulates it in one 1-D buffer under a 128-bit type, and its result
+    fails to convert) and a Min or Max over a decimal of more than 18
+    digits (the JAX window's neutral fill does not broadcast over limbs)."""
     from ..expr import windowexprs as WX
     for e in plan._bound_part:
         _check_expr(e)
@@ -487,7 +527,7 @@ def _check_window(plan: N.CpuWindowExec) -> None:
 def _check_window_agg(f, what: str) -> None:
     from ..expr import windowexprs as WX
     name = type(f.func).__name__
-    if name not in _WINDOW_AGGREGATES:  # First and Last among them
+    if name not in _WINDOW_AGGREGATES:
         _unsupported(f"{what}: {name} over a window")
     child = f.func.child
     if child is None:
@@ -497,6 +537,11 @@ def _check_window_agg(f, what: str) -> None:
         _unsupported(f"{what}: {name.lower()} over {ct.simple_string()}")
     if name == "Average" and isinstance(ct, T.DecimalType):
         _unsupported(f"{what}: a window average over {ct.simple_string()}")
+    if name == "Sum" and is_dec128(f.func.data_type):
+        _unsupported(f"{what}: a window sum of "
+                     f"{f.func.data_type.simple_string()}")
+    if name in ("Min", "Max") and is_dec128(ct):
+        _unsupported(f"{what}: a window {name} over {ct.simple_string()}")
     frame = f.frame
     bounded = WX.is_value_range_frame(frame) or (
         isinstance(frame, WX.RowFrame) and not (

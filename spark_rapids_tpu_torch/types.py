@@ -14,7 +14,8 @@ Physical mapping (TPU-first):
   STRING    -> uint8[n, w] byte matrix + int32 lengths
   DATE      -> int32 days since epoch (Spark semantics)
   TIMESTAMP -> int64 microseconds since epoch (Spark semantics)
-  DECIMAL(p<=18, s) -> int64 unscaled; DECIMAL(p>18) -> 2x int64 limbs (limited support)
+  DECIMAL(p<=18, s) -> int64 unscaled; DECIMAL(p>18) -> int64[n, 2] limbs: the
+                        signed high word, then the low word's bit pattern
 """
 
 from __future__ import annotations
@@ -264,6 +265,12 @@ def parse_type(s: str) -> DataType:
         p, sc = s[len("decimal("):-1].split(",")
         return DecimalType(int(p), int(sc))
     raise ValueError(f"cannot parse type string {s!r}")
+
+
+def is_dec128(dt: DataType) -> bool:
+    """A decimal held as two int64 limbs (precision > 18)."""
+    return isinstance(dt, DecimalType) and \
+        dt.precision > DecimalType.MAX_LONG_DIGITS
 
 
 def is_integral(dt: DataType) -> bool:

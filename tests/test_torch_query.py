@@ -346,10 +346,11 @@ class TestBoundaries:
                       "x": np.arange(4, dtype=np.float64),
                       "b": np.array([True, False, True, True])})
         df = sess.from_arrow(t)
-        if case == "decimal128_column":  # 20 digits: the limb layout
-            df = sess.from_arrow(t.append_column(
-                "y", pa.array(np.arange(4, dtype=np.int8)).cast(
-                    pa.decimal128(20, 2))))
+        if case == "decimal128_column":  # 20 digits: no 128-bit murmur3
+            d20 = pa.array(np.arange(4, dtype=np.int8)).cast(
+                pa.decimal128(20, 2))
+            df = sess.from_arrow(t.append_column("y", d20)).join(
+                sess.from_arrow(pa.table({"y": d20})), on="y")
         elif case == "right_join":  # right joins run; not on the limbs
             d20 = pa.array(np.arange(4, dtype=np.int8)).cast(
                 pa.decimal128(20, 2))
