@@ -25,7 +25,11 @@ per-(item, date) quantities, and their out-of-core sort under the
 distributed plan, and last the joins of TPC-DS q97 (a full outer join whose
 8.39 M-row build side takes the sub-partition join), q10 (existence joins),
 q58 (string keys with conditions) and q28 (cross joins) over store,
-catalog and web sales and their SF10 dimensions from parquet, both plans;
+catalog and web sales and their SF10 dimensions from parquet, both plans,
+the TPC-DS aggregates q65 and q39, and the decimal star's store_sales in
+seven more file forms (zstd, gzip, columns pyarrow decodes, v2 pages, lz4,
+64 files under each reader strategy, a row filter) read by Q3 and Q7
+with the scan's counters held to their predictions;
 it checks each against numpy oracles, holds kernels A
 and C to their exact launch counts there, and holds them against their
 twins on the inputs those paths hand them (a merged batch of 4 row
@@ -48,11 +52,19 @@ and max, and each star report's device idle share comes from one traced
 collect; the ordered reports, the running window and the out-of-core
 sort are timed ORDERED_ROUNDS times each, with the sort's host merge
 seconds beside its wall, and the join queries JOINS_ROUNDS times each,
-with q97's device idle share from one traced collect. Bounds are bytes
-moved (each input read once,
-each output written once) over the H100's published memory rate. Launch
-counts are read per path: every count is set to 0 just before a run of
-the path and read just after.
+with q97's device idle share from one traced collect; each parquet_files
+form's Q3 and Q7 collects (Q3 alone for the 64 lz4 files' reader
+strategies) are timed FILES_ROUNDS times after the checked one, beside
+the snappy files'. A query's first collect is its checked, counted one,
+and warms it up for the timed ones. Bounds are bytes moved (each input
+read once, each output written once) over the H100's published memory
+rate. Launch counts are read per path: every count is set to 0 just
+before a run of the path and read just after.
+
+The star, decimal star, join and aggregate tables, their numpy oracles and
+their parquet files are made on the host in two worker processes
+(start_data) while the card runs the phases before them; the workers end
+with the run.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -78,7 +91,12 @@ N_DIM = 65_536
 N_GROUPS = 1_024
 KEY_SPACE = 131_072
 K_STEPS = 8
-WALL_ROUNDS = 11
+# the round counts below were cut to keep the whole script near half of
+# its 1,200 s limit with the parquet_files phase (slice 10): WALL_ROUNDS
+# from 11 to 5, STAR_ROUNDS from 5 to 1, DECODE_ROUNDS from 5 to 1,
+# PARQUET_ROUNDS from 7 to 1, ORDERED_ROUNDS, JOINS_ROUNDS and AGG_ROUNDS
+# from 3 to 1; no size changed
+WALL_ROUNDS = 5
 MESH_POSITIONS = 4
 H100_BYTES_PER_S = 3.35e12
 
@@ -125,10 +143,13 @@ def time_ms(torch, fn, warmup: int = 3, rounds: int = 10,
 
 def device_busy_s(torch, prof) -> float:
     """Seconds in which the card ran a kernel or a copy, from a
-    torch.profiler trace: the union of the device events' intervals."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in
-                   prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    torch.profiler trace: the union of the device events' intervals. The
+    trace's raw events are read: prof.events() builds a Python event tree
+    first, which took seconds for the tens of thousands of events of one
+    collect."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in
+                   prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
     busy, cur_s, cur_e = 0.0, None, None
     for s0, e0 in spans:
         if cur_e is None or s0 > cur_e:
@@ -139,20 +160,24 @@ def device_busy_s(torch, prof) -> float:
             cur_e = max(cur_e, e0)
     if cur_e is not None:
         busy += cur_e - cur_s
-    return busy / 1e6
+    return busy / 1e9
 
 
 def idle_share(torch, fn) -> float:
     """The card's idle share of one traced call of fn (which ends in a
-    synchronize): 1 - device busy time / wall time."""
+    synchronize): 1 - device busy time / wall time. Only the card's
+    activity is traced: the host's operator events are not read, and
+    recording them slowed the call and the trace's processing."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return 1.0 - device_busy_s(torch, prof) / wall
+    busy = device_busy_s(torch, prof)
+    if busy <= 0.0:
+        raise AssertionError("the trace of a collect holds no device event")
+    return 1.0 - busy / wall
 
 
 def rotating(fn, copies):
@@ -428,7 +453,7 @@ STAR_SYLLABLES = ("amalg", "edu pack", "exporti", "importo", "scholar",
 STAR_CATEGORIES = ("Books", "Children", "Electronics", "Home", "Jewelry",
                    "Men", "Music", "Shoes", "Sports", "Women")
 STAR_STATES = ("TN", "GA", "AL", "SD", "MI", "OH", "TX", "LA", "NC")
-STAR_ROUNDS = 5
+STAR_ROUNDS = 1
 
 
 def star_tables(pa, n_sales: int, n_dates: int, n_items: int, n_stores: int,
@@ -474,6 +499,16 @@ def star_tables(pa, n_sales: int, n_dates: int, n_items: int, n_stores: int,
     })
     return {"store_sales": store_sales, "date_dim": date_dim, "item": item,
             "store": store}
+
+
+def star_data(pa, n_sales=STAR_SALES_ROWS, dims=STAR_DIMS) -> dict:
+    """star_tables and their star_oracle (the star_query and
+    parquet_star_q7 phases read the same tables), with the seconds it
+    took."""
+    t0 = time.monotonic()
+    star = star_tables(pa, n_sales, *dims.values())
+    return {"tables": star, "oracle": star_oracle(pa, star),
+            "setup_s": time.monotonic() - t0}
 
 
 def star_queries(sess, m, t: dict, paths: dict = None) -> dict:
@@ -655,14 +690,17 @@ def check_star(name: str, out, want) -> None:
 
 
 def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
-                dims=STAR_DIMS, conf=None, device=None):
+                dims=STAR_DIMS, conf=None, device=None, data=None):
     """Phases 8 and 9: Q3, Q7 and Q36 on one device, then Q7 under the
     distributed plan (`mesh_conf`), each checked against star_oracle, timed
     and traced. `counters` are the kernel wrappers A, B and C, whose
     launch counts are set to 0 around each run; `conf` is added to every
-    session's settings. Returns the counts of the two paths' runs, and the
-    arguments of A's first call in a one-device Q7 collect and of C's first
-    call in a distributed Q7 collect (outside the counted runs)."""
+    session's settings; `data` (star_data) gives the tables, made here
+    without it. The path's checked, counted run comes first and warms
+    each query up for the timed collects. Returns the counts of the two
+    paths' runs, and the arguments of A's first call in a one-device Q7
+    collect and of C's first call in a distributed Q7 collect (outside the
+    counted runs)."""
     from spark_rapids_tpu_torch.exec import exchange
     from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
     from spark_rapids_tpu_torch.plugin import TpuSession
@@ -697,10 +735,8 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
                                  "collect")
         return walls, n
 
-    t0 = time.monotonic()
-    star = star_tables(pa, n_sales, *dims.values())
-    star_want = star_oracle(pa, star)
-    star_setup_s = time.monotonic() - t0
+    data = data or star_data(pa, n_sales, dims)
+    star, star_want = data["tables"], data["oracle"]
     sess = TpuSession(dict(conf, **{"spark.rapids.tpu.fusion.enabled": True}),
                       device)
     sq = star_queries(sess, ns, star)
@@ -709,7 +745,6 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
         if "TpuFusedStageExec" not in plan or "TpuShuffled" in plan:
             raise AssertionError(f"{name}: not the fused broadcast plan:\n"
                                  f"{plan}")
-        check_star(name, q.collect(), star_want[name])  # warm-up
     # the path's run: one collect of each query between the counter reads
     outs, star_launches = counted(lambda: [q.collect() for q in sq.values()])
     for name, out in zip(sq, outs):
@@ -727,7 +762,7 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
     a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
                              sq["q7"].collect)
     emit({"phase": "star_query", "fact_rows": n_sales, "dim_rows": dims,
-          "setup_s": star_setup_s,
+          "setup_s": data["setup_s"],
           "rtol_sums_averages": 1e-9, "exact": "keys, counts, min, max",
           "queries": per_query, "launches_per_path_run": star_launches})
 
@@ -739,7 +774,6 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
     if not (plan.startswith("TpuHashAggregateExec[final")
             and "TpuShuffleExchangeExec" in plan and "PartialAgg[" in plan):
         raise AssertionError(f"q7: not the distributed plan:\n{plan}")
-    check_star("q7", q7.collect(), star_want["q7"])  # warm-up
     before = exchange.MESH_EXCHANGES
     out, dstar_launches = counted(q7.collect)
     check_star("q7", out, star_want["q7"])
@@ -768,10 +802,9 @@ def star_phases(torch, pa, mesh_conf: dict, counters, n_sales=STAR_SALES_ROWS,
 PARQUET_ROW_GROUP = 1 << 20
 CHUNKS_PER_DISPATCH = 4  # spark.rapids.tpu.pipeline.scan.chunksPerDispatch
 ARROW_BATCH_ROWS = 1 << 20  # spark.rapids.sql.batchSizeRows
-DECODE_ROUNDS = 5
-# warm collects of each parquet_query variant, in turns (7 of them on each
-# plan): cut from WALL_ROUNDS to keep the script near half its time limit
-PARQUET_ROUNDS = 7
+DECODE_ROUNDS = 1
+# warm collects of each parquet_query variant, in turns, on each plan
+PARQUET_ROUNDS = 1
 DPP_OFF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
 HOST_DECODE = {"spark.rapids.sql.format.parquet.deviceDecode.enabled": False}
 ONE_RG = {"spark.rapids.tpu.pipeline.scan.chunksPerDispatch": 1}
@@ -828,11 +861,13 @@ def check_decoded(pa, batches, want, what: str) -> None:
 def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
                    n_sales=STAR_SALES_ROWS, dims=STAR_DIMS, conf=None,
                    device=None, rounds=PARQUET_ROUNDS,
-                   decode_rounds=DECODE_ROUNDS):
+                   decode_rounds=DECODE_ROUNDS, star=None):
     """Phases parquet_decode, parquet_query and parquet_star_q7 (slice 5),
     over files written to a temporary directory that is removed after.
     `counters` are the kernel wrappers A, B and C; `conf` is added to every
-    session's settings. Returns the launch counts of each path's run, and
+    session's settings; `star` (star_data) gives the star tables, made
+    here without it. Each query's checked, counted run comes first and
+    warms it up for the timed collects. Returns the launch counts of each path's run, and
     the arguments of A's first call in a parquet star Q7 collect and of
     C's first call in a distributed parquet query collect without pruning
     (outside the counted runs)."""
@@ -944,8 +979,6 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
                 raise AssertionError(f"{plan}: unexpected plans:\n"
                                      f"{shapes['parquet']}\n"
                                      f"{shapes['parquet_no_dpp']}")
-            for v, df in dfs.items():
-                check_query(df.collect(), want, f"{plan} {v}")  # warm-up
             runs = {}
             for v, df in dfs.items():
                 out, n, scan = counted(df.collect)
@@ -1004,18 +1037,17 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
 
         # ---- parquet_star_q7: star Q7 over the four star tables in parquet,
         # one device: dictionary strings, nulls, and the pruning wiring
+        star = star or star_data(pa, n_sales, dims)
+        star_want = star["oracle"]["q7"]
         t0 = time.monotonic()
-        star = star_tables(pa, n_sales, *dims.values())
-        star_want = star_oracle(pa, star)["q7"]
-        spaths = write_parquet(pq, star, d)
-        setup_s = time.monotonic() - t0
-        q7 = star_queries(TpuSession(conf, dev), star_namespace(), star,
-                          spaths)["q7"]
+        spaths = write_parquet(pq, star["tables"], d)
+        write_s = time.monotonic() - t0
+        q7 = star_queries(TpuSession(conf, dev), star_namespace(),
+                          star["tables"], spaths)["q7"]
         plan = q7.explain()
         if "TpuFusedStageExec" not in plan or "TpuShuffled" in plan:
             raise AssertionError(f"parquet q7: not the fused broadcast "
                                  f"plan:\n{plan}")
-        check_star("q7", q7.collect(), star_want)  # warm-up
         out, n, scan = counted(q7.collect)
         check_star("q7", out, star_want)
         sales_batches = -(-pq.ParquetFile(spaths["store_sales"]).metadata
@@ -1036,7 +1068,8 @@ def parquet_phases(torch, pa, mesh_conf: dict, counters, fact, dim,
             walls.append(time.perf_counter() - t0)
         launches["parquet_star_q7"] = n
         emit({"phase": "parquet_star_q7", "fact_rows": n_sales,
-              "dim_rows": dims, "setup_s": setup_s,
+              "dim_rows": dims, "setup_s": star["setup_s"],
+              "write_s": write_s,
               "file_bytes": {k: os.path.getsize(v) for k, v in spaths.items()},
               "rtol_averages": 1e-9, "exact": "keys, counts",
               "sales_batches": sales_batches, "fused_joins": fused_joins(plan),
@@ -1124,17 +1157,21 @@ def star_decimal_tables(pa, n_sales: int, n_dates: int, n_items: int,
     return dict(t, store_sales=ss, item=item)
 
 
-def star_decimal_queries(sess, m, paths: dict) -> dict:
+def star_decimal_queries(sess, m, paths: dict, **sales_options) -> dict:
     """Q3, Q7 and Q36 over star_decimal_tables' parquet files, as
     DataFrames of `sess` with the port's constructors `m`
     (star_namespace): Q3 sums
     ss_ext_sales_price (decimal(17,2)); Q7 averages the quantity (a
     double) and three prices (decimal(11,6)); Q36 divides two decimal
     sums (a double), buckets by a CASE on the sales price against
-    decimal literals, and takes MIN and MAX of a decimal difference."""
+    decimal literals, and takes MIN and MAX of a decimal difference.
+    paths["store_sales"] is a path or a list of them, read with
+    `sales_options` (`filters=`)."""
     from decimal import Decimal
     c = m.col
-    ss = sess.read_parquet(paths["store_sales"])
+    sales = paths["store_sales"]
+    ss = sess.read_parquet(*([sales] if isinstance(sales, str) else sales),
+                           **sales_options)
     dd = sess.read_parquet(paths["date_dim"]).select(
         "d_year", "d_moy", ss_sold_date_sk=c("d_date_sk"))
     it = sess.read_parquet(paths["item"]).select(
@@ -1354,7 +1391,8 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
     one-device Q7 collect and of C's first call in a distributed Q3
     collect (the decimal sum's unscaled values). `data` (star_decimal_data)
     gives the tables and files; without it they are made in a temporary
-    directory."""
+    directory. Each plan's checked, counted run comes first and warms its
+    queries up for the timed collects."""
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.columnar.batch import Schema
@@ -1432,7 +1470,6 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
                     raise AssertionError(f"decimal {n} ({plan}): the "
                                          "partial aggregate is not fused as "
                                          f"expected:\n{shapes[n]}")
-                check_star_decimal(pa, n, q.collect(), want[n])  # warm-up
             outs, run = counted(lambda: [q.collect() for q in sq.values()])
             for n, out in zip(sq, outs):
                 check_star_decimal(pa, n, out, want[n])
@@ -1481,7 +1518,7 @@ def star_decimal_phases(torch, pa, mesh_conf: dict, counters,
 
 # ---- ordered_reports: the star reports' ORDER BY ... LIMIT 100, Q36's
 # rank, a running window and an out-of-core sort over the decimal files
-ORDERED_ROUNDS = 3
+ORDERED_ROUNDS = 1
 ORDERED_LIMIT = 100
 # the TPC-DS orders (column, ascending, nulls_first) of each ordered report
 ORDERED_KEYS = {
@@ -1620,8 +1657,9 @@ def ordered_phases(torch, pa, mesh_conf: dict, counters,
     on the decimal star reports (A twice per fused join per merged batch,
     C STAR_DECIMAL_C_PER_BATCH a merged batch, distributed only) and not
     at all in the running window and the sort, whose aggregate over a bare
-    scan fuses nothing. Returns the launch counts of each plan's run (one
-    collect of each query) and the arguments of A's first call in a
+    scan fuses nothing. Each plan's checked, counted run comes first and
+    warms its queries up for the timed collects. Returns the launch counts
+    of each plan's run (one collect of each query) and the arguments of A's first call in a
     one-device ordered Q7 collect and of C's first in a distributed
     ordered Q3 collect."""
     import pyarrow.parquet as pq
@@ -1669,8 +1707,6 @@ def ordered_phases(torch, pa, mesh_conf: dict, counters,
                 if not shapes[n].startswith("TpuTopKExec"):
                     raise AssertionError(f"ordered {n} ({plan}) is not a "
                                          f"top-k:\n{shapes[n]}")
-            for n, q in qs.items():  # warm-up
-                check(n, q.collect())
             outs, run = counted(lambda: [q.collect() for q in qs.values()])
             for n, out in zip(qs, outs):
                 check(n, out)
@@ -1773,7 +1809,7 @@ Q58_BAND = 0.1
 # q97's month window: d_month_seq over the sales' whole five years
 Q97_MONTHS = (1176, 1236)
 JOINS_LIMIT = 100
-JOINS_ROUNDS = 3
+JOINS_ROUNDS = 1
 # sold dates are uniform over every row group, so dynamic pruning would
 # skip nothing, and a join carrying its filter is not fused (in either
 # engine): the phase turns it off so the date joins fuse and launch A
@@ -2319,7 +2355,7 @@ Q65_BAND = 0.1  # sc.revenue <= 0.1 * sb.ave
 Q39_YEAR = 2001
 Q39_COVS = (1.0, 1.5)  # q39a's and q39b's cut-offs on cov
 AGG_LIMIT = 100
-AGG_ROUNDS = 3
+AGG_ROUNDS = 1
 DEC38 = (38, 18)  # Spark's SYSTEM_DEFAULT decimal
 DEC38_SHIFT = DEC38[1] - MONEY[1]  # decimal(7,2) cents -> scale 18
 WAREHOUSE_WORDS = ("Conventional", "Important", "Doors", "Bad", "Matters",
@@ -2960,6 +2996,350 @@ def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
     return launches, a_args, c_args
 
 
+# ---- parquet_files (slice 10): star_decimal's store_sales written again in
+# seven file forms and read by Q3 and Q7: gzip and zstd through the Python
+# page walk, columns, row groups and files the device decode declines
+# through pyarrow, the multi-file reader strategies and `filters=`;
+# FILES_ROUNDS warm collects timed after each checked one (which is not
+# timed), and FILES_DECODE_ROUNDS decodes, all timed, the first checked
+FILES_ROUNDS = 1
+FILES_DECODE_ROUNDS = 2
+FILES_SPLIT = 64  # many_files: the file count of a 64-task Spark write
+FILES_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
+FILES_QUERIES = ("q3", "q7")
+# the 64 lz4 files under each reader strategy: Q3 alone (each is a host
+# read of every file; tests/test_torch_parquet_files.py holds the
+# strategies' order and batch counts against the JAX engine)
+FILES_READER_QUERIES = ("q3",)
+FILES_DIMS = {"q3": ("date_dim", "item"), "q7": ("item", "store")}
+# per_column writes these as TINYINT, DELTA_BINARY_PACKED and
+# BYTE_STREAM_SPLIT FIXED_LEN_BYTE_ARRAY(4): the footer check sends each
+# to pyarrow, and its chunks merge into the device batches
+FILES_HOST_COLS = ("ss_quantity", "ss_sold_date_sk", "ss_sales_price")
+READER_TYPE = "spark.rapids.sql.format.parquet.reader.type"
+SCAN_COUNTS = ("scan_chunks", "fused_dispatches", "declined_chunks",
+               "host_columns", "host_row_groups", "host_files")
+
+
+def files_forms(pa, pq, ss, d: str, snappy: str, dates: tuple) -> dict:
+    """store_sales (an Arrow table) in the phase's forms, written under d
+    in row groups of PARQUET_ROW_GROUP, all files at once on a thread pool
+    (pyarrow writes without the interpreter lock) -> {form: (path or
+    paths, read options, conf, how the port should read it)}. gzip is
+    written at level 1 (level 6 takes 4x as long to write; a reader sees
+    the same codec). `snappy` is the run's snappy file, `dates` the
+    (first, last) ss_sold_date_sk of `filters`."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 4)
+
+    def write(t, name, **kw):
+        path = os.path.join(d, f"{name}.parquet")
+        return pool.submit(lambda: pq.write_table(
+            t, path, row_group_size=PARQUET_ROW_GROUP, **kw) or path)
+
+    qty = ss.schema.get_field_index("ss_quantity")
+    narrow = ss.set_column(qty, "ss_quantity",
+                           ss.column(qty).cast(pa.int8()))
+    per = -(-ss.num_rows // FILES_SPLIT)
+    with pool:
+        forms = {
+            "zstd": (write(ss, "store_sales_zstd", compression="zstd"), {},
+                     {}, "device"),
+            "gzip": (write(ss, "store_sales_gzip", compression="gzip",
+                           compression_level=1), {}, {}, "device"),
+            "per_column": (write(
+                narrow, "store_sales_per_column",
+                use_dictionary=[n for n in ss.column_names
+                                if n not in FILES_HOST_COLS[1:]],
+                column_encoding={"ss_sold_date_sk": "DELTA_BINARY_PACKED",
+                                 "ss_sales_price": "BYTE_STREAM_SPLIT"}),
+                {}, {}, "device"),
+            "v2_pages": (write(ss, "store_sales_v2",
+                               data_page_version="2.0"), {}, {},
+                         "row_groups"),
+            "lz4": (write(ss, "store_sales_lz4", compression="lz4"), {}, {},
+                    "files"),
+        }
+        split = {codec: [write(ss.slice(i * per, per),
+                               f"part-{i:05d}-{codec}", compression=codec)
+                         for i in range(FILES_SPLIT)]
+                 for codec in ("snappy", "lz4")}
+        forms["many_files"] = (split["snappy"], {}, {}, "device")
+        for rt in ("PERFILE", "COALESCING", "MULTITHREADED"):
+            forms[f"many_files_lz4_{rt.lower()}"] = (split["lz4"], {},
+                                                     {READER_TYPE: rt},
+                                                     "files")
+    forms = {f: ((p.result() if not isinstance(p, list)
+                  else [x.result() for x in p]), o, c, h)
+             for f, (p, o, c, h) in forms.items()}
+    forms["filters"] = (snappy, {"filters": [
+        ("ss_sold_date_sk", ">=", dates[0]),
+        ("ss_sold_date_sk", "<=", dates[1])]}, {}, "files")
+    return forms
+
+
+def expected_scan(pq, paths, how: str, batch_rows: int, host_cols: int = 0,
+                  rows=None, coalesce: bool = False):
+    """The scan counters and the batch count a scan of `paths` should give
+    (ScanCounters' fields of SCAN_COUNTS): `how` is "device" (the device
+    decode, `host_cols` columns of each row group merged from pyarrow),
+    "row_groups" (every row group decoded whole by pyarrow) or "files"
+    (every file by pyarrow, cut into batch_rows slices: of `rows` when a
+    row filter leaves fewer, of all the files at once when `coalesce`)."""
+    paths = [paths] if isinstance(paths, str) else list(paths)
+    want = dict.fromkeys(SCAN_COUNTS, 0)
+    metas = [pq.ParquetFile(p).metadata for p in paths]
+    batches = 0
+    if how == "files":
+        want["host_files"] = len(paths)
+        counts = [m.num_rows for m in metas] if rows is None else [rows]
+        if coalesce:
+            counts = [sum(counts)]
+        batches = sum(max(-(-n // batch_rows), 1) for n in counts)
+        return want, batches
+    for p, m in zip(paths, metas):
+        rgs = m.num_row_groups
+        if how == "row_groups":
+            want["host_row_groups"] += rgs
+            batches += rgs
+            continue
+        want["scan_chunks"] += rgs
+        want["fused_dispatches"] += packed_groups(pq, [p],
+                                                  CHUNKS_PER_DISPATCH)
+        want["host_columns"] += host_cols * rgs
+        batches += -(-rgs // CHUNKS_PER_DISPATCH)
+    return want, batches
+
+
+def files_phases(torch, pa, mesh_conf: dict, counters, data: dict,
+                 conf=None, device=None, rounds=FILES_ROUNDS,
+                 decode_rounds=FILES_DECODE_ROUNDS):
+    """Phase parquet_files: Q3 and Q7 of star_decimal_queries over
+    store_sales in each form of files_forms (the run's star_decimal_data:
+    its oracle, its snappy dimension files), on one device with dynamic
+    pruning off, and Q7 under the distributed plan over per_column. Each
+    collect is checked against the oracle (restricted to the filter's dates
+    for `filters`), its scan counters against expected_scan, A against 2
+    per fused join per store_sales batch and C against
+    STAR_DECIMAL_C_PER_BATCH a batch (distributed only); `rounds` warm
+    collects after each checked one are timed beside the snappy files', and
+    the zstd and gzip decodes alone, `decode_rounds` times (the first
+    checked after its timing), beside pq.read_table. The 64 lz4 files' reader strategies run Q3 alone
+    (FILES_READER_QUERIES). Prints one line per form. Returns the launch
+    counts of each path's run (one collect of each of its queries), the
+    arguments of
+    A's first call in a v2_pages Q7 collect (keys of a row group pyarrow
+    decoded) and of C's first call in the distributed per_column Q7."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.io import parquet_device as P
+    from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **FILES_CONF,
+                **{"spark.rapids.tpu.fusion.enabled": True})
+    batch_rows = TpuSession(conf, dev).conf.batch_size_rows
+    ns = star_namespace()
+    tables, want = data["tables"], data["oracle"]
+    ss = tables["store_sales"]
+    dd = tables["date_dim"]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        P.COUNTERS.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        snap = P.COUNTERS.snapshot()
+        return out, {k.__name__: k.launches for k in counters}, \
+            {f: snap[f] for f in SCAN_COUNTS}
+
+    # filters: the sales of one year of date_dim, the middle one
+    years = dd.column("d_year").to_numpy()
+    year = years[len(years) // 2]
+    sks = dd.column("d_date_sk").to_numpy()[years == year]
+    dates = (int(sks.min()), int(sks.max()))
+    sold = ss.column("ss_sold_date_sk").to_numpy()
+    keep = (sold >= dates[0]) & (sold <= dates[1])
+    filtered = star_decimal_oracle(pa, dict(tables, store_sales=ss.filter(
+        pa.array(keep))))
+
+    def dims_scan(q):
+        total = dict.fromkeys(SCAN_COUNTS, 0)
+        for name in FILES_DIMS[q]:
+            for k, v in expected_scan(pq, data["paths"][name], "device",
+                                      batch_rows)[0].items():
+                total[k] += v
+        return total
+
+    def run(form, q, df, oracle, sales_scan, batches, c_per_batch=0):
+        """The checked collect of one query: its scan counters and
+        launches against their predictions. Returns the launches."""
+        shape = df.explain()
+        out, launches, scan = counted(df.collect)
+        check_star_decimal(pa, q, out, oracle[q])
+        scan_want = {k: v + sales_scan[k] for k, v in dims_scan(q).items()}
+        if scan != scan_want:
+            raise AssertionError(f"parquet_files {form} {q}: scan counters "
+                                 f"{scan}, predicted {scan_want}")
+        a_want = 2 * fused_joins(shape) * batches
+        c_want = c_per_batch * batches
+        if launches["murmur3_rows"] != a_want or a_want == 0 or \
+                launches["segment_sum_i64"] != c_want:
+            raise AssertionError(f"parquet_files {form} {q} launched "
+                                 f"{launches}, not A {a_want} and C "
+                                 f"{c_want}")
+        return launches, scan, shape
+
+    def timed(df, q, oracle):
+        """`rounds` warm collects, each checked."""
+        walls = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            out = df.collect()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check_star_decimal(pa, q, out, oracle[q])
+        return spread(walls)
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as d:
+        forms = files_forms(pa, pq, ss, d, data["paths"]["store_sales"],
+                            dates)
+        write_s = time.monotonic() - t0
+        snappy_q = star_decimal_queries(TpuSession(conf, dev), ns,
+                                        data["paths"])
+        snappy_walls = {}
+        for q in FILES_QUERIES:
+            check_star_decimal(pa, q, snappy_q[q].collect(), want[q])
+            snappy_walls[q] = timed(snappy_q[q], q, want)
+        emit({"phase": "parquet_files", "form": "snappy",
+              "sales_rows": ss.num_rows, "write_s": write_s,
+              "filter_dates": list(dates), "filter_rows": int(keep.sum()),
+              "collect_s": snappy_walls})
+        launches, a_args, c_args = {}, None, None
+        for form, (paths, options, extra, how) in forms.items():
+            oracle = filtered if options.get("filters") else want
+            sales_scan, batches = expected_scan(
+                pq, paths, how, batch_rows,
+                host_cols=len(FILES_HOST_COLS) if form == "per_column"
+                else 0, rows=int(keep.sum()) if options else None,
+                coalesce=extra.get(READER_TYPE) == "COALESCING")
+            sq = star_decimal_queries(TpuSession(dict(conf, **extra), dev),
+                                      ns, dict(data["paths"],
+                                               store_sales=paths), **options)
+            record, path_run = {}, Counter()
+            for q in (FILES_READER_QUERIES if READER_TYPE in extra
+                      else FILES_QUERIES):
+                got, scan, shape = run(form, q, sq[q], oracle, sales_scan,
+                                       batches)
+                path_run.update(got)
+                record[q] = {"launches": got, "scan_counters": scan,
+                             "fused_joins": fused_joins(shape),
+                             "collect_s": timed(sq[q], q, oracle)}
+            launches[f"parquet_files_{form}"] = dict(path_run)
+            if form == "v2_pages":
+                a_args = first_call_args(torch, pallas_probe, "murmur3_rows",
+                                         sq["q7"].collect)
+            if form in ("zstd", "gzip"):
+                pf = pq.ParquetFile(paths)
+                schema = Schema.from_arrow(pf.schema_arrow)
+                dec, rd = [], []
+                for i in range(decode_rounds):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    out = list(P.device_decode_file(pf, paths, schema, dev,
+                                                    CHUNKS_PER_DISPATCH))
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    ref = pq.read_table(paths)
+                    dec.append(t2 - t1)
+                    rd.append(time.perf_counter() - t2)
+                    if i == 0:
+                        check_decoded(pa, out, ref, f"the {form} file")
+                    del out, ref
+                record["decode"] = {"wall_s": spread(dec),
+                                    "pq_read_table_s": spread(rd),
+                                    "exact_vs_pyarrow": True}
+            if form == "per_column":
+                dq = star_decimal_queries(
+                    TpuSession(dict(conf, **mesh_conf), dev), ns,
+                    dict(data["paths"], store_sales=paths))["q7"]
+                got, scan, shape = run(
+                    "per_column distributed", "q7", dq, want, sales_scan,
+                    batches, STAR_DECIMAL_C_PER_BATCH["q7"])
+                launches["parquet_files_per_column_distributed"] = got
+                c_args = first_call_args(torch, pallas_groupby,
+                                         "segment_sum_i64", dq.collect)
+                record["q7_distributed"] = {
+                    "launches": got, "scan_counters": scan,
+                    "collect_s": timed(dq, "q7", want)}
+            emit({"phase": "parquet_files", "form": form, "how": how,
+                  "files": 1 if isinstance(paths, str) else len(paths),
+                  "sales_batches": batches, "exact": "every decimal "
+                  "(int64 oracle), keys, counts", "predicted_scan":
+                  sales_scan, **record})
+    emit({"phase": "parquet_files", "form": "all",
+          "seconds": time.monotonic() - t0})
+    return launches, a_args, c_args
+
+
+DATA_SETS = ("star", "decimal", "joins", "aggs")
+
+
+def prepared(kind: str, d: str) -> dict:
+    """One of the run's DATA_SETS, made in a worker process, its files in
+    directory d: "star" (star_data), "decimal" (star_decimal_data),
+    "joins" (join_data) or "aggs" (agg_data). The star tables go to Arrow
+    IPC files named under "arrow" (a result crosses to the run's process
+    through a pipe, and reading gigabytes there holds up its main thread:
+    read them with loaded); the joins' and aggregates' tables, which their
+    phases do not read, are dropped."""
+    import pyarrow as pa
+    data = star_data(pa) if kind == "star" else {
+        "decimal": star_decimal_data, "joins": join_data,
+        "aggs": agg_data}[kind](pa, d)
+    tables = data.pop("tables")
+    if kind in ("star", "decimal"):
+        data["arrow"] = {}
+        for name, t in tables.items():
+            path = os.path.join(d, f"{name}.arrow")
+            with pa.OSFile(path, "wb") as f, \
+                    pa.ipc.new_file(f, t.schema) as w:
+                w.write_table(t)
+            data["arrow"][name] = path
+    return data
+
+
+def loaded(future) -> dict:
+    """A data set from start_data, with its star tables read back."""
+    import pyarrow as pa
+    data = future.result()
+    if "arrow" in data:
+        data["tables"] = {n: pa.ipc.open_file(pa.OSFile(p)).read_all()
+                          for n, p in data.pop("arrow").items()}
+    return data
+
+
+def start_data(stack: contextlib.ExitStack) -> dict:
+    """Start making DATA_SETS in two worker processes at a lower priority
+    (numpy and pyarrow on the host, no card), in the order the phases need
+    them, while the card runs the phases before them; their files go to
+    temporary directories. `stack` removes the directories and stops the
+    workers (queued sets cancelled) when it closes. Returns {set:
+    future}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    dirs = {k: stack.enter_context(tempfile.TemporaryDirectory(
+        prefix=f"chip_smoke_{k}_")) for k in DATA_SETS}
+    pool = stack.enter_context(ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(10,)))
+    stack.callback(pool.shutdown, cancel_futures=True)
+    return {k: pool.submit(prepared, k, dirs[k]) for k in DATA_SETS}
+
 
 def main() -> int:
     try:
@@ -2971,27 +3351,36 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        import pyarrow as pa
+        import pyarrow  # noqa: F401
 
-        from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
-        from spark_rapids_tpu_torch.exec import exchange
-        from spark_rapids_tpu_torch.exec.base import batch_vecs
-        from spark_rapids_tpu_torch.exec.basic import TpuFilterExec, \
-            TpuScanExec
-        from spark_rapids_tpu_torch.exec.joins import _probe_counts
-        from spark_rapids_tpu_torch.expr import col
-        from spark_rapids_tpu_torch.ops import cuda_build
-        from spark_rapids_tpu_torch.ops.pallas_probe import (
-            candidate_counts, murmur3_rows, murmur3_rows_plain)
-        from spark_rapids_tpu_torch.ops.pallas_groupby import (
-            segment_sum_i64, segment_sum_i64_plain)
-        from spark_rapids_tpu_torch.ops.pallas_segsum import (
-            MAX_SEGMENTS, segment_sum_f64, segment_sum_f64_plain)
-        from spark_rapids_tpu_torch.plugin import TpuSession
+        import spark_rapids_tpu_torch.plugin  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the package is not beside this script: {e}",
               file=sys.stderr)
         return 2
+    with contextlib.ExitStack() as stack:
+        return run_phases(torch, start_data(stack))
+
+
+def run_phases(torch, ready: dict) -> int:
+    """Every phase, in order; `ready` holds start_data's futures. Returns
+    0, or raises at the first failure."""
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.exec import exchange
+    from spark_rapids_tpu_torch.exec.base import batch_vecs
+    from spark_rapids_tpu_torch.exec.basic import TpuFilterExec, TpuScanExec
+    from spark_rapids_tpu_torch.exec.joins import _probe_counts
+    from spark_rapids_tpu_torch.expr import col
+    from spark_rapids_tpu_torch.ops import cuda_build
+    from spark_rapids_tpu_torch.ops.pallas_probe import (
+        candidate_counts, murmur3_rows, murmur3_rows_plain)
+    from spark_rapids_tpu_torch.ops.pallas_groupby import (
+        segment_sum_i64, segment_sum_i64_plain)
+    from spark_rapids_tpu_torch.ops.pallas_segsum import (
+        MAX_SEGMENTS, segment_sum_f64, segment_sum_f64_plain)
+    from spark_rapids_tpu_torch.plugin import TpuSession
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -3362,49 +3751,55 @@ def main() -> int:
                                    "murmur3_rows": a_dist_launches}})
 
     # ---- 8, 9. the star-schema reports, one device and distributed
+    star = loaded(ready.pop("star"))
     star_launches, dstar_launches, a_args, c_args = star_phases(
-        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64))
+        torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64),
+        data=star)
 
     # ---- parquet_decode, parquet_query, parquet_star_q7: the parquet scan
     pq_launches, pq_a_args, pq_c_args = parquet_phases(
         torch, pa, mesh_conf, (murmur3_rows, segment_sum_f64, segment_sum_i64),
-        fact, dim)
+        fact, dim, star=star)
+    del star
 
     # ---- star_decimal: the star reports over decimal(7,2) money columns
     # from parquet, one device and distributed; then ordered_reports over
     # the same files: their ORDER BY ... LIMIT 100, Q36's rank, a running
     # window and an out-of-core sort
     kernels3 = (murmur3_rows, segment_sum_f64, segment_sum_i64)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
-        dec_data = star_decimal_data(pa, d)
-        dec_launches, dec_a_args, dec_c_args = star_decimal_phases(
-            torch, pa, mesh_conf, kernels3, data=dec_data)
-        ord_launches, ord_a_args, ord_c_args = ordered_phases(
-            torch, pa, mesh_conf, kernels3, data=dec_data)
-        del dec_data
+    dec_data = loaded(ready.pop("decimal"))
+    dec_launches, dec_a_args, dec_c_args = star_decimal_phases(
+        torch, pa, mesh_conf, kernels3, data=dec_data)
+    ord_launches, ord_a_args, ord_c_args = ordered_phases(
+        torch, pa, mesh_conf, kernels3, data=dec_data)
+    # ---- parquet_files: the same store_sales in seven file forms (zstd,
+    # gzip, per-column host decodes, v2 pages, lz4, 64 files under each
+    # reader strategy, filters=), Q3 and Q7
+    files_launches, files_a_args, files_c_args = files_phases(
+        torch, pa, mesh_conf, kernels3, dec_data)
+    del dec_data
 
     # ---- tpcds_joins: q97 (full outer join, the sub-partition join), q10
     # (existence joins), q58 (string keys with conditions) and q28 (cross
     # joins) over TPC-DS tables from parquet, one device and distributed
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_joins_") as d:
-        join_launches, join_a_args, join_c_args = joins_phases(
-            torch, pa, mesh_conf, kernels3, data=join_data(pa, d))
+    join_launches, join_a_args, join_c_args = joins_phases(
+        torch, pa, mesh_conf, kernels3, data=loaded(ready.pop("joins")))
 
     # ---- tpcds_aggregates: q65 (an average of revenue sums, 128-bit
     # partial sums), q39a/q39b (stddev_samp over inventory) and the
     # decimal(38,18) report from parquet, one device and distributed; the
     # decimal(38,18) decode; every aggregate of slice 9 on the card and the
     # CPU
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_aggs_") as d:
-        agg_launches, agg_a_args, agg_c_args = aggregates_phases(
-            torch, pa, mesh_conf, kernels3, data=agg_data(pa, d))
+    agg_launches, agg_a_args, agg_c_args = aggregates_phases(
+        torch, pa, mesh_conf, kernels3, data=loaded(ready.pop("aggs")))
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
     # of a one-device Q7 collect, from Arrow tables and from parquet (a
-    # merged batch of 4 row groups); C on the first fused partial count of
-    # a distributed Q7 collect and the first fused partial aggregate of a
-    # distributed parquet query without pruning
+    # merged batch of 4 row groups, and a row group pyarrow decoded); C on
+    # the first fused partial count of a distributed Q7 collect and the
+    # first fused partial aggregate of a distributed parquet query without
+    # pruning
     a_on = {"star_query": murmur3_on_path(
                 torch, a_args, rate, path="star_query", query="q7"),
             "parquet_star_q7": murmur3_on_path(
@@ -3418,7 +3813,10 @@ def main() -> int:
                 torch, join_a_args, rate, path="tpcds_joins", query="q97"),
             "tpcds_aggregates": murmur3_on_path(
                 torch, agg_a_args, rate, path="tpcds_aggregates",
-                query="q39a")}
+                query="q39a"),
+            "parquet_files_v2_pages": murmur3_on_path(
+                torch, files_a_args, rate, path="parquet_files_v2_pages",
+                query="q7")}
     c_on = {"star_query_distributed": segsum_i64_on_path(
                 torch, c_args, rate, path="star_query_distributed",
                 query="q7"),
@@ -3436,7 +3834,10 @@ def main() -> int:
                 query="q58"),
             "tpcds_aggregates_distributed": segsum_i64_on_path(
                 torch, agg_c_args, rate,
-                path="tpcds_aggregates_distributed", query="q65")}
+                path="tpcds_aggregates_distributed", query="q65"),
+            "parquet_files_per_column_distributed": segsum_i64_on_path(
+                torch, files_c_args, rate,
+                path="parquet_files_per_column_distributed", query="q7")}
     a_err = max([a_err] + [r["max_abs_err"] for r in a_on.values()])
     c_err = max([c_err] + [r["max_abs_err"] for r in c_on.values()])
     emit({"phase": "kernels_on_paths", "murmur3_rows": a_on,
@@ -3451,7 +3852,8 @@ def main() -> int:
                     **{p: n[name] for p, n in dec_launches.items()},
                     **{p: n[name] for p, n in ord_launches.items()},
                     **{p: n[name] for p, n in join_launches.items()},
-                    **{p: n[name] for p, n in agg_launches.items()})
+                    **{p: n[name] for p, n in agg_launches.items()},
+                    **{p: n[name] for p, n in files_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

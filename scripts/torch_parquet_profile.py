@@ -91,7 +91,7 @@ def main() -> int:
                             t0 = time.perf_counter()
                             works, nrows = P._host_phase(pf, f, i, schema)
                             t1 = time.perf_counter()
-                            P._device_phase(schema, works, nrows, dev)
+                            P._device_phase(pf, i, schema, works, nrows, dev)
                             torch.cuda.synchronize()
                             acc["host"] += t1 - t0
                             acc["device"] += time.perf_counter() - t1

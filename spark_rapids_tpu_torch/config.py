@@ -113,10 +113,22 @@ register("spark.rapids.tpu.mesh.enabled", "bool", False,
 register("spark.rapids.sql.format.parquet.enabled", "bool", True,
          "Enable the parquet scan.")
 register("spark.rapids.sql.format.parquet.deviceDecode.enabled", "bool", True,
-         "Decode parquet pages on the device (io/parquet_device.py). false "
-         "is an explicit request for pyarrow's host decode, uploaded through "
-         "the Arrow path, for comparing the two; the device decode never "
-         "falls back to it on its own.")
+         "Decode parquet pages on the device (io/parquet_device.py); a "
+         "column, row group or file the device decode declines is decoded "
+         "by pyarrow and uploaded, and counted (parquet_device.COUNTERS). "
+         "false sends every file to pyarrow's host decode.")
+register("spark.rapids.sql.format.parquet.reader.type", "string", "AUTO",
+         "Reader strategy of the parquet scan's host decode "
+         "(io/multifile.py): AUTO, PERFILE, COALESCING, MULTITHREADED.",
+         check_values=("AUTO", "PERFILE", "COALESCING", "MULTITHREADED"))
+register("spark.rapids.sql.format.parquet.multiThreadedRead.numThreads", "int",
+         20, "Threads of the process-wide multi-file reader pool.")
+register("spark.rapids.sql.format.parquet.multiThreadedRead."
+         "maxNumFilesParallel", "int", 2147483647,
+         "Most files one scan decodes at once under MULTITHREADED.")
+register("spark.rapids.cloudSchemes", "string", "s3,s3a,s3n,wasbs,gs,abfs,abfss",
+         "URI schemes treated as cloud stores; selects MULTITHREADED reader "
+         "under AUTO.")
 register("spark.rapids.sql.dynamicFilePruning.enabled", "bool", True,
          "Prune probe-side parquet files and row groups of a broadcast hash "
          "join by the build side's distinct keys against the footer min/max "

@@ -133,6 +133,14 @@ class PrefetchIterator:
             self._put(_END)
         except BaseException as e:  # noqa: BLE001 -- crosses the queue
             self._put(_Failure(e))
+        finally:
+            # a consumer that stopped early leaves the upstream generator
+            # suspended: close it here, on its own thread, so its cleanup
+            # (file handles, the multi-file reader's queued decodes) runs
+            # before the thread ends
+            close = getattr(self._inner, "close", None)
+            if close is not None:
+                close()
 
     def _put(self, item) -> bool:
         """A put that gives up once the consumer has stopped."""

@@ -23,22 +23,30 @@ class CpuParquetScanExec(CpuFileScanExec):
         return schema_from_arrow(schema)
 
     def decode_file(self, path: str):
+        """pyarrow's decode of one file with the scan's row filter
+        (`filters=`); timestamps are normalised by _postprocess."""
         import pyarrow.parquet as pq
-        return pq.read_table(path, columns=list(self.output.names),
-                             use_threads=False)
+        from .parquet_device import COUNTERS
+        t = pq.read_table(path, columns=list(self.output.names),
+                          filters=self.options.get("filters"),
+                          use_threads=False)
+        COUNTERS.add(host_files=1)
+        return t
 
 
 def parquet_scan_plan(paths: Sequence[str], conf: TpuConf, **options):
-    """The scan node of `TpuSession.read_parquet`. Of the JAX package's
-    options only `columns` is in this slice: `filters` (pyarrow's row-group
-    pushdown) and the others raise NotImplementedError."""
+    """The scan node of `TpuSession.read_parquet`: `columns` prunes columns,
+    `filters` is pyarrow's row filter (its row-group pruning, then the
+    rows), which sends the scan to the host decode as in the JAX package.
+    Any other option raises NotImplementedError."""
     if not conf.get("spark.rapids.sql.format.parquet.enabled"):
         raise ValueError("parquet scan disabled by conf")
     columns = options.pop("columns", None)
-    if options:
+    unknown = sorted(set(options) - {"filters"})
+    if unknown:
         raise NotImplementedError(
-            f"read_parquet options {sorted(options)} are not supported by "
+            f"read_parquet options {unknown} are not supported by "
             "spark_rapids_tpu_torch yet")
     if not paths:
         raise ValueError("read_parquet needs at least one path")
-    return CpuParquetScanExec(paths, columns=columns)
+    return CpuParquetScanExec(paths, conf, columns=columns, **options)

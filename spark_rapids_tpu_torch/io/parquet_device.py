@@ -33,23 +33,31 @@ whose page layout the packed path declines (dictionary pages after PLAIN
 ones) decodes row group by row group from the same host work
 (`_per_rg_batches`), still on the device; `COUNTERS` counts both.
 
+Columns the footer check (`columns_supported`) refuses -- a codec other
+than snappy, gzip, zstd or none, an encoding other than PLAIN, RLE and the
+dictionary ones, a type the decode lacks (BYTE, SHORT, TIMESTAMP in
+nanoseconds, FLBA decimals wider than 16 bytes), a physical type that
+changes between row groups -- are decoded by pyarrow (`host_cols`), cast
+to the scan's type and merged into the device batch at its capacity
+(`_host_decode_cols`, `_host_cols_to_device`). A page the walk declines (a
+v2 page, a truncated stream) raises DeviceDecodeUnsupported, and the scan
+(io/scanbase.py) passes `device_decode_file` a `host_fallback` that
+decodes that row group on the host. `COUNTERS` counts every host decode,
+and only work whose batch was built: a group or row group that falls back
+is not counted as decoded.
+
 Names follow the JAX module; the JAX `_traced_*` functions and
 `_fused_multi_program` are plain functions here (`_decode_col`,
 `_decode_string_col`, `_read_idx`, `_fused_multi_decode`), since nothing is
 traced. Differences from the JAX module, none of which changes a value:
-  * No host fallback. A page the device decode declines (a v2 page, a codec
-    other than snappy or none, a truncated stream) and a string longer than
-    MAX_STRING_WIDTH raise DeviceDecodeUnsupported. Columns the JAX module
-    host-decodes are refused at plan time (`columns_supported`): BYTE and
-    SHORT (INT32 with an 8- or 16-bit annotation), decimals on a
-    FIXED_LEN_BYTE_ARRAY wider than 16 bytes, TIMESTAMP in nanoseconds,
-    and nested columns.
   * A FIXED_LEN_BYTE_ARRAY decimal of 1-16 bytes converts by vector
     shifts (`_flba_to_limbs`): to int64 for precision <= 18 ('dec64'),
     to the [cap, 2] limbs past it ('dec128').
-  * The scan always takes the native walk. The Python walkers here
-    (`_decode_chunk_py`, `_rle_runs`, `_byte_array_scan_py`) are its plain
-    twins, held against it by the tests.
+  * Snappy and uncompressed chunks take the native walk; gzip and zstd
+    chunks the Python walk (`_decode_chunk_py`, `_rle_runs`), which
+    decompresses each page through pyarrow, as the JAX walk does. The
+    Python walkers are also the native walk's plain twins, held against it
+    by the tests.
   * `_pack_arrays` pads every piece to 8 bytes, so each array views out of
     the shipped buffer at an aligned offset.
   * Row counts are host integers (from the footer), so nothing here reads a
@@ -58,6 +66,7 @@ traced. Differences from the JAX module, none of which changes a value:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import threading
@@ -73,14 +82,21 @@ from ..columnar.column import MAX_STRING_WIDTH, Column, torch_dtype
 from ..columnar.padding import row_bucket, width_bucket
 from ..errors import RapidsTpuError
 
-__all__ = ["DeviceDecodeUnsupported", "COUNTERS", "columns_supported",
-           "file_supported", "decode_row_group", "decode_row_groups_fused",
+__all__ = ["DeviceDecodeUnsupported", "FALLBACK_ERRORS", "COUNTERS",
+           "host_columns", "columns_supported", "file_supported",
+           "decode_row_group", "decode_row_groups_fused",
            "device_decode_file"]
 
 
 class DeviceDecodeUnsupported(RapidsTpuError):
-    """A column chunk the device decode does not cover. The port has no host
-    decode to fall back to, so this ends the query."""
+    """A column chunk the device decode does not cover; the scan decodes it
+    on the host instead (io/scanbase.py)."""
+
+
+# what falls a row group back to pyarrow (the JAX net): a malformed or
+# unsupported stream and I/O errors; anything else, a failed launch among
+# them, propagates
+FALLBACK_ERRORS = (DeviceDecodeUnsupported, OSError, struct.error)
 
 
 class ScanCounters:
@@ -88,13 +104,19 @@ class ScanCounters:
     (`scan_chunks`), packed multi-chunk dispatches (`fused_dispatches`),
     row groups of a packed group decoded one by one because the packed path
     declined their page layout (`declined_chunks`), host-to-device copies
-    and their bytes."""
+    and their bytes; and the host decodes: column chunks decoded by pyarrow
+    and merged into a device batch (`host_columns`), row groups decoded
+    whole by pyarrow (`host_row_groups`), files decoded whole by pyarrow
+    (`host_files`). Counts added inside `staged()` land only when its
+    block ends without an exception."""
 
     _FIELDS = ("scan_chunks", "fused_dispatches", "declined_chunks",
-               "h2d_copies", "h2d_bytes")
+               "h2d_copies", "h2d_bytes", "host_columns", "host_row_groups",
+               "host_files")
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._stages = threading.local()  # per thread: the open stages
         self.reset()
 
     def reset(self) -> None:
@@ -103,9 +125,28 @@ class ScanCounters:
                 setattr(self, f, 0)
 
     def add(self, **counts: int) -> None:
+        stack = getattr(self._stages, "stack", None)
+        if stack:
+            for f, n in counts.items():
+                stack[-1][f] = stack[-1].get(f, 0) + n
+            return
         with self._lock:  # the decode runs on the scan's prefetch thread
             for f, n in counts.items():
                 setattr(self, f, getattr(self, f) + n)
+
+    @contextlib.contextmanager
+    def staged(self):
+        """Hold this thread's counts of the block back until it ends; an
+        exception drops them, so a decode that falls back is not
+        counted."""
+        stack = self._stages.__dict__.setdefault("stack", [])
+        stack.append({})
+        try:
+            yield
+        except BaseException:
+            stack.pop()
+            raise
+        self.add(**stack.pop())
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -289,6 +330,17 @@ def _rle_runs(payload: memoryview, num_values: int, bit_width: int = 1):
             np.frombuffer(bytes(packed), np.uint8))
 
 
+def _rle_runs_native(payload, num_values: int, bit_width: int = 1):
+    """_rle_runs through the native scanner (`native.rle_scan`), as the JAX
+    walk scans when its library is built: the run scans of the gzip and
+    zstd walk."""
+    try:
+        return _native.rle_scan(np.frombuffer(payload, np.uint8),
+                                num_values, bit_width)
+    except ValueError as e:
+        raise DeviceDecodeUnsupported("truncated RLE stream") from e
+
+
 def _byte_array_scan_py(blob: np.ndarray, n: int) -> tuple:
     """Plain twin of native.byte_array_scan: the serial (u32 len, bytes)*
     walk -> (starts int64[n], lens int32[n], max_len)."""
@@ -403,10 +455,10 @@ _PHYS_TO_NP = {"BOOLEAN": "bool", "INT32": "int32", "INT64": "int64",
                "FLOAT": "float32", "DOUBLE": "float64"}
 # fixed-width byte values: the walk keeps their bytes as they are
 _FIXED_BYTES = ("FIXED_LEN_BYTE_ARRAY", "INT96")
-# the codecs the native walk decodes; parquet "LZ4" (Hadoop-framed),
-# LZ4_RAW, GZIP, ZSTD and BROTLI raise
+# the codecs the native walk decodes
 _NATIVE_CODEC = {"UNCOMPRESSED": 0, "SNAPPY": 1}
-# the Python twin decompresses what pyarrow can, as the JAX walk does
+# the codecs the Python walk decompresses through pyarrow; parquet "LZ4"
+# (Hadoop-framed), LZ4_RAW and BROTLI go to the host decode
 _CODEC = {"SNAPPY": "snappy", "GZIP": "gzip", "ZSTD": "zstd"}
 
 
@@ -424,15 +476,17 @@ def _decompress(data: bytes, codec: str, size: int) -> bytes:
 
 
 def _defined_count(part) -> int:
-    """Non-null count of one page's def-level run table (host, tiny)."""
+    """Non-null count of one page's def-level run table: the counts of the
+    RLE runs of 1, and the set bits of each packed run by a prefix sum (JAX
+    `_defined_count`, without its loop over runs)."""
     kinds, counts, values, bitoffs, packed = part
-    bits = np.unpackbits(packed, bitorder="little")
-    total = 0
-    for k, c, v, bo in zip(kinds, counts, values, bitoffs):
-        if k == 0:
-            total += int(c) if v == 1 else 0
-        else:
-            total += int(bits[bo:bo + c].sum())
+    rle = kinds == 0
+    total = int(counts[rle & (values == 1)].sum())
+    if not rle.all():
+        bits = np.concatenate(([0], np.cumsum(
+            np.unpackbits(packed, bitorder="little"), dtype=np.int64)))
+        lo, n = bitoffs[~rle], counts[~rle]
+        total += int((bits[lo + n] - bits[lo]).sum())
     return total
 
 
@@ -453,11 +507,13 @@ class _Chunk:
 
 
 def _decode_chunk(buf: bytes, col_meta, optional: bool) -> _Chunk:
-    """One column chunk -> page descriptors through the native walk.
-    Anything outside its shape raises DeviceDecodeUnsupported."""
+    """One column chunk -> page descriptors: the native walk for snappy and
+    uncompressed chunks, the Python walk for the codecs it decompresses
+    through pyarrow (JAX `_decode_chunk`). Anything outside their shape
+    raises DeviceDecodeUnsupported."""
     codec = _NATIVE_CODEC.get(col_meta.compression)
     if codec is None:
-        raise DeviceDecodeUnsupported(f"codec {col_meta.compression}")
+        return _decode_chunk_py(buf, col_meta, optional, _rle_runs_native)
     if col_meta.physical_type not in _PHYS_TO_NP and \
             col_meta.physical_type not in ("BYTE_ARRAY",) + _FIXED_BYTES:
         raise DeviceDecodeUnsupported(
@@ -522,16 +578,20 @@ def _chunk_from_native(res: dict, is_bool: bool) -> _Chunk:
     return chunk
 
 
-def _decode_chunk_py(buf: bytes, col_meta, optional: bool) -> _Chunk:
-    """The Python page walk (JAX `_decode_chunk_inner`): the plain twin of
-    the native walk, and the semantic spec it is held against."""
+def _decode_chunk_py(buf: bytes, col_meta, optional: bool,
+                     rle=_rle_runs) -> _Chunk:
+    """The Python page walk (JAX `_decode_chunk_inner`): with the Python
+    run scan `_rle_runs`, the plain twin of the native walk and the
+    semantic spec it is held against; with `_rle_runs_native`, the walk of
+    the codecs the native walk lacks."""
     try:
-        return _decode_chunk_inner(buf, col_meta, optional)
+        return _decode_chunk_inner(buf, col_meta, optional, rle)
     except (IndexError, struct.error) as e:
         raise DeviceDecodeUnsupported(f"malformed page stream: {e}") from e
 
 
-def _decode_chunk_inner(buf: bytes, col_meta, optional: bool) -> _Chunk:
+def _decode_chunk_inner(buf: bytes, col_meta, optional: bool,
+                        rle=_rle_runs) -> _Chunk:
     phys = col_meta.physical_type
     if phys not in _PHYS_TO_NP and phys not in ("BYTE_ARRAY",) + \
             _FIXED_BYTES:
@@ -577,7 +637,7 @@ def _decode_chunk_inner(buf: bytes, col_meta, optional: bool) -> _Chunk:
                 raise DeviceDecodeUnsupported(
                     f"def-level encoding {h.def_encoding}")
             (dlen,) = struct.unpack_from("<i", body, 0)
-            p.runs = _rle_runs(body[4:4 + dlen], h.num_values)
+            p.runs = rle(body[4:4 + dlen], h.num_values)
             page_vals = body[4 + dlen:]
             p.ndef = _defined_count(p.runs)
         else:
@@ -604,7 +664,7 @@ def _decode_chunk_inner(buf: bytes, col_meta, optional: bool) -> _Chunk:
             p.bw = page_vals[0] if len(page_vals) else 0
             if p.bw > 32:
                 raise DeviceDecodeUnsupported(f"index bit width {p.bw}")
-            p.payload = _rle_runs(page_vals[1:], p.ndef, p.bw) \
+            p.payload = rle(page_vals[1:], p.ndef, p.bw) \
                 if p.bw and p.ndef else None
         else:
             raise DeviceDecodeUnsupported(f"value encoding {h.encoding}")
@@ -624,6 +684,9 @@ def _merge_runs(run_parts):
     packed = np.concatenate([p[4] for p in run_parts])
     return kinds, counts, values, bitoffs, packed
 
+
+_OK_ENCODINGS = {"PLAIN", "RLE", "BIT_PACKED", "PLAIN_DICTIONARY",
+                 "RLE_DICTIONARY"}
 
 # the engine types decoded as their physical values, by the physical type
 # that holds them (decimals and timestamps: `_column_spec`)
@@ -713,13 +776,18 @@ def _col_index(meta) -> dict:
 
 
 def columns_supported(path, schema):
-    """Footer-only check, no page bytes read: (ParquetFile, {column name:
-    reason}) for the columns the device decode cannot take. What it finds
-    is refused at plan time; the page-level checks (codec, page version,
-    encodings, string lengths) run at scan time."""
+    """(ParquetFile, host_columns of its footer) (JAX
+    `columns_supported`)."""
     import pyarrow.parquet as pq
     pf = pq.ParquetFile(path)
-    meta = pf.metadata
+    return pf, host_columns(pf.metadata, schema)
+
+
+def host_columns(meta, schema) -> dict:
+    """Footer-only check of a file's FileMetaData, no page bytes read:
+    {column name: reason} for the columns the device decode cannot take,
+    which the scan decodes on the host. The page-level checks (page
+    version, string lengths) run when the pages are walked."""
     col_index = _col_index(meta)
     bad = {}
     for name, dt in zip(schema.names, schema.types):
@@ -736,9 +804,16 @@ def columns_supported(path, schema):
                 if cm.physical_type != pqcol.physical_type:
                     raise DeviceDecodeUnsupported(
                         f"{cm.physical_type} for {dt.simple_string()}")
+                if cm.compression != "UNCOMPRESSED" and \
+                        cm.compression not in _CODEC:
+                    raise DeviceDecodeUnsupported(
+                        f"codec {cm.compression}")
+                if not set(cm.encodings) <= _OK_ENCODINGS:
+                    raise DeviceDecodeUnsupported(
+                        f"encodings {cm.encodings}")
         except DeviceDecodeUnsupported as e:
             bad[name] = str(e)
-    return pf, bad
+    return bad
 
 
 def file_supported(path, schema):
@@ -784,9 +859,10 @@ def _pad_runs(runs):
     return kinds, counts, values, bitoffs, packed
 
 
-def _host_phase(pf, f, rg: int, schema):
-    """Host half of a row-group decode: chunk reads, the native page walks
-    and the fast-path preps; numpy only, no device work."""
+def _host_phase(pf, f, rg: int, schema, host_cols=()):
+    """Host half of a row-group decode of the columns not in `host_cols`:
+    chunk reads, the page walks and the fast-path preps; numpy only, no
+    device work."""
     meta = pf.metadata
     col_index = _col_index(meta)
     rgm = meta.row_group(rg)
@@ -809,6 +885,8 @@ def _host_phase(pf, f, rg: int, schema):
 
     works = {}
     for name, dt in zip(schema.names, schema.types):
+        if name in host_cols:
+            continue
         ci = col_index.get(name)
         if ci is None:
             raise DeviceDecodeUnsupported(f"column {name} missing from file")
@@ -825,8 +903,12 @@ def _host_phase(pf, f, rg: int, schema):
         w.chunk = _decode_chunk(read_chunk(cm), cm, w.optional)
         if w.chunk.total != nrows:
             raise DeviceDecodeUnsupported("page/row-group mismatch")
-        w.defruns = _pad_runs(w.chunk.def_runs_merged) \
-            if w.chunk.def_runs_merged is not None else None
+        if w.chunk.def_runs_merged is not None:
+            w.defruns = _pad_runs(w.chunk.def_runs_merged)
+        else:  # the Python walk's per-page tables, merged here
+            parts = [p.runs for p in w.chunk.pages if p.runs is not None]
+            w.defruns = _pad_runs(_merge_runs(parts)) \
+                if w.optional and parts else None
         w.ship = w.meta = None
         prepped = None
         if w.kind == "prim":
@@ -965,10 +1047,12 @@ def _flba_values(mat: torch.Tensor, post: str, flen: int) -> torch.Tensor:
 
 # -- eager assembles: the page interleavings the packed path declines ---------
 
-def _device_phase(schema, works, nrows: int, device: torch.device):
+def _device_phase(pf, rg: int, schema, works, nrows: int,
+                  device: torch.device, host_cols=()):
     """Device half of one row group: the fast-path columns' arrays ship in
     one copy and decode with `_decode_col`; strings and odd page layouts
-    run their eager assembles."""
+    run their eager assembles; then the host columns are decoded by
+    pyarrow and merged at the same capacity."""
     cap = row_bucket(nrows)
     fused = [w for w in works.values() if w.ship is not None]
     cols = {}
@@ -984,7 +1068,7 @@ def _device_phase(schema, works, nrows: int, device: torch.device):
                                             device)
             cols[w.name] = Column(w.dt, data, validity)
     for name, dt in zip(schema.names, schema.types):
-        if name in cols:
+        if name in cols or name in host_cols:
             continue
         w = works[name]
         if w.defruns is not None:
@@ -1000,18 +1084,68 @@ def _device_phase(schema, works, nrows: int, device: torch.device):
         else:
             cols[name] = _assemble_fixed(w.chunk, w.phys, dt, defined, cap,
                                          device, w.spec.post)
+    cols.update(_host_decode_cols(pf, [rg], schema, host_cols, cap, nrows,
+                                  device))
     return ColumnarBatch(schema, tuple(cols[n] for n in schema.names),
                          torch.tensor(nrows, dtype=torch.int32,
                                       device=device)), nrows
 
 
-def decode_row_group(pf, f, rg: int, schema, device: torch.device):
+def decode_row_group(pf, f, rg: int, schema, device: torch.device,
+                     host_cols=()):
     """Decode ONE row group on `device` -> (ColumnarBatch, row count). `pf`
-    is a parsed ParquetFile whose columns columns_supported() accepted; `f`
-    an open binary handle on the same file."""
-    works, nrows = _host_phase(pf, f, rg, schema)
-    out = _device_phase(schema, works, nrows, device)
+    is a parsed ParquetFile; `f` an open binary handle on the same file;
+    `host_cols` the columns columns_supported() refused, decoded by
+    pyarrow and merged into the batch. A page the walk declines raises
+    DeviceDecodeUnsupported, for the caller's fallback."""
+    works, nrows = _host_phase(pf, f, rg, schema, host_cols)
+    out = _device_phase(pf, rg, schema, works, nrows, device, host_cols)
     COUNTERS.add(scan_chunks=1)
+    return out
+
+
+def _host_cols_to_device(t, schema, names, cap: int, device):
+    """Host-decoded Arrow columns -> {name: Column} at the batch's
+    capacity, each cast to the scan's type first: the file's type may
+    differ (a TIMESTAMP in nanoseconds), and a value merged at another
+    type would be wrong without an error. A cast pyarrow finds lossy
+    raises DeviceDecodeUnsupported, which falls the row group back whole
+    (JAX `_host_cols_to_device`)."""
+    import pyarrow as pa
+    from ..columnar.column import from_arrow
+    by_name = dict(zip(schema.names, schema.types))
+    out = {}
+    for name in names:
+        arr = t.column(name)
+        want = T.to_arrow(by_name[name])
+        if arr.type != want:
+            try:
+                arr = arr.cast(want)
+            except (pa.ArrowInvalid, pa.ArrowNotImplementedError) as e:
+                raise DeviceDecodeUnsupported(
+                    f"host column cast {arr.type} -> {want}: {e}") from e
+        out[name] = from_arrow(arr, device, capacity=cap)[0]
+    return out
+
+
+def _host_decode_cols(pf, rgs, schema, host_cols, cap: int, nrows: int,
+                      device):
+    """pyarrow's decode of the host columns of row groups `rgs` ->
+    {name: Column} at capacity `cap` (JAX `_host_decode_cols`); counts one
+    host column chunk per column and row group."""
+    names = [n for n in schema.names if n in host_cols]
+    if not names:
+        return {}
+    import pyarrow as pa
+    try:
+        t = pf.read_row_groups(list(rgs), columns=names)
+    except (OSError, pa.ArrowInvalid, KeyError) as e:
+        # KeyError: the column left the file after the footer check
+        raise DeviceDecodeUnsupported(f"host column decode: {e}") from e
+    if t.num_rows != nrows:
+        raise DeviceDecodeUnsupported("host column row-count mismatch")
+    out = _host_cols_to_device(t, schema, names, cap, device)
+    COUNTERS.add(host_columns=len(names) * len(rgs))
     return out
 
 
@@ -1521,12 +1655,12 @@ def _fused_multi_decode(groups_sig, caps, cap_total: int, nrows, packed,
     return outs
 
 
-def _read_chunks(pf, f, rgs, schema):
+def _read_chunks(pf, f, rgs, schema, host_cols=()):
     """Host phase of a dispatch group: every row group's chunks parsed once
     -> ([(rg, works, nrows)], total rows)."""
     chunks, total = [], 0
     for rg in rgs:
-        works, nrows = _host_phase(pf, f, rg, schema)
+        works, nrows = _host_phase(pf, f, rg, schema, host_cols)
         chunks.append((rg, works, nrows))
         total += nrows
     return chunks, total
@@ -1568,52 +1702,67 @@ def _group_signatures(chunks, names):
     return groups_sig, caps, packed
 
 
-def decode_row_groups_fused(pf, f, rgs, schema, device: torch.device):
+def decode_row_groups_fused(pf, f, rgs, schema, device: torch.device,
+                            host_cols=()):
     """Decode SEVERAL row groups as one dispatch group -> [(ColumnarBatch,
-    rows)]. When every column of every chunk takes a fast-path prep the
-    group ships in ONE packed copy and the list holds one merged batch; a
-    declined layout decodes row group by row group from the same host work
-    (no host step repeats)."""
-    chunks, total = _read_chunks(pf, f, rgs, schema)
-    return _decode_chunks_fused(schema, chunks, total, device)
+    rows)]. When every device column of every chunk takes a fast-path prep
+    the group ships in ONE packed copy and the list holds one merged batch,
+    the host columns decoded by one pyarrow read of the group and merged at
+    its capacity; a declined layout decodes row group by row group from the
+    same host work (no host step repeats)."""
+    chunks, total = _read_chunks(pf, f, rgs, schema, host_cols)
+    return _decode_chunks_fused(pf, schema, chunks, total, device, host_cols)
 
 
-def _per_rg_batches(schema, chunks, device):
+def _per_rg_batches(pf, schema, chunks, device, host_cols=(),
+                    declined: bool = True):
     """Per-row-group decode from the same works: no second host phase."""
-    out = []
-    for _, works, nrows in chunks:
-        out.append(_device_phase(schema, works, nrows, device))
-        COUNTERS.add(scan_chunks=1, declined_chunks=1)
+    out = [_device_phase(pf, rg, schema, works, nrows, device, host_cols)
+           for rg, works, nrows in chunks]
+    COUNTERS.add(scan_chunks=len(out), declined_chunks=len(out) * declined)
     return out
 
 
-def _decode_chunks_fused(schema, chunks, total: int, device):
-    names = list(schema.names)
+def _decode_chunks_fused(pf, schema, chunks, total: int, device,
+                         host_cols=()):
+    names = [n for n in schema.names if n not in host_cols]
     if not names or total == 0:
-        return [_device_phase(schema, works, nrows, device)
-                for _, works, nrows in chunks]
+        return _per_rg_batches(pf, schema, chunks, device, host_cols,
+                               declined=False)
     sig = _group_signatures(chunks, names)
     if sig is None:
-        return _per_rg_batches(schema, chunks, device)
+        return _per_rg_batches(pf, schema, chunks, device, host_cols)
     groups_sig, caps, packed = sig
     cap_total = row_bucket(total)
     dev = torch.from_numpy(packed).to(device)
-    COUNTERS.add(h2d_copies=1, h2d_bytes=int(packed.nbytes),
-                 fused_dispatches=1, scan_chunks=len(chunks))
     outs = _fused_multi_decode(groups_sig, caps, cap_total,
                                [n for _, _, n in chunks], dev, device)
-    cols = tuple(Column(dt, data, validity, lengths)
-                 for dt, (data, validity, lengths) in zip(schema.types, outs))
-    return [(ColumnarBatch(schema, cols, torch.tensor(
-        total, dtype=torch.int32, device=device)), total)]
+    by_name = dict(zip(schema.names, schema.types))
+    cols = {n: Column(by_name[n], data, validity, lengths)
+            for n, (data, validity, lengths) in zip(names, outs)}
+    cols.update(_host_decode_cols(pf, [rg for rg, _, _ in chunks], schema,
+                                  host_cols, cap_total, total, device))
+    COUNTERS.add(h2d_copies=1, h2d_bytes=int(packed.nbytes),
+                 fused_dispatches=1, scan_chunks=len(chunks))
+    return [(ColumnarBatch(schema, tuple(cols[n] for n in schema.names),
+                           torch.tensor(total, dtype=torch.int32,
+                                        device=device)), total)]
 
 
 def device_decode_file(pf, path: str, schema, device: torch.device,
-                       chunks_per_dispatch: int = 1, rgs=None) -> Iterator:
+                       chunks_per_dispatch: int = 1, rgs=None,
+                       host_cols=(), host_fallback=None) -> Iterator:
     """Yield (ColumnarBatch, row count) per dispatch group of the file's
-    row groups (all of them, or `rgs`), one group live at a time.
-    `chunks_per_dispatch` > 1 decodes that many row groups per packed
-    dispatch; 1 decodes row group by row group."""
+    row groups (all of them, or `rgs`), one group live at a time, the
+    columns `host_cols` decoded by pyarrow. `chunks_per_dispatch` > 1
+    decodes that many row groups per packed dispatch, and a group that
+    fails decodes again row group by row group; 1 decodes row group by row
+    group. Without `host_fallback`, a group fails on DeviceDecodeUnsupported
+    and a row group's raises it. With it, a group or row group fails on
+    FALLBACK_ERRORS, and `host_fallback(rg) -> (batch, rows)` decodes the
+    failed row group. A failed attempt counts nothing (COUNTERS.staged)."""
+    net = DeviceDecodeUnsupported if host_fallback is None \
+        else FALLBACK_ERRORS
     group = max(int(chunks_per_dispatch), 1)
     if rgs is None:
         rgs = range(pf.metadata.num_row_groups)
@@ -1622,7 +1771,22 @@ def device_decode_file(pf, path: str, schema, device: torch.device,
         for i in range(0, len(rgs), group):
             chunk_rgs = rgs[i:i + group]
             if len(chunk_rgs) > 1:
-                yield from decode_row_groups_fused(pf, f, chunk_rgs, schema,
-                                                   device)
-            else:
-                yield decode_row_group(pf, f, chunk_rgs[0], schema, device)
+                try:
+                    with COUNTERS.staged():
+                        outs = decode_row_groups_fused(
+                            pf, f, chunk_rgs, schema, device, host_cols)
+                except net:
+                    pass  # row group by row group below
+                else:
+                    yield from outs
+                    continue
+            for rg in chunk_rgs:
+                try:
+                    with COUNTERS.staged():
+                        out = decode_row_group(pf, f, rg, schema, device,
+                                               host_cols)
+                except net:
+                    if host_fallback is None:
+                        raise
+                    out = host_fallback(rg)
+                yield out

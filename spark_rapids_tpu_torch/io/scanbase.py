@@ -1,14 +1,25 @@
 """File-scan plan node and device scan exec
-(`spark_rapids_tpu/io/scanbase.py`: `CpuFileScanExec`'s footer side and
-`TpuFileScanExec`'s parquet device path, without pushdown, the result
+(`spark_rapids_tpu/io/scanbase.py`: `CpuFileScanExec`'s footer side and host
+decode, and `TpuFileScanExec`'s parquet paths, without pushdown, the result
 cache, mesh shards or spans).
 
 The plan node reads only footers: the schema, the exact row count and the
 per-column min/max the planner's estimates use. The exec decodes each file
 on the device, row-group groups at a time (io/parquet_device.py), behind
-the scan's prefetch thread. `spark.rapids.sql.format.parquet.deviceDecode.
-enabled=false` is an explicit request for pyarrow's host decode, uploaded
-through the Arrow path; nothing takes it unasked.
+the scan's prefetch thread, and takes pyarrow's host decode where the
+device decode declines, as the JAX scan does:
+  * a column the footer check refuses (an encoding, a codec, a type the
+    decode lacks) is decoded by pyarrow and merged into the device batch;
+  * a row group whose pages the device decode declines (a v2 page, a
+    truncated stream) is decoded whole by pyarrow;
+  * a file with no column the device can decode is decoded whole by
+    pyarrow, and if no file of the scan has one, the whole scan goes
+    through the multi-file reader strategies (io/multifile.py).
+`filters=` and `spark.rapids.sql.format.parquet.deviceDecode.enabled=false`
+send the scan to the host decode. The fallback net is the JAX one,
+`parquet_device.FALLBACK_ERRORS`: a malformed or unsupported stream and
+I/O errors. Anything else, a failed CUDA launch among them, ends the
+query. Every host decode is counted in `parquet_device.COUNTERS`.
 """
 
 from __future__ import annotations
@@ -19,11 +30,12 @@ import torch
 
 from .. import types as T
 from ..columnar.batch import Schema, batch_from_arrow
-from ..config import TpuConf
+from ..config import TpuConf, get_default_conf
 from ..exec.base import TpuExec, maybe_prefetch
 from ..plan.nodes import PhysicalPlan
+from .multifile import FileBatchIterator
 
-__all__ = ["CpuFileScanExec", "TpuFileScanExec"]
+__all__ = ["CpuFileScanExec", "TpuFileScanExec", "normalize_timestamps"]
 
 
 class CpuFileScanExec(PhysicalPlan):
@@ -32,14 +44,17 @@ class CpuFileScanExec(PhysicalPlan):
 
     format_name = "file"
 
-    def __init__(self, paths: Sequence[str],
-                 columns: Optional[List[str]] = None):
+    def __init__(self, paths: Sequence[str], conf: TpuConf = None,
+                 columns: Optional[List[str]] = None, **options):
         super().__init__([])
         self.paths = [str(p) for p in paths]
+        self.conf = conf or get_default_conf()
         self.columns = columns
+        self.options = options
         self._schema = self._infer_schema()
         self._footer_meta_cache = None
         self._col_stats = None
+        self._host_cols = None
 
     def _infer_schema(self) -> Schema:
         raise NotImplementedError
@@ -52,6 +67,14 @@ class CpuFileScanExec(PhysicalPlan):
     def output(self) -> Schema:
         return self._schema
 
+    def _postprocess(self, t):
+        """The scan's columns, in order, with every timestamp in UTC
+        microseconds (JAX `_postprocess`)."""
+        names = list(self.output.names)
+        if t.schema.names != names:
+            t = t.select(names)
+        return normalize_timestamps(t)
+
     # -- footer statistics: the planner's estimates read these -------------
     def _footer_metas(self):
         """Parsed parquet FileMetaData of every path, read once."""
@@ -60,6 +83,16 @@ class CpuFileScanExec(PhysicalPlan):
             self._footer_meta_cache = [pq.ParquetFile(p).metadata
                                        for p in self.paths]
         return self._footer_meta_cache
+
+    def host_columns(self) -> dict:
+        """{path: the columns the device decode cannot take}, from the
+        footers, worked out once (parquet_device.host_columns)."""
+        if self._host_cols is None:
+            from .parquet_device import host_columns
+            self._host_cols = {
+                p: frozenset(host_columns(m, self.output))
+                for p, m in zip(self.paths, self._footer_metas())}
+        return self._host_cols
 
     def footer_row_count(self) -> int:
         """Exact total row count from the footers."""
@@ -85,13 +118,33 @@ class CpuFileScanExec(PhysicalPlan):
         self._col_stats = stats
         return stats
 
-    def host_tables(self, paths: Optional[Sequence[str]] = None):
-        """pyarrow Tables of the files, decoded on the host."""
-        for p in self.paths if paths is None else paths:
-            yield self.decode_file(p)
+    def host_tables(self, paths: Optional[Sequence[str]] = None,
+                    conf: Optional[TpuConf] = None):
+        """pyarrow Tables of the files, decoded on the host under the
+        reader strategy of `conf` (the plan's by default), cut into
+        batchSizeRows slices."""
+        for t in FileBatchIterator(self.paths if paths is None else paths,
+                                   self.decode_file, conf or self.conf):
+            yield self._postprocess(t)
 
     def _arg_string(self):
         return f"[{self.format_name}, {len(self.paths)} files]"
+
+
+def normalize_timestamps(t):
+    """Timestamps of any unit and zone -> microseconds in UTC, Spark's
+    TimestampType, by pyarrow's safe cast: a value with a sub-microsecond
+    remainder raises ArrowInvalid, as in the JAX package."""
+    import pyarrow as pa
+    cols, changed = [], False
+    for f in t.schema:
+        col = t.column(f.name)
+        if pa.types.is_timestamp(f.type) and (f.type.unit != "us"
+                                              or f.type.tz != "UTC"):
+            col = col.cast(pa.timestamp("us", tz="UTC"))
+            changed = True
+        cols.append(col)
+    return pa.table(cols, names=t.schema.names) if changed else t
 
 
 def schema_from_arrow(schema) -> Schema:
@@ -119,6 +172,9 @@ class TpuFileScanExec(TpuExec):
         # DynamicKeyFilters the planner wires in; the broadcast join fills
         # them before it pulls this exec's stream
         self.dynamic_filters: list = []
+        # the JAX metric colsHostDecoded: one count per file and column the
+        # footer check sends to the host decode
+        self.cols_host_decoded = 0
 
     @property
     def output(self) -> Schema:
@@ -144,31 +200,60 @@ class TpuFileScanExec(TpuExec):
         yield from maybe_prefetch(self._decode_batches(), self.conf,
                                   name=f"scan-{fmt}")
 
+    def _upload(self, t):
+        return batch_from_arrow(t, self.device)
+
     def _decode_batches(self):
-        if self.conf.get(
+        if not self.cpu_scan.options.get("filters") and self.conf.get(
                 "spark.rapids.sql.format.parquet.deviceDecode.enabled"):
             yield from self._parquet_batches()
             return
-        # the host decode, asked for: pyarrow, then the Arrow upload in
-        # batchSizeRows slices
-        step = self.conf.batch_size_rows
-        for t in self.cpu_scan.host_tables(self._effective_paths()):
-            for off in range(0, t.num_rows, step):
-                yield batch_from_arrow(t.slice(off, step), self.device)
+        for t in self.cpu_scan.host_tables(self._effective_paths(),
+                                           self.conf):
+            yield self._upload(t)
+
+    def _host_file_batches(self, path: str):
+        """One file decoded by pyarrow, in batchSizeRows slices."""
+        scan = self.cpu_scan
+        for t in FileBatchIterator([path], scan.decode_file, self.conf):
+            yield self._upload(scan._postprocess(t))
 
     def _parquet_batches(self):
-        """Device decode, one dispatch group of row groups at a time: with
-        pipelining on, spark.rapids.tpu.pipeline.scan.chunksPerDispatch row
-        groups per packed dispatch, else one."""
+        """Device decode, one dispatch group of row groups at a time, with
+        the host decode by column, row group and file (the module
+        docstring). The footer check reads the footers the plan node
+        cached; each file is opened once, for its decode."""
         import pyarrow.parquet as pq
         from .dynamic_pruning import row_group_filter, schema_col_index
-        from .parquet_device import device_decode_file
+        from .parquet_device import COUNTERS, device_decode_file
+        scan = self.cpu_scan
+        names = list(scan.output.names)
+        paths = self._effective_paths()
+        host_cols = scan.host_columns()
+        # a file with no column the device can decode is read by pyarrow
+        supported = {p for p in paths if len(host_cols[p]) < len(names)}
+        self.cols_host_decoded += sum(len(host_cols[p]) for p in supported)
+        if not supported:
+            # nothing can be decoded on the device: the reader strategies
+            for t in scan.host_tables(paths, self.conf):
+                yield self._upload(t)
+            return
         group = 1
         if self.conf.get("spark.rapids.tpu.pipeline.enabled"):
             group = max(self.conf.get(
                 "spark.rapids.tpu.pipeline.scan.chunksPerDispatch"), 1)
-        for path in self._effective_paths():
+        for path in paths:
+            if path not in supported:
+                yield from self._host_file_batches(path)
+                continue
             pf = pq.ParquetFile(path)
+
+            def host_fallback(rg, pf=pf):
+                """A row group the device decode declined, by pyarrow."""
+                t = scan._postprocess(pf.read_row_group(rg, columns=names))
+                COUNTERS.add(host_row_groups=1)
+                return self._upload(t), t.num_rows
+
             try:
                 meta = pf.metadata
                 keep = row_group_filter(meta, schema_col_index(meta),
@@ -176,8 +261,9 @@ class TpuFileScanExec(TpuExec):
                     if self.dynamic_filters else None
                 rgs = [rg for rg in range(meta.num_row_groups)
                        if keep is None or rg in keep]
-                for b, _ in device_decode_file(pf, path, self.output,
-                                               self.device, group, rgs):
+                for b, _ in device_decode_file(
+                        pf, path, scan.output, self.device, group, rgs,
+                        host_cols[path], host_fallback):
                     yield b
             finally:
                 pf.close()

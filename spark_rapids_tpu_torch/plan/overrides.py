@@ -327,23 +327,15 @@ class Overrides:
         return out
 
     def _convert_file_scan(self, plan):
-        """A parquet scan: every column of an engine type, and, for the
-        device decode, of a physical layout it decodes (the footer check
-        `columns_supported`, over every file). Pages are checked when they
-        are read: a page the decode declines raises then."""
-        from ..io.parquet_device import columns_supported
+        """A parquet scan of columns of engine types. What the device
+        decode declines -- a column (the footer check), a row group (its
+        pages) or a file -- the scan decodes on the host, so only what no
+        path of the port holds is refused here: nested and binary columns
+        (`schema_from_arrow`, `check_supported`)."""
         if plan.format_name != "parquet":
             _unsupported(f"the {plan.format_name} scan")
         for dt in plan.output.types:
             check_supported(dt, "scan column")
-        if self.conf.get(
-                "spark.rapids.sql.format.parquet.deviceDecode.enabled"):
-            for path in plan.paths:
-                pf, bad = columns_supported(path, plan.output)
-                pf.close()
-                for name, reason in bad.items():
-                    _unsupported(f"parquet column {name} ({reason}) in "
-                                 f"{path}")
         return TpuFileScanExec(plan, self.conf, self.device)
 
     def _convert_agg(self, plan: N.CpuHashAggregateExec, children):

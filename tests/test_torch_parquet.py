@@ -508,10 +508,17 @@ class TestPrefetch:
         assert not it._thread.is_alive()
 
     def test_scan_error_crosses_the_prefetch_thread(self, tmp_path):
-        path = str(tmp_path / "v2.parquet")
-        pq.write_table(kinds_table(n=500), path, data_page_version="2.0")
+        """A page header overwritten with garbage: the device walk declines
+        the row group and pyarrow's decode of it, on the prefetch thread,
+        fails too; its OSError reaches the consumer and the thread ends."""
+        path = str(tmp_path / "bad_page.parquet")
+        pq.write_table(kinds_table(n=500), path)
+        cm = pq.ParquetFile(path).metadata.row_group(0).column(1)
+        with open(path, "r+b") as f:
+            f.seek(cm.data_page_offset)
+            f.write(b"\xff" * 8)
         before = threading.active_count()
-        with pytest.raises(P.DeviceDecodeUnsupported, match="page type 3"):
+        with pytest.raises(OSError, match="thrift"):
             TpuSession(BASE, device="cpu").read_parquet(path).collect()
         assert threading.active_count() <= before
 
@@ -771,15 +778,16 @@ class TestOutOfSlice:
                                       "tinyint", "fixed_len_byte_array",
                                       "nested"])
     def test_plan_time_raises(self, tmp_path, case):
-        """Columns the port does not decode: a timestamp in nanoseconds,
-        and the BYTE and SHORT columns
-        (INT32 with an 8- or 16-bit annotation, which the JAX package
-        decodes on the host) besides binary and nested ones. A decimal of
-        more than 18 digits decodes now."""
+        """Binary and nested columns, which no path of the port holds,
+        raise at plan time. The columns the device decode lacks -- a
+        timestamp in nanoseconds (whole microseconds), BYTE and SHORT
+        (INT32 with an 8- or 16-bit annotation) -- are decoded by pyarrow
+        and merged, as the JAX engine does, and equal its rows. A decimal of
+        more than 18 digits decodes on the device."""
         n = 8
         col = {
             "decimal": pa.array([1, 2] * 4, pa.decimal128(20, 2)),
-            "timestamp": pa.array(np.arange(n), pa.timestamp("ns")),
+            "timestamp": pa.array(np.arange(n) * 1000, pa.timestamp("ns")),
             "smallint": pa.array(np.arange(n, dtype=np.int16)),
             "tinyint": pa.array(np.arange(n, dtype=np.int8)),
             "fixed_len_byte_array": pa.array([b"abcd"] * n, pa.binary(4)),
@@ -794,16 +802,25 @@ class TestOutOfSlice:
             assert sess.read_parquet(path).collect().equals(
                 pq.read_table(path))
             return
-        with pytest.raises(NotImplementedError):
-            sess.read_parquet(path).explain()  # planning, before any data
         if case in ("timestamp", "smallint", "tinyint"):
-            # the footer check alone refuses the column too
+            # the footer check refuses the column, so pyarrow decodes it
             with pytest.raises(P.DeviceDecodeUnsupported):
                 P.file_supported(path, _port_schema(path))
+            P.COUNTERS.reset()
+            got = sess.read_parquet(path).collect()
+            assert P.COUNTERS.host_columns == 1
+            assert got.equals(JaxSession(BASE).read_parquet(path).collect())
+            return
+        with pytest.raises(NotImplementedError):
+            sess.read_parquet(path).explain()  # planning, before any data
         assert sess.read_parquet(path, columns=["k"]).collect().num_rows == n
 
     @pytest.mark.parametrize("case", ["v2_pages", "lz4", "string_300_bytes"])
     def test_scan_time_raises(self, tmp_path, case):
+        """A v2-page file (each row group falls back whole) and an LZ4 file
+        (no column the device decodes: the file is read by pyarrow) give
+        pyarrow's rows. A 300-byte string still raises: the device decode
+        declines it and the host decode's upload refuses it, never cut."""
         t = kinds_table(n=400)
         kw = {"v2_pages": dict(data_page_version="2.0"),
               "lz4": dict(compression="lz4"),
@@ -814,13 +831,28 @@ class TestOutOfSlice:
         pq.write_table(t, path, **kw)
         df = TpuSession(BASE, device="cpu").read_parquet(path)
         df.explain()  # the footer is fine: planning passes
-        with pytest.raises(P.DeviceDecodeUnsupported):
+        if case != "string_300_bytes":
+            P.COUNTERS.reset()
+            assert df.collect().equals(pq.read_table(path))
+            host = P.COUNTERS.snapshot()
+            assert (host["host_row_groups"], host["host_files"]) == \
+                ((1, 0) if case == "v2_pages" else (0, 1))
+            return
+        with pytest.raises(NotImplementedError, match="300 bytes"):
             df.collect()
         with pytest.raises(P.DeviceDecodeUnsupported):
             pf = pq.ParquetFile(path)
             list(P.device_decode_file(pf, path, _port_schema(path), CPU, 1))
 
     def test_unported_option_raises(self, files):
+        """`filters=` (once refused) reads through pyarrow's row filter,
+        equal to the JAX engine's read; an unknown option still raises."""
+        flt = [("i", ">", 0)]
+        got = TpuSession(BASE, device="cpu").read_parquet(
+            files["dict"], filters=flt).collect()
+        assert got.equals(pq.read_table(files["dict"], filters=flt))
+        assert got.equals(JaxSession(BASE).read_parquet(
+            files["dict"], filters=flt).collect())
         with pytest.raises(NotImplementedError):
             TpuSession(BASE, device="cpu").read_parquet(
-                files["dict"], filters=[("i", ">", 0)])
+                files["dict"], schema=None)
