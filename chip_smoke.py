@@ -3286,6 +3286,323 @@ def files_phases(torch, pa, mesh_conf: dict, counters, data: dict,
     return launches, a_args, c_args
 
 
+# ---- ansi (slice 11): Spark's ANSI mode (spark.sql.ansi.enabled, the
+# default since Spark 4.0) over the decimal star's, the joins' and the
+# aggregates' files: every query exact and launching A and C as without
+# ANSI, three queries that must raise Spark's error, and their guarded twins
+ANSI_CONF = {"spark.sql.ansi.enabled": True}
+# (data set, query, plans); q58's joins are timed on one device only
+ANSI_QUERIES = (("decimal", "q3", ("one_device", "distributed")),
+                ("decimal", "q7", ("one_device", "distributed")),
+                ("decimal", "q36", ("one_device", "distributed")),
+                ("aggs", "q65", ("one_device", "distributed")),
+                ("aggs", "q39a", ("one_device", "distributed")),
+                ("joins", "q58", ("one_device",)))
+# the date keys (< 2^22) times 2^41 fit a LONG, and every store's sum of
+# them passes 2^63; times 2^20 every sum fits
+ANSI_SHIFTS = (41, 20)
+# the sales of the last four years: a filter, so that the distributed
+# plan fuses it with the partial aggregate (kernel C)
+ANSI_FROM_DATE = SOLD_DATE_SK[0] + 365
+ANSI_MESSAGES = {
+    "sum_overflow": "[ARITHMETIC_OVERFLOW] long overflow",
+    "divide_by_zero": "[DIVIDE_BY_ZERO] Division by zero",
+    "cast_overflow": "[CAST_OVERFLOW] value cannot be cast to byte due to "
+                     "an overflow"}
+
+
+def ansi_namespace() -> SimpleNamespace:
+    """The port's constructors the ANSI violation queries use."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    m = SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "Sum", "Max", "Cast", "CaseWhen", "If",
+        "IntegralDivide")})
+    m.long, m.byte, m.money = T.LONG, T.BYTE, T.DecimalType(*MONEY)
+    return m
+
+
+def ansi_violations(sess, m, agg_paths: dict, join_paths: dict) -> dict:
+    """The three ANSI violation queries and their guarded twins, as
+    {name: (violation, twin)} DataFrames of `sess`:
+
+      * sum_overflow, over the aggregates' store_sales: by store,
+        sum(cast(ss_sold_date_sk as bigint) * 2^41); each row fits a LONG,
+        each store's sum does not. The twin sums the keys times 2^20 and
+        takes the max of the 2^41 products, which must not raise.
+      * divide_by_zero, over the joins' store_sales (quantities 1..100):
+        by quantity, sum(ss_sold_date_sk div (ss_quantity - 100)). The
+        twin guards the division with CASE WHEN ss_quantity <> 100.
+      * cast_overflow: by quantity, sum(cast(ss_list_price as tinyint)),
+        the decimal(7,2) list price reaching 200.00. The twin is
+        IF(ss_list_price < 100, cast(...), NULL).
+
+    Each reads the last four years of sales (ANSI_FROM_DATE)."""
+    from decimal import Decimal
+    c, lit = m.col, m.lit
+    recent = c("ss_sold_date_sk") >= lit(ANSI_FROM_DATE)
+    dates = sess.read_parquet(agg_paths["store_sales"],
+                              columns=["ss_sold_date_sk", "ss_store_sk"]) \
+        .filter(recent)
+    sales = sess.read_parquet(join_paths["store_sales"], columns=[
+        "ss_sold_date_sk", "ss_quantity", "ss_list_price"]).filter(recent)
+    key = m.Cast(c("ss_sold_date_sk"), m.long)
+
+    def by_store(**aggs):
+        return dates.group_by("ss_store_sk").agg(**aggs)
+
+    def by_quantity(v):
+        return sales.select("ss_quantity", v=v).group_by("ss_quantity") \
+            .agg(s=m.Sum(c("v")))
+
+    big, small = (lit(2 ** k) for k in ANSI_SHIFTS)
+    div = m.IntegralDivide(c("ss_sold_date_sk"),
+                           c("ss_quantity") - lit(100))
+    price = c("ss_list_price")
+    return {
+        "sum_overflow": (by_store(s=m.Sum(key * big)),
+                         by_store(s=m.Sum(key * small),
+                                  top=m.Max(key * big))),
+        "divide_by_zero": (by_quantity(div), by_quantity(m.CaseWhen(
+            [(c("ss_quantity") != lit(100), div)]))),
+        "cast_overflow": (by_quantity(m.Cast(price, m.byte)), by_quantity(
+            m.If(price < lit(Decimal("100.00"), m.money),
+                 m.Cast(price, m.byte),
+                 lit(None, m.byte))))}
+
+
+def _sorted_groups(keys: np.ndarray):
+    """(the distinct keys, the row order that sorts by key, each key's
+    first position in that order): for exact int64 reductions by
+    np.*.reduceat."""
+    order = np.argsort(keys, kind="stable")
+    distinct, starts = np.unique(keys[order], return_index=True)
+    return distinct, order, starts
+
+
+def ansi_oracle(pa, agg_paths: dict, join_paths: dict) -> dict:
+    """The guarded twins' answers from the parquet files, in numpy int64
+    (every sum fits): {name: {column: values}}, sorted by key, a group
+    whose every value is null summing to None."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(agg_paths["store_sales"],
+                      columns=["ss_sold_date_sk", "ss_store_sk"])
+    date = t.column("ss_sold_date_sk").to_numpy()
+    keep = date >= ANSI_FROM_DATE
+    date = date[keep]
+    stores, order, starts = _sorted_groups(
+        t.column("ss_store_sk").to_numpy()[keep])
+    date = date[order]
+    out = {"sum_overflow": {
+        "ss_store_sk": stores.tolist(),
+        "s": np.add.reduceat(date << ANSI_SHIFTS[1], starts).tolist(),
+        "top": (np.maximum.reduceat(date, starts)
+                << ANSI_SHIFTS[0]).tolist()}}
+    t = pq.read_table(join_paths["store_sales"], columns=[
+        "ss_sold_date_sk", "ss_quantity", "ss_list_price"])
+    date = t.column("ss_sold_date_sk").to_numpy()
+    keep = date >= ANSI_FROM_DATE
+    price, valid = unscaled(t.column("ss_list_price"))
+    qtys, order, starts = _sorted_groups(
+        t.column("ss_quantity").to_numpy()[keep].astype(np.int64))
+    date, price, valid = (a[keep][order] for a in (date, price, valid))
+    qty = np.repeat(qtys, np.diff(np.append(starts, len(order))))
+
+    def sums(v, ok):
+        total = np.add.reduceat(np.where(ok, v, 0), starts)
+        has = np.logical_or.reduceat(ok, starts)
+        return [int(x) if h else None for x, h in zip(total, has)]
+
+    d = np.where(qty == 100, 1, 100 - qty)  # date div (qty - 100) < 0,
+    out["divide_by_zero"] = {  # truncated toward zero as Java does
+        "ss_quantity": qtys.tolist(), "s": sums(-(date // d), qty != 100)}
+    out["cast_overflow"] = {"ss_quantity": qtys.tolist(), "s": sums(
+        price // 100, valid & (price < 10_000))}
+    return out
+
+
+def c1_on_card(torch, dev) -> dict:
+    """Queue C1's expressions (a DOUBLE converted into an INT or LONG
+    result outside Cast: NaN, infinities and values out of range) on the
+    card against the CPU, element for element: {name: True}."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.base import BoundReference, EvalContext
+    from spark_rapids_tpu_torch.expr.base import Vec
+    x = [1e300, float("inf"), -float("inf"), float("nan"), 3e9, -2.5]
+    i, d, one = (BoundReference(0, T.INT), BoundReference(1, T.DOUBLE),
+                 BoundReference(2, T.INT))
+    cases = {"if": E.If(E.IsNotNull(i), E.lit(-3), d),
+             "case_when": E.CaseWhen([(E.IsNotNull(i), E.lit(-3))], d),
+             "coalesce": E.Coalesce(i, d), "greatest": E.Greatest(one, d),
+             "least": E.Least(one, d),
+             "integral_divide": E.IntegralDivide(d, E.lit(1.0))}
+    n = len(x)
+
+    def run(expr, where):
+        vecs = [Vec(T.INT, torch.zeros(n, dtype=torch.int32, device=where),
+                    torch.zeros(n, dtype=torch.bool, device=where)),
+                Vec(T.DOUBLE, torch.tensor(x, dtype=torch.float64,
+                                           device=where),
+                    torch.ones(n, dtype=torch.bool, device=where)),
+                Vec(T.INT, torch.ones(n, dtype=torch.int32, device=where),
+                    torch.ones(n, dtype=torch.bool, device=where))]
+        v = expr.eval(EvalContext(torch.ones(n, dtype=torch.bool,
+                                             device=where)), vecs)
+        return v.data.cpu().tolist(), v.validity.cpu().tolist()
+
+    out = {}
+    for name, expr in cases.items():
+        card, cpu = run(expr, dev), run(expr, torch.device("cpu"))
+        if card != cpu:
+            raise AssertionError(f"C1 {name}: the card gives {card}, the "
+                                 f"CPU {cpu}")
+        out[name] = card[0]
+    return out
+
+
+def ansi_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
+                joins: dict, aggs: dict, conf=None, device=None):
+    """Phase ansi: each of ANSI_QUERIES, over the files and oracles of the
+    decimal star (`dec`), joins and aggregates data sets, collected once
+    without ANSI and once with it (the sessions' only difference), each
+    collect timed, launch-counted and checked against the set's oracle. The
+    queries ran in their own phases earlier in this process, their warm-up.
+    Both collects must be exact, launch A and C equally, and plan the same
+    tree but for the join members' ansi flag. Then the three
+    ansi_violations on both plans must raise Spark's error (ANSI_MESSAGES)
+    and their twins equal ansi_oracle; and Queue C1's expressions must
+    agree on the card and the CPU (c1_on_card). Prints one line a query
+    and plan; returns them, and the launches of the ANSI collects of each
+    plan's run (paths `ansi` and `ansi_distributed`: one collect of each
+    query), where A must have launched, and C too when distributed."""
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    from spark_rapids_tpu_torch.exec import base as exec_base
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+    sets = {
+        "decimal": (dec, {}, lambda s: star_decimal_queries(
+            s, star_namespace(), dec["paths"]),
+            lambda n, out: check_star_decimal(pa, n, out, dec["oracle"][n])),
+        "aggs": (aggs, AGG_CONF, lambda s: agg_queries(
+            s, agg_namespace(), aggs["paths"]),
+            lambda n, out: check_agg_query(pa, n, out, aggs["oracle"][n])),
+        "joins": (joins, JOINS_CONF, lambda s: join_queries(
+            s, join_namespace(), joins["paths"]),
+            lambda n, out: check_join_query(pa, n, out,
+                                            joins["oracle"][n]))}
+    plans = {"one_device": {}, "distributed": mesh_conf}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        exec_base.COUNTERS.reset()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except AnsiViolation as e:
+            out = e
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                {k.__name__: k.launches for k in counters},
+                exec_base.COUNTERS.snapshot()["flag_reads"])
+
+    t_phase = time.monotonic()
+    lines, sessions = [], {}
+    launches = {"ansi": Counter(), "ansi_distributed": Counter()}
+    for i, (kind, name, on) in enumerate(ANSI_QUERIES):
+        _, extra, build, check = sets[kind]
+        for plan in on:
+            qs = {}
+            for mode, more in (("plain", {}), ("ansi", ANSI_CONF)):
+                key = (kind, plan, mode)
+                if key not in sessions:
+                    sessions[key] = build(TpuSession(dict(
+                        conf, **extra, **plans[plan], **more), dev))
+                qs[mode] = sessions[key][name]
+            trees = {mode: q.explain() for mode, q in qs.items()}
+            if trees["ansi"] != trees["plain"].replace("ansi=False",
+                                                       "ansi=True"):
+                raise AssertionError(f"ansi {name} ({plan}): ANSI plans "
+                                     f"another tree:\n{trees['ansi']}\n"
+                                     f"without ANSI:\n{trees['plain']}")
+            run = {}
+            for mode in ("plain", "ansi") if i % 2 == 0 else \
+                    ("ansi", "plain"):
+                out, wall, launched, reads = counted(qs[mode].collect)
+                if isinstance(out, Exception):
+                    raise AssertionError(f"ansi {name} ({plan}, {mode}) "
+                                         f"raised {out!r}")
+                check(name, out)
+                del out
+                run[mode] = {"collect_s": wall, "launches": launched,
+                             "flag_reads": reads}
+            if run["plain"]["flag_reads"]:
+                raise AssertionError(f"ansi {name} ({plan}) read flags "
+                                     "without ANSI")
+            if run["ansi"]["launches"] != run["plain"]["launches"]:
+                raise AssertionError(f"ansi {name} ({plan}) launched "
+                                     f"{run['ansi']['launches']}, without "
+                                     f"ANSI {run['plain']['launches']}")
+            if fused_joins(trees["ansi"]) and \
+                    run["ansi"]["launches"]["murmur3_rows"] == 0:
+                raise AssertionError(f"ansi {name} ({plan}) launched no A")
+            launches["ansi" if plan == "one_device" else
+                     "ansi_distributed"].update(run["ansi"]["launches"])
+            line = {"phase": "ansi", "query": name, "plan": plan,
+                    "collect_s": {m: r["collect_s"] for m, r in run.items()},
+                    "launches": {m: r["launches"] for m, r in run.items()},
+                    "flag_reads_added": run["ansi"]["flag_reads"],
+                    "result": "exact"}
+            emit(line)
+            lines.append(line)
+    sessions.clear()
+    launches = {p: {k.__name__: n[k.__name__] for k in counters}
+                for p, n in launches.items()}
+    if launches["ansi"]["murmur3_rows"] == 0 or \
+            0 in (launches["ansi_distributed"]["murmur3_rows"],
+                  launches["ansi_distributed"]["segment_sum_i64"]):
+        raise AssertionError(f"the ANSI paths launched {launches}")
+
+    want = ansi_oracle(pa, aggs["paths"], joins["paths"])
+    m = ansi_namespace()
+    for plan, extra in plans.items():
+        sess = TpuSession(dict(conf, **AGG_CONF, **extra, **ANSI_CONF), dev)
+        for name, (bad, twin) in ansi_violations(
+                sess, m, aggs["paths"], joins["paths"]).items():
+            got, wall, launched, reads = counted(bad.collect)
+            if not isinstance(got, AnsiViolation) or \
+                    got.message != ANSI_MESSAGES[name]:
+                raise AssertionError(f"ansi {name} ({plan}) gave {got!r}, "
+                                     f"not {ANSI_MESSAGES[name]!r}")
+            out, twin_wall, twin_launched, twin_reads = counted(twin.collect)
+            if isinstance(out, Exception):
+                raise AssertionError(f"ansi {name} twin ({plan}) raised "
+                                     f"{out!r}")
+            key = out.column_names[0]
+            got_rows = out.sort_by(key).to_pydict()
+            if got_rows != want[name]:
+                raise AssertionError(f"ansi {name} twin ({plan}) differs "
+                                     "from the oracle")
+            line = {"phase": "ansi", "query": name, "plan": plan,
+                    "raised": got.message, "collect_s": wall,
+                    "launches": launched, "flag_reads_added": reads,
+                    "twin": {"result": "exact", "groups": out.num_rows,
+                             "collect_s": twin_wall,
+                             "launches": twin_launched,
+                             "flag_reads_added": twin_reads}}
+            emit(line)
+            lines.append(line)
+    c1 = c1_on_card(torch, dev)
+    lines.append({"phase": "ansi", "c1_card_equals_cpu": sorted(c1),
+                  "c1_values": c1, "launches_per_path_run": launches,
+                  "seconds": time.monotonic() - t_phase})
+    emit(lines[-1])
+    return lines, launches
+
+
 DATA_SETS = ("star", "decimal", "joins", "aggs")
 
 
@@ -3421,7 +3738,7 @@ def run_phases(torch, ready: dict) -> int:
         a_err = max(a_err, err)
     fact, dim = query_tables(pa, QUERY_FACT_ROWS, N_DIM, KEY_SPACE, N_GROUPS)
     probe = TpuFilterExec(col("v") > 0.6, TpuScanExec(fact, dev)).filter(
-        batch_from_arrow(fact.slice(0, 1 << 20), dev))
+        batch_from_arrow(fact.slice(0, 1 << 20), dev))[0]
     build = batch_from_arrow(dim, dev)
     pk, bk = [batch_vecs(probe)[0]], [batch_vecs(build)[0]]
     counts_k = candidate_counts(pk, bk, probe.row_mask(), build.row_mask())
@@ -3777,21 +4094,33 @@ def run_phases(torch, ready: dict) -> int:
     # reader strategy, filters=), Q3 and Q7
     files_launches, files_a_args, files_c_args = files_phases(
         torch, pa, mesh_conf, kernels3, dec_data)
+    dec_files = {k: dec_data[k] for k in ("oracle", "paths")}
     del dec_data
 
     # ---- tpcds_joins: q97 (full outer join, the sub-partition join), q10
     # (existence joins), q58 (string keys with conditions) and q28 (cross
     # joins) over TPC-DS tables from parquet, one device and distributed
+    join_data = loaded(ready.pop("joins"))
     join_launches, join_a_args, join_c_args = joins_phases(
-        torch, pa, mesh_conf, kernels3, data=loaded(ready.pop("joins")))
+        torch, pa, mesh_conf, kernels3, data=join_data)
 
     # ---- tpcds_aggregates: q65 (an average of revenue sums, 128-bit
     # partial sums), q39a/q39b (stddev_samp over inventory) and the
     # decimal(38,18) report from parquet, one device and distributed; the
     # decimal(38,18) decode; every aggregate of slice 9 on the card and the
     # CPU
+    agg_data = loaded(ready.pop("aggs"))
     agg_launches, agg_a_args, agg_c_args = aggregates_phases(
-        torch, pa, mesh_conf, kernels3, data=loaded(ready.pop("aggs")))
+        torch, pa, mesh_conf, kernels3, data=agg_data)
+
+    # ---- ansi: the decimal star, q65, q39a and q58 under ANSI mode, exact
+    # and launching A and C as without it; three queries that must raise
+    # Spark's errors on both plans, their guarded twins exact; Queue C1's
+    # conversions on the card against the CPU
+    _, ansi_launches = ansi_phases(torch, pa, mesh_conf, kernels3,
+                                   dec=dec_files, joins=join_data,
+                                   aggs=agg_data)
+    del join_data, agg_data, dec_files
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -3853,7 +4182,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in ord_launches.items()},
                     **{p: n[name] for p, n in join_launches.items()},
                     **{p: n[name] for p, n in agg_launches.items()},
-                    **{p: n[name] for p, n in files_launches.items()})
+                    **{p: n[name] for p, n in files_launches.items()},
+                    **{p: n[name] for p, n in ansi_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

@@ -20,3 +20,13 @@ class KernelBuildError(RapidsTpuError):
 
 class KernelLaunchError(RapidsTpuError):
     """A CUDA kernel launch returned an error code (`cudaGetLastError`)."""
+
+
+class AnsiViolation(RapidsTpuError):
+    """Spark ANSI-mode runtime error (an ArithmeticException): integral
+    overflow, division by zero or cast overflow under
+    spark.sql.ansi.enabled. `message` is Spark's error class and text."""
+
+    def __init__(self, message: str):
+        super().__init__(message)
+        self.message = message

@@ -29,6 +29,16 @@ key-exchange -> final; that final side has `partitioned_input`, so groups
 are disjoint across its input batches and it finalises each shard alone.
 A final side over input that is not key-partitioned has no caller yet and
 raises.
+
+ANSI: the group keys and aggregate inputs report their errors, and an
+integral Sum (raw rows, merge passes and the final side alike) checks its
+int64 accumulator: a plain f64 sum beside it tracks the true magnitude,
+and a gap over 2^62 means the int64 sum wrapped (JAX `_agg_one`). The f64
+shadow takes `segment_sum` itself, never the fused int64 kernel, so the
+kernel's launches are those of the same query without ANSI. A complete
+aggregate yields only after its last pass, so it reads the flags of all
+its passes once, in pass order; the partial and final sides read them once
+a batch.
 """
 
 from __future__ import annotations
@@ -45,11 +55,14 @@ from ..expr.aggregates import (AggregateFunction, Average, BoolAnd, BoolOr,
                                Count, CountIf, First, Last, Max, Min,
                                Skewness, Sum, _BitAgg, _MomentFamily,
                                _VarianceFamily)
-from ..expr.base import Expression, Vec, bind_references, output_name
+from ..expr.base import (EvalContext, Expression, Vec, ansi_raise,
+                         bind_references, output_name)
 from ..ops.rowops import (compact_vecs, gather_vecs, group_ids_from_sorted,
-                          lexsort_indices, segment_reduce, sort_keys_for)
+                          lexsort_indices, segment_reduce, segment_sum,
+                          sort_keys_for)
 from ..plan.nodes import AggExpr
-from .base import UnaryTpuExec, TpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .base import (UnaryTpuExec, TpuExec, batch_vecs, check_errors,
+                   device_ctx, vecs_to_batch)
 from .coalesce import concat_batches
 
 __all__ = ["TpuHashAggregateExec", "SUPPORTED_AGGREGATES"]
@@ -174,10 +187,11 @@ class TpuHashAggregateExec(UnaryTpuExec):
         return self._schema
 
     def aggregate(self, batch: ColumnarBatch, input_partial: bool = False,
-                  output_partial: bool = False) -> ColumnarBatch:
+                  output_partial: bool = False):
         """One aggregation pass over one batch: raw rows or partial buffers
-        in, final values or partial buffers out."""
-        ctx = device_ctx(batch)
+        in, final values or partial buffers out. Returns (the output batch,
+        the pass's ANSI errors)."""
+        ctx = device_ctx(batch, self.conf.is_ansi)
         vecs = batch_vecs(batch)
         mask = ctx.row_mask
         cap = batch.capacity
@@ -208,20 +222,22 @@ class TpuHashAggregateExec(UnaryTpuExec):
         bi = 0
         for a in self._bound_aggs:
             k = len(a.func.partial_types()) if input_partial else 1
-            out_vecs.extend(self._agg_one(a.func, sbufs[bi:bi + k], gid, cap,
-                                          sorted_mask, input_partial,
+            out_vecs.extend(self._agg_one(ctx, a.func, sbufs[bi:bi + k], gid,
+                                          cap, sorted_mask, input_partial,
                                           output_partial))
             bi += k
         schema = self._partial_schema if output_partial else \
             self._final_schema
-        return vecs_to_batch(schema, out_vecs, ng)
+        return vecs_to_batch(schema, out_vecs, ng), ctx.errors
 
     @staticmethod
-    def _agg_one(func: AggregateFunction, bufs: List[Vec], gid, cap: int,
-                 row_mask, merging: bool, output_partial: bool) -> List[Vec]:
+    def _agg_one(ctx: EvalContext, func: AggregateFunction, bufs: List[Vec],
+                 gid, cap: int, row_mask, merging: bool,
+                 output_partial: bool) -> List[Vec]:
         """One aggregate's output: its partial buffers when output_partial,
         else its final value. `bufs` holds its partial buffers when
-        merging, else its one input value (JAX `_agg_one`)."""
+        merging, else its one input value (JAX `_agg_one`). Under ANSI an
+        integral Sum reports its accumulator's wrap through `ctx`."""
         dev = row_mask.device
 
         def reduce(op, v: Vec, acc_dtype=None):
@@ -263,7 +279,18 @@ class TpuHashAggregateExec(UnaryTpuExec):
             if isinstance(out_t, T.DecimalType):
                 return [_sum_decimal(v, out_t, gid, cap, row_mask)]
             acc = torch.float64 if T.is_floating(out_t) else torch.int64
-            return [Vec(out_t, reduce("sum", v, acc), count(v.validity) > 0)]
+            data, has = reduce("sum", v, acc), count(v.validity) > 0
+            if ctx.ansi and T.is_integral(out_t):
+                # a wrap is off by k * 2^64; the f64 sum's rounding stays
+                # near 2^10 ulp, far under the 2^62 line
+                valid = v.validity & row_mask
+                fsum = segment_sum(torch.where(valid, v.data.to(
+                    torch.float64), 0.0), gid, cap)
+                wrapped = (fsum - data.to(torch.float64)).abs() > 2.0 ** 62
+                ansi_raise(ctx, wrapped & has,
+                           "[ARITHMETIC_OVERFLOW] long overflow",
+                           masked=False)
+            return [Vec(out_t, data, has)]
         if isinstance(func, (Min, Max)):
             op = "min" if isinstance(func, Min) else "max"
             if v.is_string:
@@ -352,24 +379,36 @@ class TpuHashAggregateExec(UnaryTpuExec):
             for b in batches:
                 if len(batches) > 1 and b.row_count() == 0:
                     continue
-                yield self.aggregate(b, output_partial=True)
+                yield self._checked(self.aggregate(b, output_partial=True))
             return
         if self.mode == "final":
             # key-partitioned input: each shard finalises on its own
             for b in batches:
                 if b.row_count() == 0:
                     continue
-                yield self.aggregate(b, input_partial=True)
+                yield self._checked(self.aggregate(b, input_partial=True))
             return
         if len(batches) == 1:
-            yield self.aggregate(batches[0])
+            yield self._checked(self.aggregate(batches[0]))
             return
-        pending = [self.aggregate(b, output_partial=True) for b in batches]
+        errors = []
+
+        def run(batch, **modes):
+            out, errs = self.aggregate(batch, **modes)
+            errors.extend(errs)
+            return out
+
+        pending = [run(b, output_partial=True) for b in batches]
         while len(pending) > 1:
             pair = concat_batches([pending.pop(0), pending.pop(0)])
-            pending.append(self.aggregate(pair, input_partial=True,
-                                          output_partial=True))
-        yield self.aggregate(pending[0], input_partial=True)
+            pending.append(run(pair, input_partial=True, output_partial=True))
+        yield self._checked((run(pending[0], input_partial=True), errors))
+
+    @staticmethod
+    def _checked(result) -> ColumnarBatch:
+        out, errors = result
+        check_errors(errors)
+        return out
 
     def _arg_string(self):
         return (f"[{self.mode}, keys={[repr(e) for e in self.group_exprs]}, "

@@ -8,22 +8,66 @@ few host syncs (join capacities) the engine pays on purpose.
 `PrefetchIterator` / `maybe_prefetch` run a file scan's decode one or two
 batches ahead of its consumer on a background thread (the scan seam of the
 JAX package's pipelined execution).
+
+ANSI errors (JAX `kernel_errors`/`raise_kernel_errors`): the expressions
+append a device flag and a message for each check (expr/base.py
+`ansi_raise`); the exec reads a batch's flags in ONE host copy, beside
+whatever it reads for that batch anyway (a join's slot totals, a row
+count), and raises the first violation in evaluation order, which is the
+JAX engine's order. `COUNTERS.flag_reads` counts the host reads made for
+the flags alone: the syncs ANSI mode adds.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..columnar.batch import ColumnarBatch, Schema
 from ..config import TpuConf, get_default_conf
+from ..errors import AnsiViolation
 from ..expr.base import EvalContext, Vec
 
 __all__ = ["TpuExec", "UnaryTpuExec", "batch_vecs", "vecs_to_batch",
-           "device_ctx", "PrefetchIterator", "maybe_prefetch"]
+           "device_ctx", "read_flags", "check_errors", "Counters",
+           "COUNTERS", "PrefetchIterator", "maybe_prefetch"]
+
+
+class Counters:
+    """Thread-safe named counts since the last reset(); a subclass names
+    its fields in `_FIELDS`."""
+
+    _FIELDS: Tuple[str, ...] = ()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            for f in self._FIELDS:
+                setattr(self, f, 0)
+
+    def add(self, **counts) -> None:
+        with self._lock:
+            for f, n in counts.items():
+                setattr(self, f, getattr(self, f) + n)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {f: getattr(self, f) for f in self._FIELDS}
+
+
+class AnsiCounters(Counters):
+    """Host reads made only to read ANSI error flags (`flag_reads`)."""
+
+    _FIELDS = ("flag_reads",)
+
+
+COUNTERS = AnsiCounters()
 
 
 class TpuExec:
@@ -72,8 +116,33 @@ class UnaryTpuExec(TpuExec):
         return self.child.output
 
 
-def device_ctx(batch: ColumnarBatch) -> EvalContext:
-    return EvalContext(batch.row_mask())
+def device_ctx(batch: ColumnarBatch, ansi: bool = False) -> EvalContext:
+    return EvalContext(batch.row_mask(), ansi)
+
+
+def read_flags(errors: Sequence, values: Sequence[torch.Tensor] = ()
+               ) -> Tuple[List[int], Optional[str]]:
+    """The ANSI flags of `errors` and `values` (integer device scalars) in
+    one host copy: (the values as ints, the message of the first flag set,
+    or None). Flags with no values to ride on count a `flag_reads`."""
+    if not errors:
+        return (torch.stack(list(values)).tolist() if values else []), None
+    if not values:
+        COUNTERS.add(flag_reads=1)
+    host = torch.stack([v.to(torch.int64) for v in values] +
+                       [f.to(torch.int64) for f, _ in errors]).tolist()
+    k = len(values)
+    first = next((m for hit, (_, m) in zip(host[k:], errors) if hit), None)
+    return host[:k], first
+
+
+def check_errors(errors: Sequence,
+                 values: Sequence[torch.Tensor] = ()) -> List[int]:
+    """read_flags, raising AnsiViolation for the first flag set."""
+    vals, first = read_flags(errors, values)
+    if first is not None:
+        raise AnsiViolation(first)
+    return vals
 
 
 def batch_vecs(batch: ColumnarBatch) -> List[Vec]:

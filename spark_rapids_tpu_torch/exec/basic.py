@@ -1,5 +1,8 @@
 """Scan, project, filter, union and limit execs
-(`spark_rapids_tpu/exec/basic.py`)."""
+(`spark_rapids_tpu/exec/basic.py`). Project and filter return each batch
+with the ANSI errors of its expressions; run alone, they read those once
+a batch (exec/base.py `check_errors`), and in a fused stage the stage
+reads them (exec/fused.py)."""
 
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import torch
 from ..columnar.batch import ColumnarBatch, Schema, batch_from_arrow
 from ..expr.base import Expression, bind_references, output_name
 from ..ops.rowops import compact_vecs
-from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .base import (TpuExec, UnaryTpuExec, batch_vecs, check_errors,
+                   device_ctx, vecs_to_batch)
 
 __all__ = ["TpuScanExec", "TpuProjectExec", "TpuFilterExec", "TpuUnionExec",
            "TpuLimitExec"]
@@ -57,16 +61,19 @@ class TpuProjectExec(UnaryTpuExec):
     def output(self) -> Schema:
         return self._schema
 
-    def project(self, batch: ColumnarBatch) -> ColumnarBatch:
-        ctx = device_ctx(batch)
+    def project(self, batch: ColumnarBatch):
+        """(the projected batch, its ANSI errors)."""
+        ctx = device_ctx(batch, self.conf.is_ansi)
         vecs = batch_vecs(batch)
         return vecs_to_batch(self._schema,
                              [e.eval(ctx, vecs) for e in self._bound],
-                             batch.num_rows)
+                             batch.num_rows), ctx.errors
 
     def do_execute(self):
         for b in self.child.execute():
-            yield self.project(b)
+            out, errors = self.project(b)
+            check_errors(errors)
+            yield out
 
     def _arg_string(self):
         return f"[{', '.join(map(repr, self.exprs))}]"
@@ -78,17 +85,20 @@ class TpuFilterExec(UnaryTpuExec):
         self.condition = condition
         self._bound = bind_references(condition, child.output)
 
-    def filter(self, batch: ColumnarBatch) -> ColumnarBatch:
-        ctx = device_ctx(batch)
+    def filter(self, batch: ColumnarBatch):
+        """(the batch's rows that pass, its ANSI errors)."""
+        ctx = device_ctx(batch, self.conf.is_ansi)
         vecs = batch_vecs(batch)
         pred = self._bound.eval(ctx, vecs)
         keep = pred.data & pred.validity & ctx.row_mask
         out_vecs, new_n = compact_vecs(vecs, keep)
-        return vecs_to_batch(batch.schema, out_vecs, new_n)
+        return vecs_to_batch(batch.schema, out_vecs, new_n), ctx.errors
 
     def do_execute(self):
         for b in self.child.execute():
-            yield self.filter(b)
+            out, errors = self.filter(b)
+            check_errors(errors)
+            yield out
 
     def _arg_string(self):
         return f"[{self.condition!r}]"

@@ -29,6 +29,13 @@ What fusion keeps from the JAX engine:
     sums run through the hand-written kernel of ops/pallas_groupby.py: the
     `ops.rowops._FUSED_SEGMENT_SUM` seam is set while that member runs, and
     only then. Integer sums are exact, so the result is the same bits.
+  * ANSI errors (per-member boxes, JAX `fused.py`): each member returns its
+    errors with its batch, and the stage raises the first in member
+    (stream) order, the unfused chain's message. The members up to the
+    last join report in the sizing sync, read with the slot totals, and
+    only from the run the stage keeps: a run discarded for a grown
+    capacity drops its flags. The members after it report with the output
+    row count; a stage without joins reads its flags once a batch.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, Schema
 from ..columnar.padding import row_bucket
+from ..errors import AnsiViolation
 from .aggregate import TpuHashAggregateExec
-from .base import TpuExec, batch_vecs, vecs_to_batch
+from .base import TpuExec, batch_vecs, check_errors, read_flags, vecs_to_batch
 from .basic import TpuProjectExec
 from .joins import TpuBroadcastHashJoinExec, _expand_join, _probe_counts
 
@@ -101,11 +109,11 @@ class TpuFusedStageExec(TpuExec):
         slot = torch.clamp(counts, min=1) if m.join_type == "left" else counts
         return torch.where(probe.row_mask(), slot, 0).sum(dtype=torch.int64)
 
-    def _agg_member(self, m: TpuHashAggregateExec,
-                    batch: ColumnarBatch) -> ColumnarBatch:
-        """The terminal partial aggregate on one batch; with the kernels
-        engaged, the exact int64 segmented sum (ops/pallas_groupby) serves
-        this member's group-by for its run only."""
+    def _agg_member(self, m: TpuHashAggregateExec, batch: ColumnarBatch):
+        """The terminal partial aggregate on one batch, with its ANSI
+        errors; with the kernels engaged, the exact int64 segmented sum
+        (ops/pallas_groupby) serves this member's group-by for its run
+        only."""
         if not self._pallas:
             return m.aggregate(batch, output_partial=True)
         from ..ops import rowops
@@ -118,22 +126,25 @@ class TpuFusedStageExec(TpuExec):
             rowops._FUSED_SEGMENT_SUM = prev
 
     def _run_chain(self, members, batch: ColumnarBatch, builds=(), caps=()):
-        out, totals, ji = batch, [], 0
+        """Run `members` on one batch: (the output, each join's slot total,
+        the members' ANSI errors in member order)."""
+        out, totals, errors, ji = batch, [], [], 0
         for m in members:
             if isinstance(m, TpuBroadcastHashJoinExec):
                 totals.append(self._probe_total(m, out, builds[ji]))
-                out_vecs, n, _ = _expand_join(
+                out_vecs, n, _, errs = _expand_join(
                     out, builds[ji], m._lk_ix, m._rk_ix, caps[ji],
-                    m.join_type, m._bcond)
+                    m.join_type, m._bcond, m.conf.is_ansi)
                 out = vecs_to_batch(m.output, out_vecs, n)
                 ji += 1
             elif isinstance(m, TpuProjectExec):
-                out = m.project(out)
+                out, errs = m.project(out)
             elif isinstance(m, TpuHashAggregateExec):  # stage-terminal
-                out = self._agg_member(m, out)
+                out, errs = self._agg_member(m, out)
             else:  # TpuFilterExec
-                out = m.filter(out)
-        return out, totals
+                out, errs = m.filter(out)
+            errors += errs
+        return out, totals, errors
 
     def _caps_for(self, batch: ColumnarBatch) -> tuple:
         # members below a join keep the batch capacity, so the source cap is
@@ -161,18 +172,28 @@ class TpuFusedStageExec(TpuExec):
         for b in self.children[0].execute():
             while True:
                 caps = self._caps_for(b)
-                out, totals = self._run_chain(self._sized, b, builds, caps)
+                out, totals, errors = self._run_chain(self._sized, b, builds,
+                                                      caps)
                 if not totals:
                     break
                 grown = False
-                # the one per-batch host sync: every join's slot total
-                for i, t in enumerate(torch.stack(totals).tolist()):
+                # the one per-batch host sync: every join's slot total, and
+                # the sized members' ANSI flags
+                sizes, first = read_flags(errors, totals)
+                for i, t in enumerate(sizes):
                     if t > caps[i]:
                         self._join_caps[i] = row_bucket(max(t, 1))
                         grown = True
                 if not grown:
+                    if first is not None:
+                        raise AnsiViolation(first)
                     break
-            out, _ = self._run_chain(self._tail, out)
-            if self._join_members and out.row_count() == 0:
+            out, _, errors = self._run_chain(self._tail, out)
+            if not self._join_members:
+                check_errors(errors)
+                yield out
+                continue
+            n, = check_errors(errors, [out.num_rows])
+            if n == 0:
                 continue  # unfused joins drop empty outputs too
             yield out

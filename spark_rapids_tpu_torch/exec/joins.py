@@ -30,6 +30,12 @@ Keys: the int and long families (boolean, byte, short, int, date, long,
 timestamp, decimal of up to 18 digits), float, double and string. Floats
 match NaN to NaN and -0.0 to 0.0; strings compare bytes and lengths.
 Payload columns of any carried type ride the gathers.
+
+ANSI: a join condition reports errors only for candidate pairs that
+exist (the key-equal pairs of the expand, every live pair of a
+nested-loop tile); a gathered pair that no key match made never raises.
+The hash join reads a pair's flags with its output row count, the
+nested-loop join once a tile.
 """
 
 from __future__ import annotations
@@ -49,9 +55,9 @@ from ..expr.base import BoundReference, EvalContext, Expression, Vec, \
 from ..expr.hashing import hash_vecs
 from ..expr.predicates import string_equal
 from ..ops.rowops import compact_vecs, gather_vecs
-from .base import TpuExec, batch_vecs, vecs_to_batch
+from .base import (Counters, TpuExec, batch_vecs, check_errors,
+                   vecs_to_batch)
 from .coalesce import concat_batches
-from .sort import SortCounters
 
 __all__ = ["TpuShuffledHashJoinExec", "TpuBroadcastHashJoinExec",
            "TpuNestedLoopJoinExec", "SUPPORTED_JOIN_TYPES", "COUNTERS"]
@@ -66,7 +72,7 @@ _BUILD_OUTER = ("right", "full")
 _NEEDS_BUILD = ("inner", "right", "semi")
 
 
-class JoinCounters(SortCounters):
+class JoinCounters(Counters):
     """Since the last reset(): build sides (or shards) split into
     sub-partitions (`sub_partition_builds`), the sub-partition pairs joined
     (`sub_partition_pairs`), and the all-pairs tiles of the nested-loop
@@ -107,10 +113,12 @@ def _any_by(idx: torch.Tensor, flags: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _condition_holds(condition: Expression, vecs: List[Vec],
-                     mask: torch.Tensor) -> torch.Tensor:
-    """The bound join condition over combined rows: true and not null."""
-    c = condition.eval(EvalContext(mask), vecs)
-    return c.data.to(torch.bool) & c.validity
+                     mask: torch.Tensor, ansi: bool):
+    """(the bound join condition over combined rows, true and not null;
+    its ANSI errors over the rows of `mask`)."""
+    ctx = EvalContext(mask, ansi)
+    c = condition.eval(ctx, vecs)
+    return c.data.to(torch.bool) & c.validity, ctx.errors
 
 
 def _probe_counts(probe: ColumnarBatch, build: ColumnarBatch,
@@ -138,12 +146,14 @@ def _probe_counts(probe: ColumnarBatch, build: ColumnarBatch,
 def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
                  probe_key_ix: Tuple[int, ...],
                  build_key_ix: Tuple[int, ...], out_cap: int,
-                 join_type: str, condition: Expression = None):
+                 join_type: str, condition: Expression = None,
+                 ansi: bool = False):
     """Phase 2: expand candidate ranges to pairs, check equality and the
     condition, compact, attach left-outer rows. Recomputes phase 1 (the
     plain hash) like the JAX engine, whatever computed the sizing. Returns
-    (out_vecs, n, bmatched): bmatched flags the build rows that met a match
-    (all False unless the join is right or full)."""
+    (out_vecs, n, bmatched, errors): bmatched flags the build rows that met
+    a match (all False unless the join is right or full), errors are the
+    condition's ANSI errors."""
     counts, lo, order, pvalid, bvalid = _probe_counts(
         probe, build, probe_key_ix, build_key_ix)
     pvecs = batch_vecs(probe)
@@ -174,11 +184,13 @@ def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
     if wide or condition is not None:
         left_out = gather_vecs(pvecs, pi)
         right_out = gather_vecs(bvecs, bi)
+    errors = []
     if condition is not None:
         # applied before the per-probe "any match", so a condition that
         # reads null (or false) leaves the probe row unmatched
-        eq = eq & _condition_holds(condition, left_out + right_out,
-                                   eq & live)
+        holds, errors = _condition_holds(condition, left_out + right_out,
+                                         eq & live, ansi)
+        eq = eq & holds
     matched = eq & live
     # per-probe-row "any true match": candidate ranges can be pure hash
     # collisions, so counts[pi] > 0 alone must not suppress the outer row
@@ -189,16 +201,16 @@ def _expand_join(probe: ColumnarBatch, build: ColumnarBatch,
     if join_type == "existence":
         exists = Vec(T.BOOLEAN, pmatched,
                      torch.ones(pcap, dtype=torch.bool, device=device))
-        return (*compact_vecs(pvecs + [exists], pmask), bmatched)
+        return (*compact_vecs(pvecs + [exists], pmask), bmatched, errors)
     if join_type in ("semi", "anti"):
         want = pmatched if join_type == "semi" else ~pmatched
-        return (*compact_vecs(pvecs, want & pmask), bmatched)
+        return (*compact_vecs(pvecs, want & pmask), bmatched, errors)
 
     keep = live & (matched | (outer_left & ~pmatched[pi] & (k == 0)))
     if outer_left:  # null out the right side where no match
         right_out = [v.with_validity(v.validity & matched)
                      for v in right_out]
-    return (*compact_vecs(left_out + right_out, keep), bmatched)
+    return (*compact_vecs(left_out + right_out, keep), bmatched, errors)
 
 
 def _null_vecs(schema: Schema, cap: int, device) -> List[Vec]:
@@ -348,10 +360,10 @@ class TpuShuffledHashJoinExec(TpuExec):
         joins emit the build rows no batch matched after the stream."""
         bmatched = None
         for probe in self._probe_stream():
-            out, bm = self._join_pair_core(probe, build)
+            out, n, bm = self._join_pair_core(probe, build)
             if bm is not None:
                 bmatched = bm if bmatched is None else (bmatched | bm)
-            if out.row_count() > 0:
+            if n > 0:
                 yield out
         if self.join_type in _BUILD_OUTER:
             extra = self._unmatched_batch(build, bmatched)
@@ -374,11 +386,11 @@ class TpuShuffledHashJoinExec(TpuExec):
                 if pp.row_count() == 0:
                     continue  # unmatched build rows surface at the end
                 COUNTERS.add(sub_partition_pairs=1)
-                out, bm = self._join_pair_core(pp, build_parts[i])
+                out, n, bm = self._join_pair_core(pp, build_parts[i])
                 if bm is not None:
                     bmatched[i] = bm if bmatched[i] is None \
                         else (bmatched[i] | bm)
-                if out.row_count() > 0:
+                if n > 0:
                     yield out
         if self.join_type in _BUILD_OUTER:
             for part, bm in zip(build_parts, bmatched):
@@ -413,8 +425,10 @@ class TpuShuffledHashJoinExec(TpuExec):
 
     def _join_pair_core(self, probe: ColumnarBatch, build: ColumnarBatch):
         """One probe batch against a build table: size (one host sync for
-        the slot total), then expand. Returns (out_batch, bmatched), the
-        build rows' matched flags for right/full joins, else None."""
+        the slot total), then expand, and read the output row count with
+        the condition's ANSI flags (a second sync). Returns (out_batch,
+        its row count, bmatched), bmatched the build rows' matched flags
+        for right/full joins, else None."""
         counts = _probe_counts(probe, build, self._lk_ix, self._rk_ix)[0]
         slot = torch.clamp(counts, min=1) \
             if self.join_type in _PROBE_OUTER else counts
@@ -422,19 +436,21 @@ class TpuShuffledHashJoinExec(TpuExec):
         out_cap = row_bucket(max(total, 1))
         if self.join_type in ("semi", "anti", "existence"):
             out_cap = max(out_cap, probe.capacity)
-        out_vecs, n, bmatched = _expand_join(
+        out_vecs, n, bmatched, errors = _expand_join(
             probe, build, self._lk_ix, self._rk_ix, out_cap, self.join_type,
-            self._bcond)
+            self._bcond, self.conf.is_ansi)
         out = vecs_to_batch(self._schema, out_vecs, n)
-        return out, (bmatched if self.join_type in _BUILD_OUTER else None)
+        n_out, = check_errors(errors, [out.num_rows])
+        return out, n_out, \
+            (bmatched if self.join_type in _BUILD_OUTER else None)
 
     def _join_pair(self, probe: ColumnarBatch,
                    build: ColumnarBatch) -> Iterator[ColumnarBatch]:
         """Join one disjoint (probe, build) pair and emit its unmatched
         build rows at once: right only where this build slice meets no
         other probe rows (a zipped shard, a sub-partition pair)."""
-        out, bmatched = self._join_pair_core(probe, build)
-        if out.row_count() > 0:
+        out, n, bmatched = self._join_pair_core(probe, build)
+        if n > 0:
             yield out
         if self.join_type in _BUILD_OUTER:
             extra = self._unmatched_batch(build, bmatched)
@@ -492,18 +508,22 @@ def _tile_pairs(pcap: int, ccap: int, device):
     return pi, bi
 
 
-def _nl_matched(probe: ColumnarBatch, bchunk: ColumnarBatch, cond):
+def _nl_matched(probe: ColumnarBatch, bchunk: ColumnarBatch, cond,
+                ansi: bool = False):
     """All-pairs tile: the matched mask over the P x C grid (flattened
-    row-major), with per-probe-row and per-build-row any-match."""
+    row-major), with per-probe-row and per-build-row any-match, and the
+    condition's ANSI errors over the tile's live pairs."""
     pcap, ccap = probe.capacity, bchunk.capacity
     pi, bi = _tile_pairs(pcap, ccap, probe.device)
     m = probe.row_mask()[pi] & bchunk.row_mask()[bi]
+    errors = []
     if cond is not None:
-        m = m & _condition_holds(
+        holds, errors = _condition_holds(
             cond, gather_vecs(batch_vecs(probe), pi) +
-            gather_vecs(batch_vecs(bchunk), bi), m)
+            gather_vecs(batch_vecs(bchunk), bi), m, ansi)
+        m = m & holds
     grid = m.reshape(pcap, ccap)
-    return m, grid.any(dim=1), grid.any(dim=0)
+    return m, grid.any(dim=1), grid.any(dim=0), errors
 
 
 def _nl_expand(probe: ColumnarBatch, bchunk: ColumnarBatch,
@@ -559,6 +579,7 @@ class TpuNestedLoopJoinExec(TpuExec):
         del build, batches
         bmatched = [None] * len(chunks)
         jt, pt = self.join_type, self.PROBE_TILE_ROWS
+        ansi = self.conf.is_ansi
         for whole in self.children[0].execute():
             n_whole = whole.row_count()
             if n_whole == 0:
@@ -573,14 +594,16 @@ class TpuNestedLoopJoinExec(TpuExec):
                 pmatched = None
                 for ci, bchunk in enumerate(chunks):
                     COUNTERS.add(nested_loop_tiles=1)
-                    m, pm, bm = _nl_matched(probe, bchunk, self._bcond)
+                    m, pm, bm, errors = _nl_matched(probe, bchunk,
+                                                    self._bcond, ansi)
                     pmatched = pm if pmatched is None else (pmatched | pm)
                     if jt in _BUILD_OUTER:
                         bmatched[ci] = bm if bmatched[ci] is None \
                             else (bmatched[ci] | bm)
                     if jt in ("semi", "anti", "existence"):
+                        check_errors(errors)
                         continue  # only the flags are needed
-                    n = int(m.sum())
+                    n, = check_errors(errors, [m.sum()])
                     if n:
                         yield vecs_to_batch(self._schema, _nl_expand(
                             probe, bchunk, m, n), n)

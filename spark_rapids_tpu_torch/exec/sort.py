@@ -25,7 +25,6 @@ and the host merge's seconds (the key copies and the lexsort).
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Iterator, List, Sequence, Tuple
 
@@ -36,37 +35,20 @@ from ..columnar.batch import ColumnarBatch, Schema
 from ..columnar.padding import row_bucket
 from ..expr.base import Expression, bind_references
 from ..ops.rowops import gather_vecs, lexsort_indices, sort_keys_for
-from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .base import (Counters, TpuExec, UnaryTpuExec, batch_vecs, check_errors,
+                   device_ctx, vecs_to_batch)
 from .coalesce import concat_batches
 
 __all__ = ["TpuSortExec", "TpuTopKExec", "COUNTERS", "SortCounters"]
 
 
-class SortCounters:
+class SortCounters(Counters):
     """Full sorts since the last reset(): in core (`in_core`), out of core
     (`out_of_core`), and the out-of-core sorts' host merge seconds
     (`host_merge_s`: the sort keys' device-to-host copies and the
     lexsort)."""
 
     _FIELDS = ("in_core", "out_of_core", "host_merge_s")
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.reset()
-
-    def reset(self) -> None:
-        with self._lock:
-            for f in self._FIELDS:
-                setattr(self, f, 0)
-
-    def add(self, **counts) -> None:
-        with self._lock:
-            for f, n in counts.items():
-                setattr(self, f, getattr(self, f) + n)
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return {f: getattr(self, f) for f in self._FIELDS}
 
 
 COUNTERS = SortCounters()
@@ -76,15 +58,16 @@ def _bind_orders(orders, schema):
     return [(bind_references(e, schema), a, nf) for e, a, nf in orders]
 
 
-def _sort_order(bound, batch: ColumnarBatch) -> torch.Tensor:
-    """The stable permutation that sorts a batch by `bound` (expr,
-    ascending, nulls_first) orders, padding rows last."""
-    ctx = device_ctx(batch)
+def _sort_order(bound, batch: ColumnarBatch, ansi: bool = False):
+    """(the stable permutation that sorts a batch by `bound` (expr,
+    ascending, nulls_first) orders, padding rows last; the ANSI errors of
+    the key expressions)."""
+    ctx = device_ctx(batch, ansi)
     vecs = batch_vecs(batch)
     groups = [[(~ctx.row_mask).to(torch.int8)]]  # padding rows last
     for e, asc, nf in bound:
         groups.append(sort_keys_for(e.eval(ctx, vecs), asc, nf))
-    return lexsort_indices(groups)
+    return lexsort_indices(groups), ctx.errors
 
 
 class TpuSortExec(UnaryTpuExec):
@@ -97,16 +80,22 @@ class TpuSortExec(UnaryTpuExec):
         self.each_batch = each_batch
         self._bound = _bind_orders(self.orders, child.output)
 
-    def sort_single_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
-        order = _sort_order(self._bound, batch)
+    def sort_single_batch(self, batch: ColumnarBatch):
+        """(the batch sorted, the ANSI errors of its sort keys)."""
+        order, errors = _sort_order(self._bound, batch, self.conf.is_ansi)
         return vecs_to_batch(batch.schema,
                              gather_vecs(batch_vecs(batch), order),
-                             batch.num_rows)
+                             batch.num_rows), errors
+
+    def _sorted(self, batch: ColumnarBatch) -> ColumnarBatch:
+        out, errors = self.sort_single_batch(batch)
+        check_errors(errors)
+        return out
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         if self.each_batch:
             for b in self.child.execute():
-                yield self.sort_single_batch(b)
+                yield self._sorted(b)
             return
         batches = list(self.child.execute())
         if not batches:
@@ -117,12 +106,13 @@ class TpuSortExec(UnaryTpuExec):
             yield from self._out_of_core(batches)
             return
         COUNTERS.add(in_core=1)
-        yield self.sort_single_batch(concat_batches(batches))
+        yield self._sorted(concat_batches(batches))
 
     # -- out-of-core merge path (GpuOutOfCoreSortIterator analog) ----------
     def _host_keys(self, run: ColumnarBatch) -> List[np.ndarray]:
         """The sort keys of a sorted run, computed on the device, its live
-        rows copied to the host (most significant first)."""
+        rows copied to the host (most significant first). Their ANSI
+        errors were read when the run was sorted."""
         ctx = device_ctx(run)
         vecs = batch_vecs(run)
         n = run.row_count()
@@ -131,9 +121,15 @@ class TpuSortExec(UnaryTpuExec):
 
     def _out_of_core(self, batches: List[ColumnarBatch]
                      ) -> Iterator[ColumnarBatch]:
-        # phase 1: device-sort each batch into a run
-        runs = [self.sort_single_batch(b) for b in batches]
+        # phase 1: device-sort each batch into a run; the runs' key errors
+        # are read once, in batch order, before the merge
+        runs, errors = [], []
+        for b in batches:
+            run, errs = self.sort_single_batch(b)
+            runs.append(run)
+            errors += errs
         del batches
+        check_errors(errors)
         # phase 2: host merge of the key streams (keys only; the payload
         # stays on the device)
         t0 = time.perf_counter()
@@ -210,10 +206,11 @@ class TpuTopKExec(UnaryTpuExec):
         self._kcap = row_bucket(max(self._k, 1))
         self._bound = _bind_orders(self.orders, child.output)
 
-    def _topk(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """The batch's first k rows in order, at capacity kcap (a shorter
-        permutation is padded with row 0, past the row count)."""
-        order = _sort_order(self._bound, batch)
+    def _topk(self, batch: ColumnarBatch, ansi: bool = False):
+        """(the batch's first k rows in order, at capacity kcap (a shorter
+        permutation is padded with row 0, past the row count); the ANSI
+        errors of its sort keys)."""
+        order, errors = _sort_order(self._bound, batch, ansi)
         if self._kcap <= batch.capacity:
             take = order[:self._kcap]
         else:
@@ -221,7 +218,7 @@ class TpuTopKExec(UnaryTpuExec):
                                            (0, self._kcap - batch.capacity))
         return vecs_to_batch(batch.schema,
                              gather_vecs(batch_vecs(batch), take),
-                             torch.clamp(batch.num_rows, max=self._k))
+                             torch.clamp(batch.num_rows, max=self._k)), errors
 
     @property
     def output(self) -> Schema:
@@ -230,9 +227,11 @@ class TpuTopKExec(UnaryTpuExec):
     def do_execute(self) -> Iterator[ColumnarBatch]:
         run = None
         for b in self.child.execute():
-            top = self._topk(b)
+            top, errors = self._topk(b, self.conf.is_ansi)
+            check_errors(errors)
+            # the candidates' keys were checked in their own batches
             run = top if run is None else \
-                self._topk(concat_batches([run, top]))
+                self._topk(concat_batches([run, top]))[0]
         if run is None:
             return
         if self.offset:

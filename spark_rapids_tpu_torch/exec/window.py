@@ -56,7 +56,8 @@ from ..expr.windowexprs import (CumeDist, DenseRank, Lag, Lead, NthValue,
                                 default_frame, is_value_range_frame)
 from ..ops.rowops import (gather_vecs, key_change_flags, lexsort_indices,
                           segment_sum, sort_keys_for)
-from .base import TpuExec, UnaryTpuExec, batch_vecs, device_ctx, vecs_to_batch
+from .base import (TpuExec, UnaryTpuExec, batch_vecs, check_errors,
+                   device_ctx, vecs_to_batch)
 from .coalesce import concat_batches
 
 __all__ = ["TpuWindowExec"]
@@ -277,8 +278,10 @@ class TpuWindowExec(UnaryTpuExec):
     def output(self) -> Schema:
         return self._schema
 
-    def window(self, batch: ColumnarBatch) -> ColumnarBatch:
-        ctx = device_ctx(batch)
+    def window(self, batch: ColumnarBatch):
+        """(the batch with its window columns, the ANSI errors of the
+        partition and order keys and the functions' inputs)."""
+        ctx = device_ctx(batch, self.conf.is_ansi)
         vecs = batch_vecs(batch)
         mask = ctx.row_mask
         cap = mask.shape[0]
@@ -319,13 +322,15 @@ class TpuWindowExec(UnaryTpuExec):
         out = list(svecs)
         for fn, _ in self._bound_fns:
             out.append(_eval_device(fn, env))
-        return vecs_to_batch(self._schema, out, batch.num_rows)
+        return vecs_to_batch(self._schema, out, batch.num_rows), ctx.errors
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         batches = list(self.child.execute())
         if not batches:
             return
-        yield self.window(concat_batches(batches))
+        out, errors = self.window(concat_batches(batches))
+        check_errors(errors)
+        yield out
 
     def _arg_string(self):
         return (f"[{[n for _, n in self.window_exprs]}, "

@@ -6,8 +6,13 @@ Integral +, -, * wrap (Java two's complement), which is what torch's fixed
 width integer ops do; the narrow ints and FLOAT promote as Spark widens
 (byte < short < int < long < float < double). Divide yields DOUBLE,
 IntegralDivide LONG; IntegralDivide, Remainder and Pmod truncate toward
-zero as Java does, and x / 0 is null. This engine is non-ANSI only: the
-planner rejects ANSI mode before any of this runs.
+zero as Java does, and x / 0 is null.
+
+ANSI mode (`ctx.ansi`) raises instead, with the JAX messages: integral
++, -, * out of range (sign tests for + and -, and the product divided
+back through `trunc_div` for *), a decimal +/- past its precision,
+division by zero in the whole division family, IntegralDivide's
+MIN div -1, and UnaryMinus or Abs of an integral MIN.
 
 Decimals: Add and Subtract rescale both sides to the larger scale in
 128-bit limbs, or in the 256-bit chain where a rescaled operand passes 38
@@ -27,11 +32,23 @@ import torch
 
 from .. import types as T
 from ..columnar.column import torch_dtype
-from .base import EvalContext, Expression, Vec, and_validity
+from .base import EvalContext, Expression, Vec, and_validity, ansi_raise
+from .cast import convert
 
 __all__ = ["Add", "Subtract", "Multiply", "Divide", "IntegralDivide",
            "Remainder", "Pmod", "UnaryMinus", "Abs", "cast_data",
            "promote_args", "trunc_div"]
+
+
+def _overflow_msg(dt: T.DataType) -> str:
+    if isinstance(dt, T.DecimalType):
+        return f"[ARITHMETIC_OVERFLOW] {dt.simple_string()} overflow"
+    name = {T.ByteType: "tinyint", T.ShortType: "smallint",
+            T.IntegerType: "integer", T.LongType: "long"}.get(type(dt))
+    return f"[ARITHMETIC_OVERFLOW] {name or dt.simple_string()} overflow"
+
+
+_DIV_ZERO = "[DIVIDE_BY_ZERO] Division by zero"
 
 
 def cast_data(vec: Vec, dt: T.DataType) -> Vec:
@@ -62,6 +79,22 @@ def _nonzero_divisor(b: torch.Tensor):
     return torch.where(zero, torch.ones_like(b), b), zero
 
 
+def _checked_divisor(ctx: EvalContext, l: Vec, r: Vec, zero: torch.Tensor):
+    """The result's validity, null where the divisor is 0; under ANSI such a
+    row raises instead."""
+    both = and_validity(l.validity, r.validity)
+    if ctx.ansi:
+        ansi_raise(ctx, zero & both, _DIV_ZERO)
+    return both & ~zero
+
+
+def _check_min_negation(ctx: EvalContext, c: Vec) -> None:
+    """ANSI: negating an integral MIN overflows (UnaryMinus, Abs)."""
+    if ctx.ansi and T.is_integral(c.dtype):
+        ansi_raise(ctx, (c.data == torch.iinfo(c.data.dtype).min)
+                   & c.validity, _overflow_msg(c.dtype))
+
+
 class BinaryExpression(Expression):
     def __init__(self, left: Expression, right: Expression):
         super().__init__([left, right])
@@ -90,7 +123,7 @@ class BinaryArithmetic(BinaryExpression):
                 "spark_rapids_tpu_torch yet")
         return T.numeric_promote(lt, rt)
 
-    def _decimal_addsub(self, l: Vec, r: Vec) -> Vec:
+    def _decimal_addsub(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         """Exact decimal +/- (JAX `_decimal_addsub`): both sides rescaled
         to the larger input scale, added, rounded HALF_UP to the result
         scale, and a result past the result precision null. While the
@@ -120,7 +153,10 @@ class BinaryArithmetic(BinaryExpression):
                                           s - out_t.scale)
             hi, lo, fits = D.wide_to128(ws)
             ok = fits & D.in_bounds(hi, lo, out_t.precision)
-        validity = and_validity(l.validity, r.validity) & ok
+        validity = and_validity(l.validity, r.validity)
+        if ctx.ansi:
+            ansi_raise(ctx, ~ok & validity, _overflow_msg(out_t))
+        validity = validity & ok
         if D.is_dec128(out_t):
             return Vec(out_t, D.pack_limbs(hi, lo), validity)
         return Vec(out_t, lo, validity)
@@ -129,12 +165,19 @@ class BinaryArithmetic(BinaryExpression):
         if isinstance(l.dtype, T.DecimalType) and \
                 isinstance(r.dtype, T.DecimalType) and \
                 type(self) in (Add, Subtract):
-            return self._decimal_addsub(l, r)
+            return self._decimal_addsub(ctx, l, r)
         l, r, dt = promote_args(l, r)
+        validity = and_validity(l.validity, r.validity)
         data = self._op(l.data, r.data).to(torch_dtype(dt))
-        return Vec(dt, data, and_validity(l.validity, r.validity))
+        if ctx.ansi and T.is_integral(dt):
+            ansi_raise(ctx, self._overflowed(l.data, r.data, data) & validity,
+                       _overflow_msg(dt))
+        return Vec(dt, data, validity)
 
     def _op(self, a, b):
+        raise NotImplementedError
+
+    def _overflowed(self, a, b, res):
         raise NotImplementedError
 
 
@@ -142,15 +185,30 @@ class Add(BinaryArithmetic):
     def _op(self, a, b):
         return a + b
 
+    def _overflowed(self, a, b, res):
+        # operands of one sign whose wrapped sum has the other
+        return ((a ^ res) & (b ^ res)) < 0
+
 
 class Subtract(BinaryArithmetic):
     def _op(self, a, b):
         return a - b
 
+    def _overflowed(self, a, b, res):
+        return ((a ^ b) & (a ^ res)) < 0
+
 
 class Multiply(BinaryArithmetic):
     def _op(self, a, b):
         return a * b
+
+    def _overflowed(self, a, b, res):
+        # divide the wrapped product back: a mismatch means the true
+        # product left the type's range; MIN * -1 wraps onto itself
+        mn = torch.iinfo(res.dtype).min
+        q = trunc_div(res, torch.where(b == 0, torch.ones_like(b), b))
+        return ((b != 0) & (q != a)) | ((a == mn) & (b == -1)) | \
+            ((b == mn) & (a == -1))
 
 
 def _scale(v: Vec) -> int:
@@ -172,13 +230,13 @@ class Divide(BinaryExpression):
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         b, zero = _nonzero_divisor(r.data.to(torch.float64))
+        validity = _checked_divisor(ctx, l, r, zero)
         data = l.data.to(torch.float64) / b
         shift = _scale(r) - _scale(l)
         if shift > 0:
             data = data * float(10 ** shift)
         elif shift < 0:
             data = data / float(10 ** -shift)
-        validity = and_validity(l.validity, r.validity) & ~zero
         return Vec(T.DOUBLE, torch.where(zero, 0.0, data), validity)
 
 
@@ -194,9 +252,12 @@ class IntegralDivide(BinaryExpression):
         return True
 
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
-        a, b = l.data.to(torch.int64), r.data.to(torch.int64)
+        a, b = convert(l.data, torch.int64), convert(r.data, torch.int64)
         b, zero = _nonzero_divisor(b)
-        validity = and_validity(l.validity, r.validity) & ~zero
+        validity = _checked_divisor(ctx, l, r, zero)
+        if ctx.ansi:
+            ansi_raise(ctx, (a == -2 ** 63) & (b == -1) & validity,
+                       _overflow_msg(T.LONG))
         return Vec(T.LONG, torch.where(zero, 0, trunc_div(a, b)), validity)
 
 
@@ -210,11 +271,11 @@ class Remainder(BinaryArithmetic):
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         l, r, dt = promote_args(l, r)
         b, zero = _nonzero_divisor(r.data)
+        validity = _checked_divisor(ctx, l, r, zero)
         if T.is_floating(dt):
             data = torch.fmod(l.data, b)
         else:
             data = l.data - b * trunc_div(l.data, b)
-        validity = and_validity(l.validity, r.validity) & ~zero
         return Vec(dt, torch.where(zero, torch.zeros_like(data), data)
                    .to(torch_dtype(dt)), validity)
 
@@ -231,6 +292,7 @@ class Pmod(BinaryArithmetic):
     def _compute(self, ctx: EvalContext, l: Vec, r: Vec) -> Vec:
         l, r, dt = promote_args(l, r)
         b, zero = _nonzero_divisor(r.data)
+        validity = _checked_divisor(ctx, l, r, zero)
         if T.is_floating(dt):
             m = torch.fmod(l.data, b)
             data = torch.where(m < 0, torch.fmod(m + b, b), m)
@@ -238,7 +300,6 @@ class Pmod(BinaryArithmetic):
             m = l.data - b * trunc_div(l.data, b)
             s = m + b
             data = torch.where(m < 0, s - b * trunc_div(s, b), m)
-        validity = and_validity(l.validity, r.validity) & ~zero
         return Vec(dt, torch.where(zero, torch.zeros_like(data), data)
                    .to(torch_dtype(dt)), validity)
 
@@ -257,6 +318,7 @@ class UnaryMinus(Expression):
             return Vec(c.dtype, pack_limbs(*neg128(c.data[:, 0],
                                                    c.data[:, 1])),
                        c.validity)
+        _check_min_negation(ctx, c)
         return Vec(c.dtype, (-c.data).to(c.data.dtype), c.validity)
 
 
@@ -273,4 +335,5 @@ class Abs(Expression):
             from .decimal128 import abs128, pack_limbs
             hi, lo, _ = abs128(c.data[:, 0], c.data[:, 1])
             return Vec(c.dtype, pack_limbs(hi, lo), c.validity)
+        _check_min_negation(ctx, c)
         return Vec(c.dtype, torch.abs(c.data), c.validity)

@@ -19,10 +19,11 @@ from .. import types as T
 from ..columnar.column import Column, torch_dtype
 from ..columnar.padding import width_bucket
 
-__all__ = ["Vec", "EvalContext", "Expression", "LeafExpression", "Literal",
-           "AttributeReference", "BoundReference", "Alias",
-           "bind_references", "output_name", "and_validity",
-           "require_flat_strings", "pad_common_width", "pad_width"]
+__all__ = ["Vec", "EvalContext", "ansi_raise", "Expression",
+           "LeafExpression", "Literal", "AttributeReference",
+           "BoundReference", "Alias", "bind_references", "output_name",
+           "and_validity", "require_flat_strings", "pad_common_width",
+           "pad_width"]
 
 
 @dataclasses.dataclass
@@ -90,13 +91,30 @@ def pad_width(data: torch.Tensor, w: int) -> torch.Tensor:
 @dataclasses.dataclass
 class EvalContext:
     """row_mask: bool[cap] live-row mask of the batch being evaluated; its
-    device and length give literals theirs. ANSI mode has no error channel
-    here yet: the planner rejects it."""
+    device and length give literals theirs. ansi: Spark's ANSI mode.
+    errors: the (device bool, message) pairs `ansi_raise` appends, in
+    evaluation order; the exec reads them after the batch
+    (exec/base.py `read_flags`), so nothing here waits for the device."""
     row_mask: torch.Tensor
+    ansi: bool = False
+    errors: list = dataclasses.field(default_factory=list)
 
     @property
     def device(self) -> torch.device:
         return self.row_mask.device
+
+
+def ansi_raise(ctx: EvalContext, flag: torch.Tensor, message: str,
+               masked: bool = True) -> None:
+    """Report an ANSI runtime error for the rows where `flag` is true (JAX
+    `ansi_raise`): the flag, reduced on the device, joins ctx.errors.
+    Rows outside ctx.row_mask never raise: past the row count a padded
+    batch holds arbitrary values, and an If/CaseWhen branch narrows the
+    mask to the rows that take it. `masked=False` is for flags over
+    groups rather than rows (the Sum accumulator)."""
+    if masked:
+        flag = flag & ctx.row_mask
+    ctx.errors.append((flag.any(), message))
 
 
 def and_validity(*vs) -> Optional[torch.Tensor]:

@@ -1,17 +1,26 @@
 """Cast, the numeric part (`spark_rapids_tpu/expr/cast.py`:
 `device_supported`, `_numeric_cast`, `_decimal_cast` and the date and
-timestamp casts), non-ANSI.
+timestamp casts).
 
 Java semantics: integral narrowing wraps; float -> integral truncates
-toward zero, clamps to the target's range and maps NaN to 0; -> BOOLEAN is
-`!= 0`. Decimal casts rescale the unscaled value, HALF_UP when the scale
-drops, and a value past the target precision or integral range is null;
-a decimal of more than 18 digits on either side rescales in limbs
-(`_decimal128_cast`).
+toward zero, clamps to the target's range and maps NaN to 0 (`convert`,
+which the If/CaseWhen/Coalesce merges, Least/Greatest and IntegralDivide
+share); -> BOOLEAN is `!= 0`. Decimal casts rescale the unscaled value,
+HALF_UP when the scale drops, and a value past the target precision or
+integral range is null; a decimal of more than 18 digits on either side
+rescales in limbs (`_decimal128_cast`).
 DATE -> TIMESTAMP is midnight UTC, TIMESTAMP -> DATE and -> LONG
 floor-divide (days, seconds), LONG -> TIMESTAMP multiplies seconds.
 Casts from and to strings and float -> decimal are not ported: the
 planner refuses them (`device_supported`).
+
+ANSI mode (`ctx.ansi`) raises where the non-ANSI cast clamps, wraps or
+makes null: float -> integral out of range or NaN and integral narrowing
+out of range raise `[CAST_OVERFLOW]`; a decimal cast that makes null from
+a non-null value raises `[CAST_OVERFLOW]` to an integral type and
+`[NUMERIC_VALUE_OUT_OF_RANGE]` to a decimal (JAX messages). The planner
+admits under ANSI only numeric <-> numeric and decimal casts
+(`ansi_supported`, JAX `_tag_cast`).
 """
 
 from __future__ import annotations
@@ -20,9 +29,9 @@ import torch
 
 from .. import types as T
 from ..columnar.column import torch_dtype
-from .base import EvalContext, Expression, Vec
+from .base import EvalContext, Expression, Vec, ansi_raise
 
-__all__ = ["Cast", "device_supported"]
+__all__ = ["Cast", "device_supported", "ansi_supported", "convert"]
 
 _US_PER_DAY = 86_400_000_000
 _INT_BOUNDS = {
@@ -56,6 +65,42 @@ def device_supported(src: T.DataType, dst: T.DataType) -> bool:
     return False
 
 
+def ansi_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The casts this engine computes under ANSI (JAX `_tag_cast`):
+    numeric <-> numeric and any cast from or to a decimal. The date and
+    timestamp casts are refused there, as in the JAX planner."""
+    plain = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+             T.LongType, T.FloatType, T.DoubleType)
+    return (isinstance(src, plain) and isinstance(dst, plain)) or \
+        isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType)
+
+
+def _float_to_int(a: torch.Tensor, want: torch.dtype):
+    """Java `(long)(double)` into `want`: NaN -> 0, clamp to the bounds,
+    truncate. Returns (values, overflow), overflow True where the value was
+    NaN or out of range. The bound 2^(bits-1) is exact in a double;
+    float(2^63 - 1) would round up to it and wrap."""
+    lo, hi = _INT_BOUNDS[want]
+    t = torch.trunc(a.to(torch.float64))
+    nan = torch.isnan(t)
+    t = torch.where(nan, 0.0, t)
+    upper = float(hi) + 1.0
+    pos, neg = t >= upper, t < -upper
+    i = torch.where(pos | neg, 0.0, t).to(torch.int64)
+    i = torch.where(pos, hi, torch.where(neg, lo, i))
+    return i.to(want), pos | neg | nan
+
+
+def convert(data: torch.Tensor, want: torch.dtype) -> torch.Tensor:
+    """`data` as `want` by Java's primitive conversion: a floating value
+    into an integer type by `_float_to_int`, every other pair as
+    `Tensor.to` (integral narrowing wraps). `Tensor.to` alone maps NaN,
+    infinities and values out of range to the type's minimum on the CPU."""
+    if data.is_floating_point() and want in _INT_BOUNDS:
+        return _float_to_int(data, want)[0]
+    return data.to(want)
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, to: T.DataType,
                  ansi: bool = False):
@@ -87,10 +132,20 @@ class Cast(Expression):
         if isinstance(src, T.LongType) and isinstance(dst, T.TimestampType):
             return Vec(dst, c.data * 1_000_000, c.validity)
         if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
-            return _decimal_cast(c, dst)
+            out = _decimal_cast(c, dst)
+            if ctx.ansi:
+                # every null a decimal cast makes from a non-null value is
+                # an overflow (rescale, precision, integral range)
+                msg = ("[CAST_OVERFLOW] value cannot be cast to "
+                       f"{dst.simple_string()} due to an overflow"
+                       if T.is_integral(dst) else
+                       "[NUMERIC_VALUE_OUT_OF_RANGE] value out of "
+                       f"range for {dst.simple_string()}")
+                ansi_raise(ctx, c.validity & ~out.validity, msg)
+            return out
         if isinstance(src, T.DateType) and isinstance(dst, T.IntegerType):
             return Vec(dst, c.data, c.validity)
-        return _numeric_cast(c, dst)
+        return _numeric_cast(ctx, c, dst)
 
     def __repr__(self):
         extra = ", ansi" if self.ansi else ""
@@ -98,22 +153,21 @@ class Cast(Expression):
                f"{self.to.simple_string()}{extra})"
 
 
-def _numeric_cast(c: Vec, dst: T.DataType) -> Vec:
+def _numeric_cast(ctx: EvalContext, c: Vec, dst: T.DataType) -> Vec:
     a, want = c.data, torch_dtype(dst)
     if isinstance(dst, T.BooleanType):
         return Vec(dst, a != 0, c.validity)
+    msg = (f"[CAST_OVERFLOW] casting {c.dtype.simple_string()} to "
+           f"{dst.simple_string()} causes overflow")
     if T.is_floating(c.dtype) and T.is_integral(dst):
-        # Java (long)(double): NaN -> 0, clamp to the bounds, truncate.
-        # The bound 2^(bits-1) is exact in a double; float(2^63 - 1) would
-        # round up to it and wrap.
+        out, overflow = _float_to_int(a, want)
+        if ctx.ansi:
+            ansi_raise(ctx, overflow & c.validity, msg)
+        return Vec(dst, out, c.validity)
+    if ctx.ansi and T.is_integral(c.dtype) and T.is_integral(dst) and \
+            dst.np_dtype.itemsize < c.dtype.np_dtype.itemsize:
         lo, hi = _INT_BOUNDS[want]
-        t = torch.trunc(a.to(torch.float64))
-        t = torch.where(torch.isnan(t), 0.0, t)
-        upper = float(hi) + 1.0
-        pos, neg = t >= upper, t < -upper
-        i = torch.where(pos | neg, 0.0, t).to(torch.int64)
-        i = torch.where(pos, hi, torch.where(neg, lo, i))
-        return Vec(dst, i.to(want), c.validity)
+        ansi_raise(ctx, ((a < lo) | (a > hi)) & c.validity, msg)
     # integral narrowing wraps; widening and int <-> float convert
     return Vec(dst, a.to(want), c.validity)
 

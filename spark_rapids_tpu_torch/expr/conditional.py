@@ -1,10 +1,13 @@
 """Conditional expressions (`spark_rapids_tpu/expr/conditional.py`: If,
-CaseWhen, Least, Greatest), non-ANSI.
+CaseWhen, Least, Greatest).
 
-Every branch is evaluated over every row and `_select` picks per row. The
-JAX package narrows each branch's row mask under ANSI so that untaken rows
-raise no error; this engine rejects ANSI mode at plan time, so no branch
-needs its own context here. String branches of different width buckets
+Every branch is evaluated over every row and `_select` picks per row.
+Spark evaluates only the branch a row takes, so under ANSI each branch is
+evaluated with its row mask narrowed to the rows that take it
+(`_branch_ctx`): an error in a row that takes another branch never
+raises, and a nested CASE narrows again. A branch of another type
+converts to the result's as Java does (`cast.convert`: a DOUBLE into an
+INT result clamps, NaN to 0). String branches of different width buckets
 merge at the wider width, zero-padded (`pad_common_width`); decimal128
 branches select whole limb rows. Least and Greatest over decimals of more
 than 18 digits are refused at plan time (the JAX package compares their
@@ -13,12 +16,23 @@ limbs one by one).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import types as T
 from .base import EvalContext, Expression, Literal, Vec, pad_common_width
+from .cast import convert
 
 __all__ = ["If", "CaseWhen", "Least", "Greatest"]
+
+
+def _branch_ctx(ctx: EvalContext, taken: torch.Tensor) -> EvalContext:
+    """The context of a branch taken where `taken` (JAX `_branch_ctx`);
+    the same context outside ANSI. The error list is shared."""
+    if not ctx.ansi:
+        return ctx
+    return dataclasses.replace(ctx, row_mask=ctx.row_mask & taken)
 
 
 def _select(cond: torch.Tensor, then_v: Vec, else_v: Vec) -> Vec:
@@ -32,7 +46,8 @@ def _select(cond: torch.Tensor, then_v: Vec, else_v: Vec) -> Vec:
         then_v.dtype
     pick = cond[:, None] if then_v.data.dim() == 2 else cond  # limbs
     return Vec(dt, torch.where(pick, then_v.data,
-                               else_v.data.to(then_v.data.dtype)), validity)
+                               convert(else_v.data, then_v.data.dtype)),
+               validity)
 
 
 class If(Expression):
@@ -47,8 +62,12 @@ class If(Expression):
     def nullable(self):
         return self.children[1].nullable or self.children[2].nullable
 
-    def _compute(self, ctx: EvalContext, p: Vec, t: Vec, e: Vec) -> Vec:
-        return _select(p.data & p.validity, t, e)  # null predicate -> else
+    def eval(self, ctx: EvalContext, batch_vecs) -> Vec:
+        p = self.children[0].eval(ctx, batch_vecs)
+        cond = p.data & p.validity  # null predicate -> else
+        t = self.children[1].eval(_branch_ctx(ctx, cond), batch_vecs)
+        e = self.children[2].eval(_branch_ctx(ctx, ~cond), batch_vecs)
+        return _select(cond, t, e)
 
 
 class CaseWhen(Expression):
@@ -74,12 +93,24 @@ class CaseWhen(Expression):
     def nullable(self):
         return True
 
-    def _compute(self, ctx: EvalContext, *vecs: Vec) -> Vec:
-        out = vecs[-1]
+    def eval(self, ctx: EvalContext, batch_vecs) -> Vec:
+        """Every condition first, then each value under the rows its
+        branch takes (not taken by an earlier one), then the else."""
+        ch = self.children
+        conds, taken_before = [], None
+        for c_expr in ch[:-1:2]:
+            c = c_expr.eval(ctx, batch_vecs)
+            cond = c.data & c.validity
+            conds.append((cond, cond if taken_before is None
+                          else cond & ~taken_before))
+            taken_before = cond if taken_before is None \
+                else taken_before | cond
+        vals = [v_expr.eval(_branch_ctx(ctx, eff), batch_vecs)
+                for v_expr, (_, eff) in zip(ch[1::2], conds)]
+        out = ch[-1].eval(_branch_ctx(ctx, ~taken_before), batch_vecs)
         # fold right to left so that earlier branches win
-        for i in range((len(vecs) - 1) // 2 - 1, -1, -1):
-            c, v = vecs[2 * i], vecs[2 * i + 1]
-            out = _select(c.data & c.validity, v, out)
+        for (cond, _), v in zip(reversed(conds), reversed(vals)):
+            out = _select(cond, v, out)
         return out
 
 
@@ -97,7 +128,7 @@ class _MinMaxN(Expression):
     def _compute(self, ctx: EvalContext, *vecs: Vec) -> Vec:
         out = vecs[0]
         for v in vecs[1:]:
-            a, b = out.data, v.data.to(out.data.dtype)
+            a, b = out.data, convert(v.data, out.data.dtype)
             better = self._cmp_float(a, b) if T.is_floating(out.dtype) \
                 else self._cmp(a, b)
             take_a = (better & out.validity & v.validity) | \

@@ -7,6 +7,7 @@ import torch
 
 from .. import types as T
 from .base import EvalContext, Expression, Vec, pad_common_width
+from .cast import convert
 
 __all__ = ["IsNull", "IsNotNull", "IsNaN", "Coalesce"]
 
@@ -72,5 +73,6 @@ class Coalesce(Expression):
             else:
                 pick = take_out[:, None] if out.data.dim() == 2 else take_out
                 out = Vec(out.dtype, torch.where(
-                    pick, out.data, v.data.to(out.data.dtype)), validity)
+                    pick, out.data, convert(v.data, out.data.dtype)),
+                    validity)
         return out

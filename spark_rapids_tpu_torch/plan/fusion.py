@@ -34,7 +34,8 @@ __all__ = ["apply_fusion", "FusedStageSpec", "KEY_ENABLED", "KEY_MIN_OPS",
 class FusedStageSpec:
     """Identity of one fused stage: the source schema plus one signature
     string per member (bound-expression reprs, key ordinals, join type,
-    schemas)."""
+    schemas, and a join's ANSI mode, which decides whether its condition
+    raises)."""
 
     __slots__ = ("source", "members")
 
@@ -65,7 +66,7 @@ def _member_sig(m) -> str:
         return (f"BroadcastHashJoin[{m.join_type}, lk={m._lk_ix!r}, "
                 f"rk={m._rk_ix!r}, cond={cond}, "
                 f"build={_schema_sig(m.children[1].output)}, "
-                f"out={_schema_sig(m.output)}]")
+                f"out={_schema_sig(m.output)}, ansi={m.conf.is_ansi!r}]")
     if isinstance(m, TpuHashAggregateExec):
         aggs = [(repr(a.func), a.name) for a in m._bound_aggs]
         return (f"PartialAgg[keys={m._bound_groups!r}, aggs={aggs!r}, "

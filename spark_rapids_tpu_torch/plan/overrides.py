@@ -9,7 +9,10 @@ order; neither touches a sort, top-k, limit, union or window.
 This slice has no CPU engine to fall back to, so the JAX engine's per-node
 "will not work" tags become errors: every type, expression, aggregate, join
 type or mode outside the slice raises NotImplementedError here, before any
-data moves, and nothing silently computes something else.
+data moves, and nothing silently computes something else. ANSI mode
+(`spark.sql.ansi.enabled` or `spark.rapids.sql.ansi.enabled`) runs, with
+the JAX `_tag_cast` rule for casts: under it only numeric <-> numeric and
+decimal casts are admitted.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def _value_children(node: Expression):
     return []
 
 
-def _check_expr(e: Expression) -> None:
+def _check_expr(e: Expression, ansi: bool) -> None:
     for node in e.collect(lambda _: True):
         if not isinstance(node, _SUPPORTED_EXPRS):
             _unsupported(f"expression {type(node).__name__}")
@@ -88,10 +91,12 @@ def _check_expr(e: Expression) -> None:
             check_string_length(len(node.value.encode("utf-8")))
         if isinstance(node, CA.Cast):
             src = node.children[0].data_type
-            if node.ansi or not CA.device_supported(src, node.to):
+            if not CA.device_supported(src, node.to):
                 _unsupported(f"cast from {src.simple_string()} to "
-                             f"{node.to.simple_string()}"
-                             + (" under ANSI" if node.ansi else ""))
+                             f"{node.to.simple_string()}")
+            if ansi and not CA.ansi_supported(src, node.to):
+                _unsupported(f"ANSI-mode cast from {src.simple_string()} to "
+                             f"{node.to.simple_string()}")
         decimals = [c.data_type for c in _value_children(node)
                     if not isinstance(c.data_type, T.NullType)]
         if any(isinstance(t, T.DecimalType) for t in decimals):
@@ -258,8 +263,6 @@ class Overrides:
     def apply(self, plan: N.PhysicalPlan):
         if not self.conf.is_sql_enabled:
             _unsupported("spark.rapids.sql.enabled=false (the CPU engine)")
-        if self.conf.is_ansi:
-            _unsupported("ANSI mode")
         if self.conf.get("spark.rapids.tpu.mesh.enabled"):
             _unsupported("spark.rapids.tpu.mesh.enabled=true (the sharded "
                          "plan)")
@@ -288,11 +291,11 @@ class Overrides:
             out = self._convert_file_scan(plan)
         elif isinstance(plan, N.CpuProjectExec):
             for e in plan._bound:
-                _check_expr(e)
+                _check_expr(e, conf.is_ansi)
             from ..exec.basic import TpuProjectExec
             out = TpuProjectExec(plan.exprs, children[0], conf)
         elif isinstance(plan, N.CpuFilterExec):
-            _check_expr(plan._bound)
+            _check_expr(plan._bound, conf.is_ansi)
             if not isinstance(plan._bound.data_type, T.BooleanType):
                 _unsupported("a non-boolean filter condition")
             from ..exec.basic import TpuFilterExec
@@ -302,7 +305,7 @@ class Overrides:
         elif isinstance(plan, N.CpuHashJoinExec):
             out = self._convert_join(plan, children)
         elif isinstance(plan, N.CpuSortExec):
-            _check_orders(plan._bound)
+            _check_orders(plan._bound, conf.is_ansi)
             from ..exec.sort import TpuSortExec
             out = TpuSortExec(plan.orders, children[0], conf)
         elif isinstance(plan, N.CpuLimitExec):
@@ -315,7 +318,7 @@ class Overrides:
             from ..exec.basic import TpuUnionExec
             out = TpuUnionExec(children, conf)
         elif isinstance(plan, N.CpuWindowExec):
-            _check_window(plan)
+            _check_window(plan, conf.is_ansi)
             from ..exec.window import TpuWindowExec
             out = TpuWindowExec(plan.window_exprs, plan.partition_spec,
                                 plan.order_spec, children[0], conf)
@@ -340,10 +343,11 @@ class Overrides:
 
     def _convert_agg(self, plan: N.CpuHashAggregateExec, children):
         from ..exec.aggregate import TpuHashAggregateExec
+        ansi = self.conf.is_ansi
         for e in plan._bound_groups:
-            _check_expr(e)
+            _check_expr(e, ansi)
         for a in plan._bound_aggs:
-            _check_aggregate(a.func)
+            _check_aggregate(a.func, ansi)
         return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],
                                     self.conf)
 
@@ -381,7 +385,7 @@ class Overrides:
                 _unsupported(f"join keys {lk.data_type.simple_string()} and "
                              f"{rk.data_type.simple_string()}")
         if plan._bcond is not None:
-            _check_expr(plan._bcond)
+            _check_expr(plan._bcond, self.conf.is_ansi)
             if not isinstance(plan._bcond.data_type, T.BooleanType):
                 _unsupported("a non-boolean join condition")
         threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
@@ -413,7 +417,7 @@ _NUMERIC_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
 _INTEGRAL_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
 
 
-def _check_aggregate(func) -> None:
+def _check_aggregate(func, ansi: bool) -> None:
     """A grouped aggregate of the slice over a child of a type it takes:
     every aggregate of the JAX `_agg_one`; CollectList, CollectSet and
     ApproximatePercentile (array results and the single-pass path) and
@@ -440,14 +444,14 @@ def _check_aggregate(func) -> None:
         _unsupported(what)
     for pt in func.partial_types():
         check_supported(pt, f"{what}: its partial buffer")
-    _check_expr(func.child)
+    _check_expr(func.child, ansi)
     check_supported(func.data_type, f"{name} result")
 
 
-def _check_orders(bound_orders) -> None:
+def _check_orders(bound_orders, ansi: bool) -> None:
     """Sort keys: expressions of the slice, each of a carried type."""
     for e, _, _ in bound_orders:
-        _check_expr(e)
+        _check_expr(e, ansi)
         check_supported(e.data_type, "sort key")
 
 
@@ -472,7 +476,7 @@ _WINDOW_AGGREGATES = ("Sum", "Count", "Min", "Max", "Average", "First",
                       "Last")
 
 
-def _check_window(plan: N.CpuWindowExec) -> None:
+def _check_window(plan: N.CpuWindowExec, ansi: bool) -> None:
     """`_tag_window` and `_tag_window_agg` of the JAX package, as errors:
     every function needing an ORDER BY has one; value-offset RANGE frames
     have one order column of a numeric, date or timestamp type; window
@@ -485,9 +489,9 @@ def _check_window(plan: N.CpuWindowExec) -> None:
     digits (the JAX window's neutral fill does not broadcast over limbs)."""
     from ..expr import windowexprs as WX
     for e in plan._bound_part:
-        _check_expr(e)
+        _check_expr(e, ansi)
         check_supported(e.data_type, "window partition key")
-    _check_orders(plan._bound_order)
+    _check_orders(plan._bound_order, ansi)
     has_order = bool(plan.order_spec)
     for f, name in plan._bound_fns:
         what = f"window column {name}"
@@ -507,7 +511,7 @@ def _check_window(plan: N.CpuWindowExec) -> None:
                 _unsupported(f"{what}: a value-offset RANGE frame over a "
                              f"{key_t.simple_string()} order column")
         for c in f.children:
-            _check_expr(c)
+            _check_expr(c, ansi)
         if isinstance(f, WX.WindowAggregate):
             _check_window_agg(f, what)
         elif isinstance(f, (WX.Lead, WX.Lag)) and \

@@ -614,7 +614,8 @@ class TestBoundaries:
                 "approx_percentile": lambda: df.group_by("k").agg(
                     x=PE.ApproximatePercentile(c("k"), 0.5)),
                 "count_distinct": lambda: df.agg(x=PE.CountDistinct(c("k"))),
-                "ansi": lambda: df.group_by("k").agg(x=PE.Sum(c("d"))),
+                # ANSI runs; its out-of-slice casts (JAX `_tag_cast`) raise
+                "ansi": lambda: df.select(x=PE.Cast(c("k"), T.TIMESTAMP)),
                 "string_over_256": lambda: df.group_by("s").agg(
                     x=PE.Sum(c("d"))),
                 "dec128_divide": lambda: df.select(x=c("d") / c("k")),

@@ -35,7 +35,8 @@ from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
 from spark_rapids_tpu_torch.errors import DeviceUnavailableError
 from spark_rapids_tpu_torch.exec import aggregate, basic, broadcast, \
     coalesce, joins
-from spark_rapids_tpu_torch.expr import Count, Max, Min, Sum, col, lit
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.expr import Cast, Count, Max, Min, Sum, col, lit
 from spark_rapids_tpu_torch.plan import fusion
 from spark_rapids_tpu_torch.plan.nodes import AggExpr
 from spark_rapids_tpu_torch.plugin import TpuSession
@@ -362,5 +363,7 @@ class TestBoundaries:
                 4, dtype=np.float64)})), on="k")
         elif case == "sum_of_boolean":
             df = df.group_by("k").agg(s=Sum(col("b")))
+        elif case == "ansi":  # ANSI runs; not a cast the JAX rule refuses
+            df = df.select(x=Cast(col("k"), T.TIMESTAMP))
         with pytest.raises(NotImplementedError):
             df.collect()
