@@ -29,7 +29,11 @@ catalog and web sales and their SF10 dimensions from parquet, both plans,
 the TPC-DS aggregates q65 and q39, and the decimal star's store_sales in
 seven more file forms (zstd, gzip, columns pyarrow decodes, v2 pages, lz4,
 64 files under each reader strategy, a row filter) read by Q3 and Q7
-with the scan's counters held to their predictions;
+with the scan's counters held to their predictions, the decimal star, q65,
+q39a and q58 under ANSI mode, and last the memory layer: 1 GiB through the
+spill catalog under each codec, the running window, the out-of-core sort,
+q97 and the distributed engine query at the session's memory budget and
+at a tight one (spills to host and disk, results equal) and injected OOMs;
 it checks each against numpy oracles, holds kernels A
 and C to their exact launch counts there, and holds them against their
 twins on the inputs those paths hand them (a merged batch of 4 row
@@ -3603,6 +3607,341 @@ def ansi_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
     return lines, launches
 
 
+# ---- memory (slice 12): the memory layer on the card: the spill catalog
+# with each codec, then the paths that park under a tight budget (the
+# running window's aggregate and in-core sort, the out-of-core sort, q97's
+# sub-partition join, the distributed engine query) and injected OOMs
+MEMORY_CODECS = ("none", "zstd", "lz4xla")
+# copies of the engine query's fact table (512 MiB each on the card) that
+# the catalog check parks: 1 GiB
+MEMORY_CATALOG_COPIES = 2
+# each tight budget: a share of the same query's peak budget use at the
+# session's budget (the bytes the path itself parks and reserves), but at
+# least the largest batch it parks (a budget under one batch cannot read
+# that batch back); the host spill store
+# (spark.rapids.memory.host.spillStorageSize) and the codec of the tight
+# runs: uncompressed, so that any spill past 32 MiB goes on to disk (the
+# catalog check times each codec; zstd took 5.3 s a GiB to spill, my chip
+# run, PR 12)
+MEMORY_BUDGET_SHARE = 0.6
+MEMORY_HOST_LIMIT = 32 << 20
+MEMORY_SPILL_CODEC = "none"
+# the engine query with its fact table as one batch, so that its complete
+# aggregate sees a single batch (the path that degrades to the merge
+# passes)
+ONE_BATCH = {"spark.rapids.sql.batchSizeRows": QUERY_FACT_ROWS}
+
+
+def _bits(torch, t):
+    """A float tensor's bit pattern, for comparisons that hold NaN."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def catalog_check(torch, batches, dev, codecs=MEMORY_CODECS) -> dict:
+    """Park `batches` (host copies as (leaves, tree) of ColumnarBatch
+    .flatten) on `dev` in a catalog of each codec, spill them all, and
+    hold torch.cuda.memory_allocated's fall to at least their device
+    bytes; read them back and hold every tensor bit for bit. The
+    session's catalog and budget are restored; the budget's use must come
+    back to where it was."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.memory.budget import MemoryBudget
+    from spark_rapids_tpu_torch.memory.catalog import (BufferCatalog,
+                                                       StorageTier)
+    from spark_rapids_tpu_torch.memory.spillable import \
+        SpillableColumnarBatch
+    out = {}
+    saved = BufferCatalog._instance
+    used0 = MemoryBudget.get().used
+    for codec in codecs:
+        cat = BufferCatalog(host_limit=1 << 40, spill_codec=codec)
+        BufferCatalog._instance = cat
+        try:
+            parked = [SpillableColumnarBatch(ColumnarBatch.unflatten(
+                tree, [t.to(dev) for t in leaves]))
+                for leaves, tree in batches]
+            nbytes = sum(p.size_bytes for p in parked)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            freed = cat.synchronous_spill(nbytes)
+            spill_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(dev)
+            host = cat.host_used
+            if freed != nbytes or any(cat.tier_of(p._handle) !=
+                                      StorageTier.HOST for p in parked):
+                raise AssertionError(f"catalog ({codec}) spilled {freed} of "
+                                     f"{nbytes} bytes")
+            if before - after < nbytes:
+                raise AssertionError(
+                    f"catalog ({codec}): memory_allocated fell by "
+                    f"{before - after}, under the {nbytes} bytes spilled")
+            t0 = time.perf_counter()
+            back = [p.get_batch() for p in parked]
+            torch.cuda.synchronize()
+            unspill_s = time.perf_counter() - t0
+            for b, (leaves, _) in zip(back, batches):
+                for x, y in zip(b.flatten()[0], leaves):
+                    if x.device != dev or not torch.equal(
+                            _bits(torch, x.cpu()), _bits(torch, y)):
+                        raise AssertionError(f"catalog ({codec}): a tensor "
+                                             "came back changed")
+            del back
+            for p in parked:
+                p.close()
+        finally:
+            BufferCatalog._instance = saved
+        if MemoryBudget.get().used != used0:
+            raise AssertionError(f"catalog ({codec}) left the budget at "
+                                 f"{MemoryBudget.get().used}, not {used0}")
+        out[codec] = {"device_bytes": nbytes, "host_bytes": host,
+                      "allocated_fall": before - after, "spill_s": spill_s,
+                      "unspill_s": unspill_s, "bit_identical": True}
+    return out
+
+
+def memory_collect(torch, q, counters, dev, budget=None, host_limit=None,
+                   inject=(0, 0)):
+    """One timed collect of DataFrame q: at the session's budget, or at
+    `budget` bytes with a host spill store of `host_limit` bytes and the
+    codec MEMORY_SPILL_CODEC (both restored after), with injection indexes
+    (retry_at, split_at). Returns
+    (the Arrow result, its record: wall, spill counts and bytes, retries
+    and splits, the peak budget use, the largest batch parked,
+    torch.cuda.max_memory_allocated and the kernels' launches)."""
+    from spark_rapids_tpu_torch.memory import catalog as C
+    from spark_rapids_tpu_torch.memory.budget import MemoryBudget
+    from spark_rapids_tpu_torch.utils.metrics import TaskMetrics
+    saved = MemoryBudget._instance, C.BufferCatalog._instance
+    parked, add = [0], C.BufferCatalog.add_batch
+
+    def add_batch(cat, batch, *args, **kw):
+        parked[0] = max(parked[0], batch.device_memory_size())
+        return add(cat, batch, *args, **kw)
+    if budget is not None:
+        MemoryBudget.initialize(budget, saved[0].conf)
+        C.BufferCatalog._instance = C.BufferCatalog(
+            host_limit=host_limit, spill_codec=MEMORY_SPILL_CODEC)
+    MemoryBudget.get().reset_injection(*inject)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    C.COUNTERS.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    C.BufferCatalog.add_batch = add_batch
+    t0 = time.perf_counter()
+    try:
+        out = q.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = MemoryBudget.get().peak_used
+        total = MemoryBudget.get().total
+    finally:
+        C.BufferCatalog.add_batch = add
+        MemoryBudget.get().reset_injection()
+        MemoryBudget._instance, C.BufferCatalog._instance = saved
+    tm = TaskMetrics.get()
+    return out, {
+        "wall_s": wall, "budget_bytes": total, "host_limit": host_limit,
+        "peak_budget_bytes": peak, "largest_parked_bytes": parked[0],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "spill": C.COUNTERS.snapshot(),
+        "spill_s": {"to_host": tm.spill_to_host_ns / 1e9,
+                    "to_disk": tm.spill_to_disk_ns / 1e9,
+                    "read": tm.read_spill_ns / 1e9},
+        "retries": tm.retry_count, "splits": tm.split_retry_count,
+        "launches": {k.__name__: k.launches for k in counters}}
+
+
+def _alloc_count_at(module, name: str):
+    """`module.<name>` wrapped to record the budget's reservation count at
+    each call; returns (the counts, a function restoring it)."""
+    from spark_rapids_tpu_torch.memory.budget import MemoryBudget
+    real, seen = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        seen.append(MemoryBudget.get()._alloc_count)
+        return real(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return seen, lambda: setattr(module, name, real)
+
+
+def memory_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
+                  joins: dict, fact, dim, conf=None, device=None,
+                  catalog_copies=MEMORY_CATALOG_COPIES):
+    """Phase memory, over the decimal star's and the joins' files and the
+    engine query's tables of the same run (no new data set). First the
+    catalog check (catalog_check over `catalog_copies` copies of `fact`,
+    each codec). Then each path at the session's budget and at a tight
+    one (MEMORY_BUDGET_SHARE of its own peak use there, at least the
+    largest batch it parked, a host store of MEMORY_HOST_LIMIT bytes and
+    the codec MEMORY_SPILL_CODEC): q51's running window on one device (its
+    16.76 M-group aggregate's pending partials and its in-core sort), the
+    out-of-core sort under the distributed plan, q97 on one device (the
+    sub-partition join, A on the fused date probe) and the distributed
+    engine query (A and C). Both results must be equal, exactly, with the
+    same launches; the aggregate, sort and join paths must spill to host
+    and to disk. Then at the session's budget: injectSplitAndRetryOOM at
+    the running window's in-core sort (it degrades to the out-of-core
+    merge) and at the engine query's single-batch complete aggregate (it
+    degrades to the merge passes), and injectRetryOOM at q97's first probe
+    step; each equal to the run without, with one split or retry. Prints
+    one line a query and one for the phase; returns the launches of the
+    tight runs (paths `memory` and `memory_distributed`)."""
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.exec import aggregate as AG
+    from spark_rapids_tpu_torch.exec import joins as J
+    from spark_rapids_tpu_torch.exec import sort as S
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    from spark_rapids_tpu_torch.memory.budget import MemoryBudget
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+    t_phase = time.monotonic()
+    lines = []
+
+    def session(*extra):
+        return TpuSession(dict(conf, **{k: v for e in extra
+                                        for k, v in e.items()}), dev)
+
+    m = ordered_namespace()
+    queries = {
+        "running_window": (ordered_queries(session(), m, dec["paths"])[
+            "running_window"], "one_device"),
+        "ooc_sort": (ordered_queries(session(mesh_conf), m, dec["paths"])[
+            "ooc_sort"], "distributed"),
+        "q97": (join_queries(session(JOINS_CONF), join_namespace(),
+                             joins["paths"])["q97"], "one_device"),
+        "engine_distributed": (main_query(session(mesh_conf), fact, dim),
+                               "distributed")}
+
+    host = batch_from_arrow(fact, dev).flatten()
+    host = ([t.cpu() for t in host[0]], host[1])
+    cat = catalog_check(torch, [host] * catalog_copies, dev)
+    del host
+    line = {"phase": "memory", "check": "catalog",
+            "session_budget_bytes": DeviceManager.budget_bytes,
+            "device_total_bytes": DeviceManager.hbm_total, "codecs": cat}
+    emit(line)
+    lines.append(line)
+
+    launches = {"memory": Counter(), "memory_distributed": Counter()}
+    probes = {}
+    for name, (q, plan) in queries.items():
+        S.COUNTERS.reset()
+        J.COUNTERS.reset()
+        MemoryBudget.get().reset_injection()
+        if name == "q97":
+            seen, undo = _alloc_count_at(J.TpuShuffledHashJoinExec,
+                                         "_probe_parts")
+        else:
+            seen, undo = [], (lambda: None)
+        try:
+            loose_out, loose = memory_collect(torch, q, counters, dev)
+        finally:
+            undo()
+        if seen:
+            probes[name] = seen[0] + 1  # the next reservation
+        loose["sorts"] = S.COUNTERS.snapshot()
+        loose["joins"] = J.COUNTERS.snapshot()
+        budget = max(int(MEMORY_BUDGET_SHARE * loose["peak_budget_bytes"]),
+                     loose["largest_parked_bytes"], 1)
+        S.COUNTERS.reset()
+        J.COUNTERS.reset()
+        out, tight = memory_collect(torch, q, counters, dev, budget=budget,
+                                    host_limit=MEMORY_HOST_LIMIT)
+        tight["sorts"] = S.COUNTERS.snapshot()
+        tight["joins"] = J.COUNTERS.snapshot()
+        if not out.equals(loose_out):
+            raise AssertionError(f"memory {name}: the tight budget's result "
+                                 "differs from the session budget's")
+        del out
+        if tight["launches"] != loose["launches"]:
+            raise AssertionError(f"memory {name}: launched {tight['launches']}"
+                                 f" tight, {loose['launches']} loose")
+        if name != "engine_distributed" and not (
+                tight["spill"]["to_host_bytes"] and
+                tight["spill"]["to_disk_bytes"]):
+            raise AssertionError(f"memory {name}: spilled {tight['spill']} "
+                                 f"at the tight budget: {tight}")
+        if loose["spill"]["to_host"] or loose["retries"] or loose["splits"]:
+            raise AssertionError(f"memory {name} spilled or retried at the "
+                                 f"session's budget: {loose}")
+        launches["memory" if plan == "one_device" else
+                 "memory_distributed"].update(tight["launches"])
+        line = {"phase": "memory", "query": name, "plan": plan,
+                "rows": loose_out.num_rows, "result": "equal",
+                "session_budget": loose, "tight_budget": tight}
+        emit(line)
+        lines.append(line)
+        # q97's result is held for its injected run below
+        queries[name] = (q, plan, loose_out if name == "q97" else None)
+        del loose_out
+
+    # injected OOMs at the session's budget, each at the reservation a run
+    # without counted (the reservations are the same each run there). The
+    # window sorts inside its own exec, so the in-core sort of the running
+    # window's 16.76 M rows is their sort on one device: one batch
+    q = ordered_queries(session(), m, dec["paths"])["ooc_sort"]
+    seen, undo = _alloc_count_at(S, "with_retry_no_split_spillable")
+    try:
+        want, loose = memory_collect(torch, q, counters, dev)
+    finally:
+        undo()
+    S.COUNTERS.reset()
+    out, rec = memory_collect(torch, q, counters, dev,
+                              inject=(0, seen[0] + 1))
+    rec["sorts"] = S.COUNTERS.snapshot()
+    if not out.equals(want) or (rec["retries"], rec["splits"]) != (0, 1) \
+            or (rec["sorts"]["in_core"], rec["sorts"]["out_of_core"]) != \
+            (0, 1):
+        raise AssertionError(f"memory: the injected split of the in-core "
+                             f"sort gave {rec}")
+    inject = {"in_core_sort_split": dict(rec, at=seen[0] + 1,
+                                         rows=want.num_rows,
+                                         session_budget=loose)}
+    del want, out
+    q, _, want = queries["q97"]
+    out, rec = memory_collect(torch, q, counters, dev,
+                              inject=(probes["q97"], 0))
+    if not out.equals(want) or (rec["retries"], rec["splits"]) != (1, 0):
+        raise AssertionError(f"memory: the injected retry of q97's probe "
+                             f"gave {rec}")
+    inject["q97_probe_retry"] = dict(rec, at=probes["q97"])
+    q = main_query(session(ONE_BATCH), fact, dim)
+    want, loose = memory_collect(torch, q, counters, dev)
+    merges, undo = _alloc_count_at(AG.TpuHashAggregateExec, "_multi_batch")
+    try:
+        out, rec = memory_collect(torch, q, counters, dev, inject=(0, 1))
+    finally:
+        undo()
+    if not out.equals(want) or (rec["retries"], rec["splits"]) != (0, 1) \
+            or len(merges) != 1 or rec["launches"] != loose["launches"]:
+        raise AssertionError(f"memory: the injected split of the engine "
+                             f"query's aggregate gave {rec}, merge passes "
+                             f"{len(merges)}")
+    inject["engine_aggregate_split"] = dict(rec, at=1, merge_passes=1,
+                                            session_budget=loose)
+    launches = {p: {k.__name__: n[k.__name__] for k in counters}
+                for p, n in launches.items()}
+    if launches["memory"]["murmur3_rows"] == 0 or 0 in (
+            launches["memory_distributed"]["murmur3_rows"],
+            launches["memory_distributed"]["segment_sum_i64"]):
+        raise AssertionError(f"the memory paths launched {launches}")
+    line = {"phase": "memory", "injected": inject,
+            "launches_per_path_run": launches,
+            "seconds": time.monotonic() - t_phase}
+    emit(line)
+    lines.append(line)
+    return lines, launches
+
+
 DATA_SETS = ("star", "decimal", "joins", "aggs")
 
 
@@ -3690,6 +4029,8 @@ def run_phases(torch, ready: dict) -> int:
     from spark_rapids_tpu_torch.exec.basic import TpuFilterExec, TpuScanExec
     from spark_rapids_tpu_torch.exec.joins import _probe_counts
     from spark_rapids_tpu_torch.expr import col
+    from spark_rapids_tpu_torch.memory import catalog as spills
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
     from spark_rapids_tpu_torch.ops import cuda_build
     from spark_rapids_tpu_torch.ops.pallas_probe import (
         candidate_counts, murmur3_rows, murmur3_rows_plain)
@@ -3705,6 +4046,7 @@ def run_phases(torch, ready: dict) -> int:
 
     # ---- 0. build every kernel of the path from the checkout's sources
     t0 = time.monotonic()
+    spills.COUNTERS.reset()  # no phase before `memory` may spill
     logs = cuda_build.build()
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "compiled": sorted(logs), "sources": list(cuda_build.SOURCES)})
@@ -4120,7 +4462,24 @@ def run_phases(torch, ready: dict) -> int:
     _, ansi_launches = ansi_phases(torch, pa, mesh_conf, kernels3,
                                    dec=dec_files, joins=join_data,
                                    aggs=agg_data)
-    del join_data, agg_data, dec_files
+    del agg_data
+
+    # ---- memory: at the session's budget no phase above spilled; the
+    # catalog with each codec on 1 GiB, then the running window, the
+    # out-of-core sort, q97 and the distributed engine query at tight
+    # budgets (host and disk spills), and injected OOMs
+    earlier = spills.COUNTERS.snapshot()
+    if earlier["to_host"] or earlier["unspills"]:
+        raise AssertionError(f"the phases before memory spilled at the "
+                             f"session's budget: {earlier}")
+    emit({"phase": "memory", "check": "session_budget",
+          "budget_bytes": DeviceManager.budget_bytes,
+          "device_total_bytes": DeviceManager.hbm_total,
+          "nvidia_smi": smi, "spills_before": earlier})
+    _, memory_launches = memory_phases(torch, pa, mesh_conf, kernels3,
+                                       dec=dec_files, joins=join_data,
+                                       fact=fact, dim=dim)
+    del join_data, dec_files
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -4183,7 +4542,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in join_launches.items()},
                     **{p: n[name] for p, n in agg_launches.items()},
                     **{p: n[name] for p, n in files_launches.items()},
-                    **{p: n[name] for p, n in ansi_launches.items()})
+                    **{p: n[name] for p, n in ansi_launches.items()},
+                    **{p: n[name] for p, n in memory_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

@@ -88,6 +88,42 @@ class ColumnarBatch:
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.num_rows
 
+    def device_memory_size(self) -> int:
+        """Bytes of the columns' buffers (data, validity, lengths), the
+        JAX package's count: the row-count scalar is not counted."""
+        return sum(t.numel() * t.element_size()
+                   for c in self.columns for t in c.leaves())
+
+    def flatten(self) -> Tuple[List[torch.Tensor], tuple]:
+        """(every tensor of the batch, a tree to rebuild it from them):
+        each column's leaves in order, then the row-count scalar. The
+        counterpart of jax.tree_util.tree_flatten over the JAX batch."""
+        leaves = [t for c in self.columns for t in c.leaves()]
+        leaves.append(self.num_rows)
+        tree = (self.schema, tuple((c.dtype, len(c.leaves()))
+                                   for c in self.columns))
+        return leaves, tree
+
+    @staticmethod
+    def unflatten(tree: tuple, leaves: Sequence[torch.Tensor]
+                  ) -> "ColumnarBatch":
+        """The batch that `flatten` gave `tree` and `leaves` for."""
+        schema, cols = tree
+        out, at = [], 0
+        for dtype, k in cols:
+            out.append(Column(dtype, *leaves[at:at + k]))
+            at += k
+        return ColumnarBatch(schema, tuple(out), leaves[at])
+
+    def owned(self, cap: Optional[int] = None) -> "ColumnarBatch":
+        """The first `cap` rows (all of them by default; the caller keeps
+        cap >= the row count) in buffers of their own: a slice of shared
+        storage would keep the whole storage alive after a spill."""
+        cap = self.capacity if cap is None else cap
+        return ColumnarBatch(self.schema, tuple(
+            Column(c.dtype, *[t[:cap].clone() for t in c.leaves()])
+            for c in self.columns), self.num_rows)
+
     def repadded(self, new_cap: int) -> "ColumnarBatch":
         """The same rows at capacity `new_cap`: zero padding appended, or
         the padding tail cut (the caller keeps new_cap >= the row count)."""

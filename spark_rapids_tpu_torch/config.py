@@ -10,11 +10,32 @@ package applies them. Unregistered keys pass through raw.
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional, Sequence
 
-__all__ = ["ConfEntry", "TpuConf", "register", "get_default_conf"]
+__all__ = ["ConfEntry", "TpuConf", "register", "get_default_conf",
+           "parse_bytes"]
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
+
+_SIZE_RE = re.compile(r"^(\d+(?:\.\d+)?)\s*([kmgt]?i?b?)$", re.IGNORECASE)
+_SIZE_MULT = {
+    "": 1, "b": 1,
+    "k": 1 << 10, "kb": 1 << 10, "kib": 1 << 10,
+    "m": 1 << 20, "mb": 1 << 20, "mib": 1 << 20,
+    "g": 1 << 30, "gb": 1 << 30, "gib": 1 << 30,
+    "t": 1 << 40, "tb": 1 << 40, "tib": 1 << 40,
+}
+
+
+def parse_bytes(v) -> int:
+    """A byte size: an int, or a string such as '64m' or '1.5GiB'."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    m = _SIZE_RE.match(str(v).strip())
+    if not m:
+        raise ValueError(f"cannot parse byte size: {v!r}")
+    return int(float(m.group(1)) * _SIZE_MULT[m.group(2).lower()])
 
 
 def _convert(value: Any, typ: str) -> Any:
@@ -26,6 +47,8 @@ def _convert(value: Any, typ: str) -> Any:
         return int(value)
     if typ == "double":
         return float(value)
+    if typ == "bytes":
+        return parse_bytes(value)
     return str(value)
 
 
@@ -158,6 +181,55 @@ register("spark.rapids.sql.topK.threshold", "int", 10000,
          "batch device-resident and re-sorts ~2k rows per input batch, "
          "losing the out-of-core sort's spill behavior at large k.")
 
+register("spark.rapids.sql.concurrentGpuTasks", "int", 2,
+         "Number of tasks admitted concurrently to the device "
+         "(memory/semaphore.py, the GpuSemaphore analog).")
+register("spark.rapids.sql.test.injectRetryOOM", "int", 0,
+         "Fault injection: force a RetryOOM on the Nth tracked device "
+         "reservation (reference RapidsConf.scala:1250).")
+register("spark.rapids.sql.test.injectSplitAndRetryOOM", "int", 0,
+         "Fault injection: force a SplitAndRetryOOM on the Nth tracked "
+         "reservation.")
+register("spark.rapids.memory.gpu.allocFraction", "double", 0.9,
+         "Fraction of the device's memory given to the budget of columnar "
+         "data (reference GpuDeviceManager.computeRmmPoolSize).")
+register("spark.rapids.memory.gpu.minAllocFraction", "double", 0.25,
+         "Minimum fraction of the device's memory; startup fails below it.")
+register("spark.rapids.memory.gpu.maxAllocFraction", "double", 1.0,
+         "Maximum fraction of the device's memory allowed.")
+register("spark.rapids.memory.gpu.reserve", "bytes", 640 << 20,
+         "Device memory held back from the budget (allocator scratch and "
+         "fragmentation).")
+register("spark.rapids.memory.gpu.oomDumpDir", "string", "",
+         "If set, the budget writes the spill catalog's state to this "
+         "directory on an unrecoverable OOM.")
+register("spark.rapids.memory.spill.compression.codec", "string", "zstd",
+         "Codec of device batches spilled to host (TableCompressionCodec "
+         "analog): none, zstd (pyarrow) or lz4xla (native/src/lz4block.cpp). "
+         "Host accounting uses the compressed size.",
+         check_values=("none", "zstd", "lz4xla"))
+register("spark.rapids.memory.host.spillStorageSize", "bytes", 1 << 30,
+         "Host-memory spill store capacity before overflowing to disk.")
+register("spark.rapids.tpu.device.ordinal", "int", -1,
+         "Which local CUDA device a session without a device binds "
+         "(-1 = the first).")
+register("spark.rapids.tpu.device.startupTimeoutSec", "double", 60.0,
+         "Deadline (seconds) of the first device touch (CUDA init and the "
+         "device count); a hung runtime raises DeviceStartupError with "
+         "diagnostics instead of blocking the query. <= 0 disables the "
+         "guard.")
+register("spark.rapids.tpu.sched.enabled", "bool", False,
+         "The JAX package's query scheduler (sched/): not in "
+         "spark_rapids_tpu_torch yet, so true raises at plan time.")
+register("spark.rapids.tpu.sched.tenant.quotas", "string", "",
+         "Per-tenant device-memory sub-quotas (sched/): not in "
+         "spark_rapids_tpu_torch yet, so a non-empty value raises at plan "
+         "time.")
+register("spark.rapids.tpu.mesh.hbmPerChip", "bytes", 0,
+         "Per-chip memory sub-budgets of the sharded plan (mesh/): not in "
+         "spark_rapids_tpu_torch yet, so a value above 0 raises at plan "
+         "time.")
+
 
 class TpuConf:
     """Instance view over a settings dict, with typed accessors."""
@@ -193,6 +265,10 @@ class TpuConf:
     @property
     def batch_size_rows(self) -> int:
         return self.get("spark.rapids.sql.batchSizeRows")
+
+    @property
+    def concurrent_tpu_tasks(self) -> int:
+        return self.get("spark.rapids.sql.concurrentGpuTasks")
 
 
 _default_conf: Optional[TpuConf] = None

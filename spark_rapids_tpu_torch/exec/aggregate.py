@@ -3,7 +3,15 @@
 Grouping is sort-by-keys + boundary detection + segmented reductions. One
 input batch aggregates in one pass; several are aggregated per batch into
 partial buffers, merged pairwise, and finalised, which is the JAX engine's
-merge-pass structure (without its spill and OOM-retry machinery). Every
+merge-pass structure, with its memory seams: one batch runs under
+`with_retry_no_split_spillable` and goes to the merge passes on
+SplitAndRetryOOM; the first pass runs under `with_retry` with
+`split_batch_halves`, the pending partials wait parked spillable, and each
+pairwise merge reserves the pair's bytes. Two departures from the JAX
+exec: every parked input and pair is closed once its pass is done (the
+JAX merge passes leave them in the spill catalog), and merge passes that
+can no longer shrink the pending partials (each pair split under the
+budget) raise SplitAndRetryOOM where the JAX loop runs forever. Every
 aggregate of the JAX `_agg_one` is carried: Sum, Count, Min, Max, Average,
 First/Last, the variance family, CountIf, BoolAnd/BoolOr, the bit
 aggregates and Skewness/Kurtosis; the single-pass ones (CollectList,
@@ -55,8 +63,13 @@ from ..expr.aggregates import (AggregateFunction, Average, BoolAnd, BoolOr,
                                Count, CountIf, First, Last, Max, Min,
                                Skewness, Sum, _BitAgg, _MomentFamily,
                                _VarianceFamily)
+from ..errors import SplitAndRetryOOM
 from ..expr.base import (EvalContext, Expression, Vec, ansi_raise,
                          bind_references, output_name)
+from ..memory.budget import MemoryBudget
+from ..memory.retry import (split_batch_halves, with_retry,
+                            with_retry_no_split_spillable)
+from ..memory.spillable import SpillableColumnarBatch
 from ..ops.rowops import (compact_vecs, gather_vecs, group_ids_from_sorted,
                           lexsort_indices, segment_reduce, segment_sum,
                           sort_keys_for)
@@ -389,20 +402,83 @@ class TpuHashAggregateExec(UnaryTpuExec):
                 yield self._checked(self.aggregate(b, input_partial=True))
             return
         if len(batches) == 1:
-            yield self._checked(self.aggregate(batches[0]))
+            try:
+                out = with_retry_no_split_spillable(
+                    batches[0], lambda b: self._checked(self.aggregate(b)))
+            except SplitAndRetryOOM:
+                # one batch too big for a single pass: the merge passes
+                # split it
+                yield self._multi_batch(batches)
+                return
+            yield out
             return
-        errors = []
+        yield self._multi_batch(batches)
 
-        def run(batch, **modes):
-            out, errs = self.aggregate(batch, **modes)
-            errors.extend(errs)
+    def _multi_batch(self, batches: List[ColumnarBatch]) -> ColumnarBatch:
+        """Each batch into partial buffers (split under pressure), parked
+        spillable, merged pairwise under the retry seam, then finalised
+        (GpuHashAggregateIterator's merge passes). The ANSI flags of every
+        pass are read once, in pass order, at the end."""
+        errors = []
+        pending: List[SpillableColumnarBatch] = []
+
+        def first_pass(sp: SpillableColumnarBatch):
+            b = sp.get_batch()
+            MemoryBudget.get().reserve(0)  # pre-flight / injection point
+            out = self.aggregate(b, output_partial=True)
+            del b
+            sp.close()
             return out
 
-        pending = [run(b, output_partial=True) for b in batches]
-        while len(pending) > 1:
-            pair = concat_batches([pending.pop(0), pending.pop(0)])
-            pending.append(run(pair, input_partial=True, output_partial=True))
-        yield self._checked((run(pending[0], input_partial=True), errors))
+        def merge_pair(sp: SpillableColumnarBatch):
+            b = sp.get_batch()
+            nbytes = b.device_memory_size()
+            MemoryBudget.get().reserve(nbytes)
+            try:
+                out = self.aggregate(b, input_partial=True,
+                                     output_partial=True)
+            finally:
+                MemoryBudget.get().release(nbytes)
+            del b
+            sp.close()
+            return out
+
+        def passes(sp, fn):
+            for out, errs in with_retry(sp, fn, split_batch_halves):
+                errors.extend(errs)
+                pending.append(SpillableColumnarBatch(out))
+
+        try:
+            while batches:
+                passes(SpillableColumnarBatch(batches.pop(0)), first_pass)
+            stalled = 0
+            while len(pending) > 1:
+                before = len(pending)
+                a, c = pending.pop(0), pending.pop(0)
+                try:
+                    sp = SpillableColumnarBatch(concat_batches(
+                        [a.get_batch(), c.get_batch()]))
+                finally:
+                    a.close()
+                    c.close()
+                passes(sp, merge_pair)
+                # a merge split into halves leaves as many partials as it
+                # took; once every partial has been through such a merge
+                # the passes cannot finish under this budget (the JAX
+                # loop would run forever)
+                stalled = stalled + 1 if len(pending) >= before else 0
+                if stalled > len(pending):
+                    raise SplitAndRetryOOM(
+                        "the aggregate's merge passes cannot shrink its "
+                        f"{len(pending)} partial batches under the budget")
+            last = pending.pop()
+            result = last.get_batch()
+            last.close()
+        finally:
+            for sp in pending:
+                sp.close()
+        out, errs = self.aggregate(result, input_partial=True)
+        return self._checked((out, errors + errs))
 
     @staticmethod
     def _checked(result) -> ColumnarBatch:

@@ -7,7 +7,8 @@ few host syncs (join capacities) the engine pays on purpose.
 
 `PrefetchIterator` / `maybe_prefetch` run a file scan's decode one or two
 batches ahead of its consumer on a background thread (the scan seam of the
-JAX package's pipelined execution).
+JAX package's pipelined execution). Each prefetched batch waits parked as a
+`SpillableColumnarBatch`, so the budget sees it and may spill it.
 
 ANSI errors (JAX `kernel_errors`/`raise_kernel_errors`): the expressions
 append a device flag and a message for each check (expr/base.py
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -172,12 +174,19 @@ class PrefetchIterator:
     thread, so the host half of the next batch's decode (page walks, packing,
     the copy) overlaps the consumer's device work.
 
-      * At most `depth` batches wait in the queue.
+      * At most `depth` batches wait in the queue, each parked as a
+        SpillableColumnarBatch: the budget sees them (note_parked), and a
+        tight one spills them to the host instead of letting the pipeline
+        hold device memory unseen.
+      * The producer works for the consumer's task: it adopts the task's
+        TaskMetrics and its admission hold (adopt_task_hold), taking no
+        permit of its own, and the consumer takes each parked batch back
+        without one (`get_batch(acquire_semaphore=False)`).
       * Every exception the producer raises reaches the consumer with its
         own type, and the producer thread always ends.
       * A consumer that stops early (an error downstream, a closed
-        generator) stops the producer, drains the queue and joins the
-        thread.
+        generator) stops the producer, closes every parked batch and joins
+        the thread.
       * The producer builds its tensors on the device the scan names; the
         thread's current CUDA device plays no part.
     """
@@ -186,19 +195,32 @@ class PrefetchIterator:
 
     def __init__(self, inner: Iterator[ColumnarBatch], depth: int,
                  name: str = "prefetch"):
+        from ..memory.semaphore import TpuSemaphore
+        from ..utils.metrics import TaskMetrics
         self._inner = inner
         self._name = name
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
+        self._tm = TaskMetrics.get()  # the consumer's (task's) metrics
+        self._sem = TpuSemaphore.get()
+        self._tm.prefetch_threads += 1
         self._thread = threading.Thread(target=self._produce,
                                         name=f"srtpu-{name}", daemon=True)
         self._thread.start()
 
     def _produce(self) -> None:
+        from ..memory.spillable import SpillableColumnarBatch
+        from ..utils.metrics import TaskMetrics
+        TaskMetrics.adopt(self._tm)
+        self._sem.adopt_task_hold()  # ride the task's admission permit
         try:
             for batch in self._inner:
-                if not self._put(batch):
-                    return  # the consumer is gone
+                item = SpillableColumnarBatch(batch)
+                del batch
+                self._tm.prefetch_batches += 1
+                if not self._put(item):
+                    item.close()  # the consumer is gone
+                    return
             self._put(_END)
         except BaseException as e:  # noqa: BLE001 -- crosses the queue
             self._put(_Failure(e))
@@ -210,6 +232,9 @@ class PrefetchIterator:
             close = getattr(self._inner, "close", None)
             if close is not None:
                 close()
+            # unwind this thread's counts; the adopted permit stays the
+            # consumer's
+            self._sem.complete_task()
 
     def _put(self, item) -> bool:
         """A put that gives up once the consumer has stopped."""
@@ -238,25 +263,33 @@ class PrefetchIterator:
     def __iter__(self) -> Iterator[ColumnarBatch]:
         try:
             while True:
+                t0 = time.monotonic_ns()
                 item = self._get()
+                self._tm.prefetch_stall_ns += time.monotonic_ns() - t0
                 if item is _END:
                     return
                 if isinstance(item, _Failure):
                     raise item.exc
-                yield item
+                try:
+                    batch = item.get_batch(acquire_semaphore=False)
+                finally:
+                    item.close()
+                yield batch
         finally:
             self.close()
 
     def close(self) -> None:
-        """Stop the producer, drop what it parked, and join it; drain once
+        """Stop the producer, close what it parked, and join it; drain once
         more after the join for an item put while the first drain ran."""
         self._stop.set()
         for _ in range(2):
             while True:
                 try:
-                    self._q.get_nowait()
+                    item = self._q.get_nowait()
                 except queue.Empty:
                     break
+                if item is not _END and not isinstance(item, _Failure):
+                    item.close()
             self._thread.join(timeout=10.0)
 
 

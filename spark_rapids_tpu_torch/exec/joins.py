@@ -22,9 +22,17 @@ A build side (or a build shard) of more than
 `spark.rapids.sql.join.subPartition.rows` rows hash-splits into P
 key-aligned sub-partitions that join pairwise. Keyless joins (cross joins
 and pure-condition joins of every type) run in `TpuNestedLoopJoinExec` as
-bounded all-pairs tiles. The JAX engine runs both under its memory seams
-(spillable batches, OOM retry); those are not ported yet, so the calls here
-are direct.
+bounded all-pairs tiles.
+
+Memory seams, as in the JAX engine: the hash join's build side (whole, or
+its sub-partitions) waits parked as a `SpillableColumnarBatch` between
+probe batches, and each probe batch joins under `with_retry` with
+`split_batch_halves`; the zipped sub-partition join parks every probe and
+build part; the nested-loop join parks its build chunks. Two departures:
+each probe batch's retried step starts with a pre-flight `reserve(0)` (the
+sort's and the aggregate's injection point; the JAX join step has none),
+and the streamed sub-partition join runs its probe batches under the same
+retry (the JAX one calls them directly).
 
 Keys: the int and long families (boolean, byte, short, int, date, long,
 timestamp, decimal of up to 18 digits), float, double and string. Floats
@@ -54,6 +62,9 @@ from ..expr.base import BoundReference, EvalContext, Expression, Vec, \
     bind_references
 from ..expr.hashing import hash_vecs
 from ..expr.predicates import string_equal
+from ..memory.budget import MemoryBudget
+from ..memory.retry import split_batch_halves, with_retry
+from ..memory.spillable import SpillableColumnarBatch
 from ..ops.rowops import compact_vecs, gather_vecs
 from .base import (Counters, TpuExec, batch_vecs, check_errors,
                    vecs_to_batch)
@@ -334,10 +345,14 @@ class TpuShuffledHashJoinExec(TpuExec):
         if self.dpp_filters:
             self._fill_dpp_filters(build)
         threshold = self.conf.get("spark.rapids.sql.join.subPartition.rows")
-        if build.row_count() > threshold:
-            yield from self._streamed_sub_partition(build, threshold)
+        # hand the build over: the callee parks it and holds the only
+        # reference, so a spill frees it
+        held = [build]
+        del build
+        if held[0].row_count() > threshold:
+            yield from self._streamed_sub_partition(held.pop(), threshold)
         else:
-            yield from self._streamed_join(build)
+            yield from self._streamed_join(held.pop())
 
     def _fill_dpp_filters(self, build: ColumnarBatch) -> None:
         """The build side's key values (nulls dropped) into each filter: one
@@ -354,49 +369,87 @@ class TpuShuffledHashJoinExec(TpuExec):
             if probe.row_count() > 0:
                 yield probe
 
+    def _probe_parts(self, probe: ColumnarBatch, run
+                     ) -> Iterator[tuple]:
+        """`run(probe)`'s results for one probe batch, under the retry seam:
+        the batch parked, a pre-flight reserve, halves on
+        SplitAndRetryOOM."""
+        def step(sp):
+            MemoryBudget.get().reserve(0)  # pre-flight / injection point
+            out = run(sp.get_batch())
+            sp.close()
+            return out
+
+        sp = SpillableColumnarBatch(probe)
+        del probe
+        try:
+            yield from with_retry(sp, step, split_batch_halves)
+        finally:
+            sp.close()  # a no-op when step() closed it
+
     def _streamed_join(self, build: ColumnarBatch
                        ) -> Iterator[ColumnarBatch]:
-        """Each probe batch against the whole build table; right and full
-        joins emit the build rows no batch matched after the stream."""
+        """Each probe batch against the whole build table, which waits
+        parked between them; right and full joins emit the build rows no
+        batch matched after the stream."""
+        sp_build = SpillableColumnarBatch(build)
+        del build
         bmatched = None
-        for probe in self._probe_stream():
-            out, n, bm = self._join_pair_core(probe, build)
-            if bm is not None:
-                bmatched = bm if bmatched is None else (bmatched | bm)
-            if n > 0:
-                yield out
-        if self.join_type in _BUILD_OUTER:
-            extra = self._unmatched_batch(build, bmatched)
-            if extra is not None:
-                yield extra
+        try:
+            for probe in self._probe_stream():
+                for out, n, bm in self._probe_parts(
+                        probe, lambda p: self._join_pair_core(
+                            p, sp_build.get_batch())):
+                    if bm is not None:
+                        bmatched = bm if bmatched is None else (bmatched | bm)
+                    if n > 0:
+                        yield out
+            if self.join_type in _BUILD_OUTER:
+                extra = self._unmatched_batch(sp_build.get_batch(), bmatched)
+                if extra is not None:
+                    yield extra
+        finally:
+            sp_build.close()
 
     def _streamed_sub_partition(self, build: ColumnarBatch, threshold: int
                                 ) -> Iterator[ColumnarBatch]:
         """An oversized build side with a streamed probe: the build splits
-        once into P key-aligned sub-partitions, each probe batch the same
-        way, and part joins part. Matching keys share a part, so the part
-        joins compose exactly; right/full matched flags accumulate per part
-        across the whole probe stream."""
+        once into P key-aligned sub-partitions, parked, each probe batch the
+        same way, and part joins part. Matching keys share a part, so the
+        part joins compose exactly; right/full matched flags accumulate per
+        part across the whole probe stream."""
         p = _sub_partitions(build.row_count(), threshold)
         COUNTERS.add(sub_partition_builds=1)
-        build_parts = _hash_split(build, self._rk_ix, p)
+        build_parts = [SpillableColumnarBatch(bb)
+                       for bb in _hash_split(build, self._rk_ix, p)]
+        del build
         bmatched = [None] * p
-        for probe in self._probe_stream():
-            for i, pp in enumerate(_hash_split(probe, self._lk_ix, p)):
-                if pp.row_count() == 0:
-                    continue  # unmatched build rows surface at the end
-                COUNTERS.add(sub_partition_pairs=1)
-                out, n, bm = self._join_pair_core(pp, build_parts[i])
-                if bm is not None:
-                    bmatched[i] = bm if bmatched[i] is None \
-                        else (bmatched[i] | bm)
-                if n > 0:
-                    yield out
-        if self.join_type in _BUILD_OUTER:
-            for part, bm in zip(build_parts, bmatched):
-                extra = self._unmatched_batch(part, bm)
-                if extra is not None:
-                    yield extra
+
+        def join_parts(probe):
+            # unmatched build rows surface at the end, so empty parts skip
+            return [(i,) + self._join_pair_core(
+                        pp, build_parts[i].get_batch())
+                    for i, pp in enumerate(_hash_split(probe, self._lk_ix, p))
+                    if pp.row_count() > 0]
+
+        try:
+            for probe in self._probe_stream():
+                for results in self._probe_parts(probe, join_parts):
+                    for i, out, n, bm in results:
+                        COUNTERS.add(sub_partition_pairs=1)
+                        if bm is not None:
+                            bmatched[i] = bm if bmatched[i] is None \
+                                else (bmatched[i] | bm)
+                        if n > 0:
+                            yield out
+            if self.join_type in _BUILD_OUTER:
+                for part, bm in zip(build_parts, bmatched):
+                    extra = self._unmatched_batch(part.get_batch(), bm)
+                    if extra is not None:
+                        yield extra
+        finally:
+            for sp in build_parts:
+                sp.close()
 
     def _zipped_execute(self) -> Iterator[ColumnarBatch]:
         """Co-partitioned per-shard join: matching keys land in the same
@@ -464,12 +517,23 @@ class TpuShuffledHashJoinExec(TpuExec):
         too, since each is decided per key)."""
         p = _sub_partitions(build.row_count(), threshold)
         COUNTERS.add(sub_partition_builds=1)
-        for pb, bb in zip(_hash_split(probe, self._lk_ix, p),
-                          _hash_split(build, self._rk_ix, p)):
-            if pb.row_count() == 0 and bb.row_count() == 0:
-                continue
-            COUNTERS.add(sub_partition_pairs=1)
-            yield from self._join_pair(pb, bb)
+        pairs = [(SpillableColumnarBatch(pb), SpillableColumnarBatch(bb))
+                 for pb, bb in zip(_hash_split(probe, self._lk_ix, p),
+                                   _hash_split(build, self._rk_ix, p))]
+        del probe, build
+        try:
+            for sp_probe, sp_build in pairs:
+                pb, bb = sp_probe.get_batch(), sp_build.get_batch()
+                if pb.row_count() or bb.row_count():
+                    COUNTERS.add(sub_partition_pairs=1)
+                    yield from self._join_pair(pb, bb)
+                del pb, bb
+                sp_probe.close()
+                sp_build.close()
+        finally:
+            for sp_probe, sp_build in pairs:
+                sp_probe.close()
+                sp_build.close()
 
     def _unmatched_batch(self, build: ColumnarBatch, bmatched):
         """Right/full: the build rows never matched, left columns null;
@@ -575,8 +639,19 @@ class TpuNestedLoopJoinExec(TpuExec):
             return
         build = concat_batches(batches) if batches else \
             empty_batch(self.children[1].output, self.device, 1)
-        chunks = self._slice_build(build)
+        # each chunk owns its rows (a slice would pin the whole build), so
+        # a spilled chunk frees its memory
+        chunks = [SpillableColumnarBatch(c.owned())
+                  for c in self._slice_build(build)]
         del build, batches
+        try:
+            yield from self._probe_chunks(chunks)
+        finally:
+            for sp in chunks:
+                sp.close()
+
+    def _probe_chunks(self, chunks: List[SpillableColumnarBatch]
+                      ) -> Iterator[ColumnarBatch]:
         bmatched = [None] * len(chunks)
         jt, pt = self.join_type, self.PROBE_TILE_ROWS
         ansi = self.conf.is_ansi
@@ -592,7 +667,8 @@ class TpuNestedLoopJoinExec(TpuExec):
                  for lo in range(0, n_whole, pt)]
             for probe in tiles:
                 pmatched = None
-                for ci, bchunk in enumerate(chunks):
+                for ci, sp in enumerate(chunks):
+                    bchunk = sp.get_batch()
                     COUNTERS.add(nested_loop_tiles=1)
                     m, pm, bm, errors = _nl_matched(probe, bchunk,
                                                     self._bcond, ansi)
@@ -609,8 +685,8 @@ class TpuNestedLoopJoinExec(TpuExec):
                             probe, bchunk, m, n), n)
                 yield from self._emit_probe_tail(probe, pmatched)
         if jt in _BUILD_OUTER:
-            for bchunk, bm in zip(chunks, bmatched):
-                extra = self._unmatched_chunk(bchunk, bm)
+            for sp, bm in zip(chunks, bmatched):
+                extra = self._unmatched_chunk(sp.get_batch(), bm)
                 if extra is not None:
                     yield extra
 

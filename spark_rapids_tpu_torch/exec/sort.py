@@ -14,10 +14,16 @@
     ordering them by their position in the chunk (the `__pos__` column
     of the JAX exec). Payloads never leave the device.
 
-The JAX exec parks the runs in its spill catalog and sorts each under the
-OOM-retry seam (`SpillableColumnarBatch`, `with_retry`). The memory seams
-are not ported yet, so the runs here are plain device batches and the
-calls are direct.
+The memory seams are the JAX exec's: the in-core sort runs under
+`with_retry_no_split_spillable` and degrades to the out-of-core merge on
+SplitAndRetryOOM; out of core, each batch sorts under `with_retry` with
+`split_batch_halves` (a split only makes more, smaller runs), its keys go
+to the host at once, and the run waits parked as a
+`SpillableColumnarBatch` through the merge and the chunk assembly, so a
+tight budget spills runs to the host and reads each back when a chunk
+needs it. Unlike the JAX exec, a run is parked cut to its live rows'
+bucket (a shard batch of the distributed plan has the capacity of the
+whole input), so its spills move live rows only.
 
 `COUNTERS` counts the in-core and out-of-core sorts since its last reset,
 and the host merge's seconds (the key copies and the lexsort).
@@ -33,7 +39,12 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, Schema
 from ..columnar.padding import row_bucket
+from ..errors import SplitAndRetryOOM
 from ..expr.base import Expression, bind_references
+from ..memory.budget import MemoryBudget
+from ..memory.retry import (split_batch_halves, with_retry,
+                            with_retry_no_split_spillable)
+from ..memory.spillable import SpillableColumnarBatch
 from ..ops.rowops import gather_vecs, lexsort_indices, sort_keys_for
 from .base import (Counters, TpuExec, UnaryTpuExec, batch_vecs, check_errors,
                    device_ctx, vecs_to_batch)
@@ -105,8 +116,20 @@ class TpuSortExec(UnaryTpuExec):
             COUNTERS.add(out_of_core=1)
             yield from self._out_of_core(batches)
             return
+        try:
+            # the merged copy is passed as a temporary: the spillable
+            # wrapper holds the only reference to it
+            out = with_retry_no_split_spillable(concat_batches(batches),
+                                                self._sorted)
+        except SplitAndRetryOOM:
+            # too big to sort in one pass: the out-of-core merge sorts
+            # sub-batches into runs and merges them, so a split degrades
+            # instead of failing
+            COUNTERS.add(out_of_core=1)
+            yield from self._out_of_core(batches)
+            return
         COUNTERS.add(in_core=1)
-        yield self._sorted(concat_batches(batches))
+        yield out
 
     # -- out-of-core merge path (GpuOutOfCoreSortIterator analog) ----------
     def _host_keys(self, run: ColumnarBatch) -> List[np.ndarray]:
@@ -121,48 +144,76 @@ class TpuSortExec(UnaryTpuExec):
 
     def _out_of_core(self, batches: List[ColumnarBatch]
                      ) -> Iterator[ColumnarBatch]:
-        # phase 1: device-sort each batch into a run; the runs' key errors
-        # are read once, in batch order, before the merge
-        runs, errors = [], []
-        for b in batches:
-            run, errs = self.sort_single_batch(b)
-            runs.append(run)
-            errors += errs
-        del batches
-        check_errors(errors)
-        # phase 2: host merge of the key streams (keys only; the payload
-        # stays on the device)
-        t0 = time.perf_counter()
-        host_keys = [self._host_keys(r) for r in runs]
-        run_id = np.concatenate([np.full(len(k[0]), i, np.int32)
-                                 for i, k in enumerate(host_keys)])
-        row_id = np.concatenate([np.arange(len(k[0]), dtype=np.int32)
-                                 for k in host_keys])
-        merged = [np.concatenate([k[g] for k in host_keys])
-                  for g in range(len(host_keys[0]))]
-        del host_keys
-        order = _merge_order(merged, run_id, row_id)
-        del merged
-        COUNTERS.add(host_merge_s=time.perf_counter() - t0)
+        def run_sort(sp: SpillableColumnarBatch):
+            MemoryBudget.get().reserve(0)  # pre-flight / injection point
+            out = self.sort_single_batch(sp.get_batch())
+            sp.close()
+            return out
 
-        chunk_rows = self.conf.batch_size_rows
-        for at in range(0, len(order), chunk_rows):
-            yield self._assemble_chunk(runs, run_id, row_id,
-                                       order[at:at + chunk_rows])
+        # phase 1: device-sort each batch into a run under the retry seam
+        # (a split only makes more, smaller runs), copy its keys to the
+        # host, and park it; the runs' key errors are read once, in run
+        # order, before the merge
+        runs: List[SpillableColumnarBatch] = []
+        host_keys, errors, merge_s = [], [], 0.0
+        try:
+            while batches:
+                sp0 = SpillableColumnarBatch(batches.pop(0))
+                try:
+                    for run, errs in with_retry(sp0, run_sort,
+                                                split_batch_halves):
+                        errors += errs
+                        t0 = time.perf_counter()
+                        keys = self._host_keys(run)
+                        host_keys.append(keys)
+                        merge_s += time.perf_counter() - t0
+                        # a shard batch of the distributed plan has the
+                        # whole input's capacity: park the live rows only
+                        cap = row_bucket(max(len(keys[0]), 1))
+                        runs.append(SpillableColumnarBatch(
+                            run.owned(cap) if cap < run.capacity else run))
+                        del run
+                finally:
+                    sp0.close()  # a no-op when run_sort closed it
+            check_errors(errors)
+            # phase 2: host merge of the key streams (keys only; the
+            # payload stays in the catalog)
+            t0 = time.perf_counter()
+            run_id = np.concatenate([np.full(len(k[0]), i, np.int32)
+                                     for i, k in enumerate(host_keys)])
+            row_id = np.concatenate([np.arange(len(k[0]), dtype=np.int32)
+                                     for k in host_keys])
+            merged = [np.concatenate([k[g] for k in host_keys])
+                      for g in range(len(host_keys[0]))]
+            del host_keys
+            order = _merge_order(merged, run_id, row_id)
+            del merged
+            COUNTERS.add(host_merge_s=merge_s + time.perf_counter() - t0)
+
+            chunk_rows = self.conf.batch_size_rows
+            for at in range(0, len(order), chunk_rows):
+                yield self._assemble_chunk(runs, run_id, row_id,
+                                           order[at:at + chunk_rows])
+        finally:
+            for r in runs:
+                r.close()
 
     def _assemble_chunk(self, runs, run_id, row_id, chunk) -> ColumnarBatch:
-        """Gather the chunk's rows from each run, then order them by their
-        position in the chunk."""
+        """Gather the chunk's rows from each run (read back if it spilled),
+        then order them by their position in the chunk."""
         rid, rows = run_id[chunk], row_id[chunk]
         pieces, where = [], []
         for i, run in enumerate(runs):
             sel = np.flatnonzero(rid == i)
             if not len(sel):
                 continue
-            idx = torch.from_numpy(rows[sel].astype(np.int64)).to(run.device)
-            pieces.append(vecs_to_batch(run.schema, gather_vecs(
-                batch_vecs(run), idx), len(sel)))
+            batch = run.get_batch()
+            idx = torch.from_numpy(rows[sel].astype(np.int64)).to(
+                batch.device)
+            pieces.append(vecs_to_batch(batch.schema, gather_vecs(
+                batch_vecs(batch), idx), len(sel)))
             where.append(sel)
+            del batch
         merged = concat_batches(pieces)
         # merged row j sits at position pos[j] of the chunk: sorting by the
         # position is the inverse permutation

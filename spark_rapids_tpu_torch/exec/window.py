@@ -19,6 +19,10 @@ Sort + flat segmented scans over one batch, as in the JAX exec:
     partition, `_search_value_range`), then take prefix-sum differences for
     sum/count/avg and a sparse table for min/max (`_range_minmax`).
 
+The window runs under `with_retry_no_split_spillable`, as in the JAX exec:
+memory pressure spills and reruns it, never splits it, since a row split
+would sever partitions.
+
 Every `jax.ops.segment_*` over `num_segments=cap` maps onto a scatter into
 `cap` slots; padding rows carry the id `cap - 1`, which no live partition
 reaches while a batch has padding.
@@ -54,6 +58,7 @@ from ..expr.windowexprs import (CumeDist, DenseRank, Lag, Lead, NthValue,
                                 RowFrame, RowNumber, WindowAggregate,
                                 WindowFunction, bind_window_fn,
                                 default_frame, is_value_range_frame)
+from ..memory.retry import with_retry_no_split_spillable
 from ..ops.rowops import (gather_vecs, key_change_flags, lexsort_indices,
                           segment_sum, sort_keys_for)
 from .base import (TpuExec, UnaryTpuExec, batch_vecs, check_errors,
@@ -328,9 +333,17 @@ class TpuWindowExec(UnaryTpuExec):
         batches = list(self.child.execute())
         if not batches:
             return
-        out, errors = self.window(concat_batches(batches))
-        check_errors(errors)
-        yield out
+
+        def run(b: ColumnarBatch) -> ColumnarBatch:
+            out, errors = self.window(b)
+            check_errors(errors)
+            return out
+
+        # the merged temporary is owned by the spillable wrapper alone
+        holder = [batches]
+        del batches
+        yield with_retry_no_split_spillable(concat_batches(holder.pop()),
+                                            run)
 
     def _arg_string(self):
         return (f"[{[n for _, n in self.window_exprs]}, "

@@ -1,13 +1,14 @@
-"""ctypes loader for the host C++ of the parquet decode
-(`spark_rapids_tpu/native/runtime.py`, the part the decode calls).
+"""ctypes loader for the host C++ of the parquet decode and the spill codec
+(`spark_rapids_tpu/native/runtime.py`, the parts the port calls).
 
 The port builds `native/src/chunk_walk.cpp` (the page walk: Thrift page
-headers, snappy, the RLE/bit-packed run scans, the PLAIN concatenation) and
-`native/src/strings_repack.cpp` (the BYTE_ARRAY offset scan) from the
-repository's own sources, with `g++ -O3 -fPIC -std=c++17 -shared` (the flags
-of `native/Makefile`), at first use, into `_build/` beside this package. The
-library is named by a hash of the sources and the flags, so an edited source
-never loads a stale build.
+headers, snappy, the RLE/bit-packed run scans, the PLAIN concatenation),
+`native/src/strings_repack.cpp` (the BYTE_ARRAY offset scan) and
+`native/src/lz4block.cpp` (the LZ4 block codec of the `lz4xla` spill codec)
+from the repository's own sources, with `g++ -O3 -fPIC -std=c++17 -shared`
+(the flags of `native/Makefile`), at first use, into `_build/` beside this
+package. The library is named by a hash of the sources and the flags, so an
+edited source never loads a stale build.
 
 Unlike the JAX loader, nothing here degrades: a failed build raises
 NativeBuildError, and the scan always takes the native walk. The Python
@@ -31,12 +32,12 @@ import numpy as np
 from .errors import RapidsTpuError
 
 __all__ = ["NativeBuildError", "library_path", "load", "chunk_walk",
-           "rle_scan", "byte_array_scan"]
+           "rle_scan", "byte_array_scan", "lz4_compress", "lz4_decompress"]
 
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG.parent / "native" / "src"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("chunk_walk.cpp", "strings_repack.cpp")
+SOURCES = ("chunk_walk.cpp", "strings_repack.cpp", "lz4block.cpp")
 _FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -120,6 +121,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      ctypes.c_int32, ctypes.c_int32, i32p]
     lib.srtpu_chunk_free.restype = None
     lib.srtpu_chunk_free.argtypes = [ctypes.POINTER(_SrtpuChunk)]
+    lib.srtpu_lz4_compress_bound.restype = ctypes.c_int64
+    lib.srtpu_lz4_compress_bound.argtypes = [ctypes.c_int64]
+    lib.srtpu_lz4_compress.restype = ctypes.c_int64
+    lib.srtpu_lz4_compress.argtypes = [u8p, ctypes.c_int64, u8p,
+                                       ctypes.c_int64]
+    lib.srtpu_lz4_decompress.restype = ctypes.c_int64
+    lib.srtpu_lz4_decompress.argtypes = [u8p, ctypes.c_int64, u8p,
+                                         ctypes.c_int64]
 
 
 def load() -> ctypes.CDLL:
@@ -160,6 +169,30 @@ def byte_array_scan(blob: np.ndarray, n: int) -> tuple:
     if mx < 0:
         raise ValueError("truncated BYTE_ARRAY stream")
     return starts, lens, int(mx)
+
+
+def lz4_compress(raw: bytes) -> bytes:
+    """One LZ4 block of `raw` (native/src/lz4block.cpp)."""
+    lib = load()
+    src = np.frombuffer(raw, np.uint8)
+    n = src.shape[0]
+    dst = np.empty(lib.srtpu_lz4_compress_bound(n), np.uint8)
+    got = lib.srtpu_lz4_compress(_u8(src), n, _u8(dst), dst.shape[0])
+    if got < 0:
+        raise ValueError("LZ4 output exceeded its bound")
+    return dst[:got].tobytes()
+
+
+def lz4_decompress(blob: bytes, raw_len: int) -> np.ndarray:
+    """The `raw_len` bytes of one LZ4 block, as a writable uint8 array;
+    ValueError if the block is malformed."""
+    src = np.frombuffer(blob, np.uint8)
+    dst = np.empty(raw_len, np.uint8)
+    got = load().srtpu_lz4_decompress(_u8(src), src.shape[0], _u8(dst),
+                                      raw_len)
+    if got != raw_len:
+        raise ValueError("malformed LZ4 block")
+    return dst
 
 
 def rle_scan(payload: np.ndarray, num_values: int, bit_width: int) -> tuple:

@@ -266,6 +266,16 @@ class Overrides:
         if self.conf.get("spark.rapids.tpu.mesh.enabled"):
             _unsupported("spark.rapids.tpu.mesh.enabled=true (the sharded "
                          "plan)")
+        if self.conf.get("spark.rapids.tpu.sched.enabled"):
+            _unsupported("spark.rapids.tpu.sched.enabled=true (the query "
+                         "scheduler)")
+        if (self.conf.get("spark.rapids.tpu.sched.tenant.quotas") or
+                "").strip():
+            _unsupported("spark.rapids.tpu.sched.tenant.quotas (tenant "
+                         "memory sub-quotas)")
+        if self.conf.get("spark.rapids.tpu.mesh.hbmPerChip") > 0:
+            _unsupported("spark.rapids.tpu.mesh.hbmPerChip (per-chip memory "
+                         "ledgers)")
         result = self._convert(plan)
         # the distribution pass first (partial -> key-exchange -> final,
         # zipped joins), then fusion, which takes the partial aggregate as

@@ -485,25 +485,37 @@ class TestDynamicPruning:
 
 
 # --------------------------------------------------------------------------
+def _one_row_batch(i: int):
+    """A one-row batch holding i (the prefetch parks batches)."""
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    return batch_from_arrow(pa.table({"i": pa.array([i], pa.int64())}),
+                            torch.device("cpu"))
+
+
+def _first_value(b) -> int:
+    return batch_to_arrow(b).column("i")[0].as_py()
+
+
 class TestPrefetch:
     def test_producer_exception_reaches_consumer(self):
         def batches():
-            yield 1
+            yield _one_row_batch(1)
             raise KeyError("boom in the producer")
 
         it = PrefetchIterator(batches(), depth=2, name="t")
         got = []
         with pytest.raises(KeyError, match="boom"):
             for b in it:
-                got.append(b)
+                got.append(_first_value(b))
         assert got == [1]
         it._thread.join(timeout=5)
         assert not it._thread.is_alive()
 
     def test_early_stop_ends_the_producer(self):
-        it = PrefetchIterator(iter(range(10 ** 6)), depth=2, name="t")
+        it = PrefetchIterator((_one_row_batch(i) for i in range(10 ** 6)),
+                              depth=2, name="t")
         gen = iter(it)
-        assert next(gen) == 0
+        assert _first_value(next(gen)) == 0
         gen.close()
         assert not it._thread.is_alive()
 
