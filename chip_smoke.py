@@ -33,7 +33,11 @@ with the scan's counters held to their predictions, the decimal star, q65,
 q39a and q58 under ANSI mode, and last the memory layer: 1 GiB through the
 spill catalog under each codec, the running window, the out-of-core sort,
 q97 and the distributed engine query at the session's memory budget and
-at a tight one (spills to host and disk, results equal) and injected OOMs;
+at a tight one (spills to host and disk, results equal) and injected OOMs,
+and last the host engine: decimal star Q7 with every parquet scan on the
+host (both plans), ordered Q7 with a cast the device refuses on the host
+between device stages (both plans), and the engine query with
+spark.rapids.sql.enabled=false, each beside the same query on the card;
 it checks each against numpy oracles, holds kernels A
 and C to their exact launch counts there, and holds them against their
 twins on the inputs those paths hand them (a merged batch of 4 row
@@ -3942,6 +3946,259 @@ def memory_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
     return lines, launches
 
 
+# ---- cpu_engine: the host engine and per-operator fallback, over the
+# decimal star's files and the engine query's tables of the same run
+CPU_ENGINE_ROUNDS = 1
+# the JAX rule's key of CpuParquetScanExec: every parquet scan on the host
+HOST_SCAN = {"spark.rapids.sql.exec.TpuParquetScanExec": False}
+SQL_OFF = {"spark.rapids.sql.enabled": False}
+CAST_TYPE = (7, 2)  # avg(ss_quantity) as a report rounds it
+
+
+def host_cast_q7(sess, m, paths: dict):
+    """Path 2: ordered Q7 with its average quantity (a DOUBLE) cast to
+    decimal(7,2), a cast the device rule refuses, between the device
+    aggregate and the device top-k."""
+    from spark_rapids_tpu_torch import types as T
+    q7 = star_decimal_queries(sess, m, paths)["q7"]
+    return q7.select("i_category", "agg2", "agg3", "agg4", "n",
+                     agg1=m.Cast(m.col("agg1"), T.DecimalType(*CAST_TYPE))) \
+        .sort(*ORDERED_KEYS["q7"]).limit(ORDERED_LIMIT)
+
+
+def host_cast_q7_oracle(want: dict) -> dict:
+    """The ordered Q7 oracle with agg1 by Spark's rule: the shortest digits
+    of the oracle's double average, HALF_UP to 2 places, as unscaled
+    ints."""
+    from decimal import ROUND_HALF_UP, Decimal
+    cols = dict(ordered_oracle(want)["q7"])
+    quantum = Decimal(1).scaleb(-CAST_TYPE[1])
+    cols["agg1"] = [None if a is None else int(
+        Decimal(repr(a)).quantize(quantum, ROUND_HALF_UP).scaleb(CAST_TYPE[1]))
+        for a in cols["agg1"]]
+    return cols
+
+
+def check_host_cast_q7(pa, out, want: dict) -> None:
+    """agg1's type and unscaled values exactly; every other column as the
+    ordered decimal star report's."""
+    if out.schema.field("agg1").type != pa.decimal128(*CAST_TYPE):
+        raise AssertionError(f"host cast q7: agg1 is "
+                             f"{out.schema.field('agg1').type}")
+    vals, valid = unscaled(out.column("agg1"))
+    if [int(v) if ok else None for v, ok in zip(vals, valid)] != \
+            want["agg1"]:
+        raise AssertionError("host cast q7: agg1 differs from Spark's rule")
+    check_star_decimal(pa, "q7", out,
+                       {k: v for k, v in want.items() if k != "agg1"},
+                       ordered=True)
+
+
+def fallback_lines(sess, q, dev) -> list:
+    """The `!` lines of q's plan under `sess`'s conf, without printing."""
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.plan.overrides import Overrides
+    conf = TpuConf(dict(sess.conf._settings,
+                        **{"spark.rapids.sql.explain": "ALL"}))
+    ov = Overrides(conf, dev)
+    ov.apply(q.plan)
+    return [ln.strip() for ln in ov.explain_string().splitlines()
+            if ln.lstrip().startswith("!")]
+
+
+def host_decode_s(sess, q) -> float:
+    """Seconds the host engine takes to read every parquet scan of q's
+    plan alone, under sess's conf: pyarrow's decode and the Arrow -> torch
+    conversion on the CPU, with no copy to the card."""
+    from spark_rapids_tpu_torch.cpu.hostbatch import host_conf, \
+        set_host_conf
+    from spark_rapids_tpu_torch.io.scanbase import CpuFileScanExec
+    scans, todo = {}, [q.plan]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, CpuFileScanExec):
+            scans[id(node)] = node
+        todo.extend(node.children)
+    prev = host_conf()
+    set_host_conf(sess.conf)
+    try:
+        t0 = time.perf_counter()
+        for scan in scans.values():
+            for _ in scan.execute_cpu():
+                pass
+        return time.perf_counter() - t0
+    finally:
+        set_host_conf(prev)
+
+
+def cpu_engine_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
+                      fact, dim, conf=None, device=None, n_fact=N_FACT,
+                      rounds=CPU_ENGINE_ROUNDS):
+    """Phase cpu_engine, over the decimal star's files (`dec`:
+    star_decimal_data's oracle and paths) and the engine query's tables of
+    the same run (no new data set). Three paths, each beside the same
+    query all on the device in the same phase:
+      1. host_scan: decimal star Q7 with spark.rapids.sql.exec.
+         TpuParquetScanExec=false (pyarrow reads every table on the host,
+         TpuFromCpuExec lifts each batchSizeRows batch), on one device and
+         distributed, exact against star_decimal_oracle; A twice per fused
+         join per host batch of store_sales, and distributed C
+         STAR_DECIMAL_C_PER_BATCH a host batch;
+      2. host_cast: ordered Q7 with agg1 cast to decimal(7,2) on the host
+         between the device aggregate and the device top-k, on both plans,
+         agg1 against Spark's rule and the rest against the ordered
+         oracle; A twice per fused join per merged batch, no C (the
+         distribution pass stops at the host node, as in the JAX planner);
+      3. sql_off: the engine query with spark.rapids.sql.enabled=false on
+         the first `n_fact` fact rows, exact against query_oracle, with no
+         launch, a budget peak of 0 and an empty spill catalog.
+    Prints one line a path and plan with the walls (the checked, counted
+    collect warms the query up), the transitions' rows, bytes, host
+    seconds (pinning and enqueueing the copies to the card; waiting for
+    the stream and copying to the host) and device seconds (CUDA events
+    around the copies on the card's stream), for path 1 the seconds its
+    parquet scans take alone on the host (`host_decode_s`),
+    the launches against the explain tree's count, the `!` lines and
+    torch.get_num_threads(); returns the launches of each path's run."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.expr import Cast
+    from spark_rapids_tpu_torch.memory.budget import MemoryBudget
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    from spark_rapids_tpu_torch.utils.metrics import TaskMetrics
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **{"spark.rapids.tpu.fusion.enabled": True})
+    t_phase = time.monotonic()
+    want, paths = dec["oracle"], dec["paths"]
+    m = ordered_namespace()
+    m.Cast = Cast
+
+    def counted(q):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tm = TaskMetrics.get()
+        to_device_s, to_host_s = tm.copy_seconds()
+        moved = {"host_nodes_run": tm.host_nodes_run,
+                 "to_device": {"rows": tm.to_device_rows,
+                               "bytes": tm.to_device_bytes,
+                               "host_s": tm.to_device_ns / 1e9,
+                               "device_s": to_device_s},
+                 "to_host": {"rows": tm.to_host_rows,
+                             "bytes": tm.to_host_bytes,
+                             "host_s": tm.to_host_ns / 1e9,
+                             "device_s": to_host_s}}
+        return out, wall, moved, {k.__name__: k.launches for k in counters}
+
+    def walls(q):
+        out = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.collect()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return spread(out)
+
+    sales = paths["store_sales"]
+    batch_rows = TpuSession(conf, dev).conf.batch_size_rows
+    host_batches = -(-pq.ParquetFile(sales).metadata.num_rows // batch_rows)
+    merged = -(-pq.ParquetFile(sales).metadata.num_row_groups
+               // CHUNKS_PER_DISPATCH)
+    cast_want = host_cast_q7_oracle(want)
+    lines, launches = [], {}
+    for path, plan, extra in (
+            ("host_scan", "one_device", HOST_SCAN),
+            ("host_scan", "distributed", dict(HOST_SCAN, **mesh_conf)),
+            ("host_cast", "one_device", {}),
+            ("host_cast", "distributed", mesh_conf)):
+        sess = TpuSession(dict(conf, **extra), dev)
+        twin = TpuSession(dict(conf, **{k: v for k, v in extra.items()
+                                        if k not in HOST_SCAN}), dev)
+        if path == "host_scan":
+            q = star_decimal_queries(sess, m, paths)["q7"]
+            device_q = star_decimal_queries(twin, m, paths)["q7"]
+            batches = host_batches
+        else:
+            q = host_cast_q7(sess, m, paths)
+            device_q = ordered_queries(twin, m, paths)["q7"]
+            batches = merged
+        tree = q.explain()
+        bang = fallback_lines(sess, q, dev)
+        out, wall, moved, run = counted(q)
+        if path == "host_scan":
+            check_star_decimal(pa, "q7", out, want["q7"])
+        else:
+            check_host_cast_q7(pa, out, cast_want)
+        partial = "PartialAgg[" in tree
+        want_a = 2 * fused_joins(tree) * batches
+        want_c = STAR_DECIMAL_C_PER_BATCH["q7"] * batches if partial else 0
+        if (run["murmur3_rows"], run["segment_sum_i64"]) != (want_a, want_c) \
+                or want_a == 0 or partial != (path == "host_scan"
+                                              and plan == "distributed") \
+                or "TpuFromCpuExec" not in tree or not bang:
+            raise AssertionError(f"cpu_engine {path} ({plan}) launched "
+                                 f"{run}, not A {want_a} and C {want_c}, "
+                                 f"fallbacks {bang}:\n{tree}")
+        if path == "host_cast" and (moved["to_host"]["rows"] !=
+                                    len(cast_want["agg1"]) or
+                                    moved["host_nodes_run"] != 1):
+            raise AssertionError(f"cpu_engine host_cast moved {moved}")
+        name = f"cpu_engine_{path}" + ("_distributed" if plan ==
+                                       "distributed" else "")
+        launches[name] = run
+        if path == "host_scan":
+            extra_s = {"host_decode_s": host_decode_s(sess, q)}
+        else:
+            extra_s = {}
+        line = {"phase": "cpu_engine", "path": path, "plan": plan,
+                "rows": out.num_rows, "exact": True, "fallbacks": bang,
+                "fused_joins": fused_joins(tree), "batches": batches,
+                "launches_per_collect": run,
+                "predicted": {"murmur3_rows": want_a,
+                              "segment_sum_i64": want_c},
+                "transitions": moved, **extra_s, "counted_collect_s": wall,
+                "warm_collect_s": walls(q),
+                "device_plan_warm_collect_s": walls(device_q),
+                "torch_threads": torch.get_num_threads()}
+        emit(line)
+        lines.append(line)
+
+    # 3. the whole engine query on the host engine
+    fact_n = fact.slice(0, n_fact)
+    oracle = query_oracle(fact_n, dim)
+    q = main_query(TpuSession(dict(conf, **SQL_OFF), dev), fact_n, dim)
+    device_q = main_query(TpuSession(conf, dev), fact_n, dim)
+    check_query(device_q.collect(), oracle, "cpu_engine device twin")
+    out, wall, moved, run = counted(q)
+    check_query(out, oracle, "cpu_engine sql_off")
+    peak = MemoryBudget.get().peak_used
+    parked = len(BufferCatalog.get()._entries)
+    if any(run.values()) or peak or parked or moved["to_device"]["rows"] \
+            or moved["host_nodes_run"] != 5:
+        raise AssertionError(f"cpu_engine sql_off: launched {run}, budget "
+                             f"peak {peak}, {parked} parked, moved {moved}")
+    launches["cpu_engine_sql_off"] = run
+    line = {"phase": "cpu_engine", "path": "sql_off", "plan": "host",
+            "fact_rows": n_fact, "groups": int(len(oracle[0])),
+            "exact": True, "launches_per_collect": run,
+            "predicted": {k.__name__: 0 for k in counters},
+            "peak_budget_bytes": peak, "parked": parked,
+            "transitions": moved, "counted_collect_s": wall,
+            "warm_collect_s": walls(q),
+            "device_plan_warm_collect_s": walls(device_q),
+            "torch_threads": torch.get_num_threads(),
+            "seconds": time.monotonic() - t_phase}
+    emit(line)
+    lines.append(line)
+    return lines, launches
+
+
 DATA_SETS = ("star", "decimal", "joins", "aggs")
 
 
@@ -4479,7 +4736,14 @@ def run_phases(torch, ready: dict) -> int:
     _, memory_launches = memory_phases(torch, pa, mesh_conf, kernels3,
                                        dec=dec_files, joins=join_data,
                                        fact=fact, dim=dim)
-    del join_data, dec_files
+    del join_data
+
+    # ---- cpu_engine: decimal star Q7 with every parquet scan on the host,
+    # ordered Q7 with a host cast between device stages, and the engine
+    # query with spark.rapids.sql.enabled=false
+    _, cpu_launches = cpu_engine_phases(torch, pa, mesh_conf, kernels3,
+                                        dec=dec_files, fact=fact, dim=dim)
+    del dec_files
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -4522,7 +4786,7 @@ def run_phases(torch, ready: dict) -> int:
                 query="q58"),
             "tpcds_aggregates_distributed": segsum_i64_on_path(
                 torch, agg_c_args, rate,
-                path="tpcds_aggregates_distributed", query="q65"),
+                path="tpcds_aggregates_distributed", query="q39a"),
             "parquet_files_per_column_distributed": segsum_i64_on_path(
                 torch, files_c_args, rate,
                 path="parquet_files_per_column_distributed", query="q7")}
@@ -4543,7 +4807,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in agg_launches.items()},
                     **{p: n[name] for p, n in files_launches.items()},
                     **{p: n[name] for p, n in ansi_launches.items()},
-                    **{p: n[name] for p, n in memory_launches.items()})
+                    **{p: n[name] for p, n in memory_launches.items()},
+                    **{p: n[name] for p, n in cpu_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

@@ -77,6 +77,19 @@ def register(key: str, typ: str, default: Any, doc: str, **kw) -> ConfEntry:
 
 register("spark.rapids.sql.enabled", "bool", True,
          "Enable the columnar rewrite of SQL physical plans.")
+register("spark.rapids.sql.mode", "string", "executeOnGPU",
+         "executeOnGPU runs converted plans on the device; explainOnly only "
+         "tags and reports what would run there, and runs the whole plan "
+         "on the host engine.",
+         check_values=("executeOnGPU", "explainOnly"))
+register("spark.rapids.sql.test.enabled", "bool", False,
+         "Strict test mode: any host fallback in a converted plan raises.")
+register("spark.rapids.sql.incompatibleOps.enabled", "bool", True,
+         "Allow ops marked incompat (minor semantic differences) on the "
+         "device.")
+register("spark.rapids.sql.optimizer.enabled", "bool", False,
+         "Cost-based optimizer (the JAX package's plan/cbo.py): not in "
+         "spark_rapids_tpu_torch yet, so true raises at plan time.")
 register("spark.rapids.sql.explain", "string", "NONE",
          "Explain output for the plan rewrite: NONE, NOT_ON_GPU (only "
          "fallback reasons), ALL.", check_values=("NONE", "NOT_ON_GPU", "ALL"))
@@ -254,6 +267,10 @@ class TpuConf:
         return self.get("spark.rapids.sql.enabled")
 
     @property
+    def is_test_enabled(self) -> bool:
+        return self.get("spark.rapids.sql.test.enabled")
+
+    @property
     def explain(self) -> str:
         return self.get("spark.rapids.sql.explain")
 
@@ -269,6 +286,20 @@ class TpuConf:
     @property
     def concurrent_tpu_tasks(self) -> int:
         return self.get("spark.rapids.sql.concurrentGpuTasks")
+
+    def is_operator_enabled(self, key: str, incompat: bool = False,
+                            disabled_by_default: bool = False) -> bool:
+        """A per-rule key (`spark.rapids.sql.exec.*`/`expression.*`) as the
+        user set it; unset, an incompat rule follows
+        `spark.rapids.sql.incompatibleOps.enabled`."""
+        v = self._settings.get(key)
+        if v is not None:
+            return _convert(v, "bool")
+        if disabled_by_default:
+            return False
+        if incompat:
+            return self.get("spark.rapids.sql.incompatibleOps.enabled")
+        return True
 
 
 _default_conf: Optional[TpuConf] = None

@@ -20,6 +20,12 @@ class DeviceUnavailableError(RapidsTpuError):
     the CPU on their own."""
 
 
+class CpuFallbackRequired(RapidsTpuError):
+    """A batch or operator cannot run on the device: the session reruns the
+    plan on the host engine (`execute_cpu`) and counts the rerun in
+    `TaskMetrics.cpu_fallback_reruns`."""
+
+
 class RetryOOM(RapidsTpuError):
     """Device memory pressure: block, spill, and retry the idempotent step."""
 

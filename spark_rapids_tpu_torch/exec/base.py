@@ -74,7 +74,10 @@ COUNTERS = AnsiCounters()
 
 class TpuExec:
     """`device` is where the exec's batches live: given explicitly at the
-    leaves (scans), inherited from the first child everywhere else."""
+    leaves (scans), inherited from the first child everywhere else. A
+    host plan node's exec pulls its stream in the host placement scope
+    (`cpu.hostbatch.scoped_stream`), where `on_host()` holds and the memory
+    layer's seams stand aside."""
 
     def __init__(self, children: Sequence["TpuExec"], conf: TpuConf = None,
                  device: torch.device = None):
@@ -297,10 +300,12 @@ def maybe_prefetch(inner: Iterator[ColumnarBatch], conf: Optional[TpuConf],
                    name: str = "prefetch") -> Iterator[ColumnarBatch]:
     """`inner` behind a PrefetchIterator when pipelined execution is on
     (`spark.rapids.tpu.pipeline.enabled`, depth
-    `spark.rapids.tpu.pipeline.prefetch.depth`); otherwise `inner` itself,
-    with no thread."""
+    `spark.rapids.tpu.pipeline.prefetch.depth`); otherwise, and on the
+    host engine, `inner` itself, with no thread."""
+    from ..cpu.hostbatch import on_host
     conf = conf or get_default_conf()
     depth = conf.get("spark.rapids.tpu.pipeline.prefetch.depth")
-    if not conf.get("spark.rapids.tpu.pipeline.enabled") or depth < 1:
+    if on_host() or not conf.get("spark.rapids.tpu.pipeline.enabled") or \
+            depth < 1:
         return inner
     return iter(PrefetchIterator(inner, depth, name))

@@ -11,19 +11,32 @@ integral range is null; a decimal of more than 18 digits on either side
 rescales in limbs (`_decimal128_cast`).
 DATE -> TIMESTAMP is midnight UTC, TIMESTAMP -> DATE and -> LONG
 floor-divide (days, seconds), LONG -> TIMESTAMP multiplies seconds.
-Casts from and to strings and float -> decimal are not ported: the
-planner refuses them (`device_supported`).
+Casts from and to strings are not ported: the planner refuses them.
+
+The casts that `device_supported` (the JAX device rule) refuses run on the
+host engine only (`host_only`; a CUDA tensor raises). Two follow Spark's
+rule where the JAX CPU engine departs from it (ROADMAP.md "Known
+differences"): FLOAT/DOUBLE -> DECIMAL takes the shortest decimal digits
+that give the double back (Python's `repr`, Java's `Double.toString` from
+JDK 19 on) rounded HALF_UP to the scale, null for NaN, infinities and
+values past the precision; BYTE/SHORT/INT -> TIMESTAMP reads seconds, as
+LONG -> TIMESTAMP does. The rest (DATE -> numeric, numeric -> DATE,
+TIMESTAMP -> numeric other than LONG, BOOLEAN/FLOAT/DOUBLE/DECIMAL ->
+TIMESTAMP) give the JAX CPU engine's values through the paths below; their
+Spark rule waits for confirmation (ROADMAP.md Queue C).
 
 ANSI mode (`ctx.ansi`) raises where the non-ANSI cast clamps, wraps or
 makes null: float -> integral out of range or NaN and integral narrowing
 out of range raise `[CAST_OVERFLOW]`; a decimal cast that makes null from
 a non-null value raises `[CAST_OVERFLOW]` to an integral type and
-`[NUMERIC_VALUE_OUT_OF_RANGE]` to a decimal (JAX messages). The planner
-admits under ANSI only numeric <-> numeric and decimal casts
-(`ansi_supported`, JAX `_tag_cast`).
+`[NUMERIC_VALUE_OUT_OF_RANGE]` to a decimal (JAX messages). Under ANSI
+the planner keeps only numeric <-> numeric and decimal casts on the
+device (`ansi_supported`, JAX `_tag_cast`); the others run on the host.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,7 +44,8 @@ from .. import types as T
 from ..columnar.column import torch_dtype
 from .base import EvalContext, Expression, Vec, ansi_raise
 
-__all__ = ["Cast", "device_supported", "ansi_supported", "convert"]
+__all__ = ["Cast", "device_supported", "host_supported", "ansi_supported",
+           "convert"]
 
 _US_PER_DAY = 86_400_000_000
 _INT_BOUNDS = {
@@ -65,10 +79,20 @@ def device_supported(src: T.DataType, dst: T.DataType) -> bool:
     return False
 
 
+_CARRIED = _NUMERIC + (T.DecimalType, T.DateType, T.TimestampType)
+
+
+def host_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The casts this engine computes: the device ones, and on the host
+    every other pair of the carried types but strings."""
+    return device_supported(src, dst) or (isinstance(src, _CARRIED)
+                                          and isinstance(dst, _CARRIED))
+
+
 def ansi_supported(src: T.DataType, dst: T.DataType) -> bool:
-    """The casts this engine computes under ANSI (JAX `_tag_cast`):
-    numeric <-> numeric and any cast from or to a decimal. The date and
-    timestamp casts are refused there, as in the JAX planner."""
+    """The casts the device runs under ANSI (JAX `_tag_cast`): numeric
+    <-> numeric and any cast from or to a decimal. The date and timestamp
+    casts go to the host engine, as in the JAX planner."""
     plain = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
              T.LongType, T.FloatType, T.DoubleType)
     return (isinstance(src, plain) and isinstance(dst, plain)) or \
@@ -120,6 +144,16 @@ class Cast(Expression):
         src, dst = c.dtype, self.to
         if src == dst:
             return c
+        if not device_supported(src, dst):
+            if c.data.device.type != "cpu":
+                raise RuntimeError(
+                    f"cast {src.simple_string()} -> {dst.simple_string()} "
+                    "runs on the host engine only")
+            if T.is_floating(src) and isinstance(dst, T.DecimalType):
+                return _float_to_decimal(ctx, c, dst)
+            if T.is_integral(src) and isinstance(dst, T.TimestampType):
+                return Vec(dst, c.data.to(torch.int64) * 1_000_000,
+                           c.validity)
         if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
             return Vec(dst, c.data.to(torch.int64) * _US_PER_DAY, c.validity)
         if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
@@ -252,3 +286,40 @@ def _decimal128_cast(c: Vec, dst: T.DataType) -> Vec:
     ok = (qhi == (qlo >> 63)) & (qlo >= lo_b) & (qlo <= hi_b)
     return Vec(dst, torch.where(ok, qlo, 0).to(torch_dtype(dst)),
                c.validity & ok)
+
+
+def _float_to_decimal(ctx: EvalContext, c: Vec, dst: T.DecimalType) -> Vec:
+    """Spark's FLOAT/DOUBLE -> DECIMAL, a row at a time on the host: the
+    shortest digits of the double (a FLOAT widened first), HALF_UP to the
+    scale; NaN, the infinities and a value past the precision are null,
+    and raise under ANSI (the JAX decimal message)."""
+    import decimal
+    from .decimal128 import is_dec128, split_int
+    context = decimal.Context(prec=80, rounding=decimal.ROUND_HALF_UP)
+    quantum = decimal.Decimal(1).scaleb(-dst.scale)
+    limit = 10 ** dst.precision
+    valid = c.validity.tolist()
+    out, ok = [], []
+    for v, live in zip(c.data.to(torch.float64).tolist(), valid):
+        u = None
+        d = decimal.Decimal(repr(v)) if live and math.isfinite(v) else None
+        # past 10^(p - s) before rounding: too wide to quantize, and null
+        if d is not None and (d == 0 or
+                              d.adjusted() < dst.precision - dst.scale):
+            q = d.quantize(quantum, context=context)
+            u = int(q.scaleb(dst.scale, context=context))
+            if abs(u) >= limit:
+                u = None
+        out.append(0 if u is None else u)
+        ok.append(u is not None)
+    ok_t = torch.tensor(ok, dtype=torch.bool)
+    if ctx.ansi:
+        ansi_raise(ctx, c.validity & ~ok_t,
+                   "[NUMERIC_VALUE_OUT_OF_RANGE] value out of range for "
+                   f"{dst.simple_string()}")
+    if is_dec128(dst):
+        data = torch.tensor([list(split_int(u)) for u in out],
+                            dtype=torch.int64).reshape(-1, 2)
+    else:
+        data = torch.tensor(out, dtype=torch.int64)
+    return Vec(dst, data, c.validity & ok_t)

@@ -1,6 +1,6 @@
 """DataFrame frontend (`spark_rapids_tpu/frontend.py`: select, filter,
 join, cross_join, group_by, agg, sort/order_by, limit, union, window,
-collect). It builds plan nodes; the session rewrites and runs them."""
+collect, collect_cpu). It builds plan nodes; the session rewrites and runs them."""
 
 from __future__ import annotations
 
@@ -119,6 +119,11 @@ class DataFrame:
     def collect(self):
         """Execute and return a pyarrow Table."""
         return self.session.execute_plan(self.plan)
+
+    def collect_cpu(self):
+        """Execute on the host engine only (the whole plan by
+        `execute_cpu`) and return a pyarrow Table."""
+        return self.session.execute_plan(self.plan, use_device=False)
 
     def explain(self) -> str:
         return self.session.explain_plan(self.plan)

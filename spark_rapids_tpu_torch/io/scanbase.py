@@ -127,6 +127,15 @@ class CpuFileScanExec(PhysicalPlan):
                                    self.decode_file, conf or self.conf):
             yield self._postprocess(t)
 
+    def execute_cpu(self):
+        """The host engine's scan (JAX `execute_cpu`): pyarrow's decode
+        under the reader strategy, in batchSizeRows slices."""
+        from ..cpu.hostbatch import host_batch_from_arrow, host_conf
+        from ..utils.metrics import TaskMetrics
+        TaskMetrics.get().host_nodes_run += 1
+        for t in self.host_tables(conf=host_conf()):
+            yield host_batch_from_arrow(t)
+
     def _arg_string(self):
         return f"[{self.format_name}, {len(self.paths)} files]"
 

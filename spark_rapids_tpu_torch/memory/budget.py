@@ -25,6 +25,7 @@ import uuid
 from typing import Optional
 
 from ..config import TpuConf, get_default_conf
+from ..cpu.hostbatch import on_host
 from ..errors import RetryOOM, SplitAndRetryOOM
 
 __all__ = ["MemoryBudget"]
@@ -64,7 +65,11 @@ class MemoryBudget:
 
     def reserve(self, nbytes: int) -> None:
         """Pre-flight reservation; raises RetryOOM / SplitAndRetryOOM under
-        pressure, after a synchronous spill."""
+        pressure, after a synchronous spill. A host exec's call
+        (`cpu.hostbatch.on_host`) reserves nothing and counts toward no
+        injection."""
+        if on_host():
+            return
         with self._lock:
             self._alloc_count += 1
             n = self._alloc_count
@@ -112,6 +117,8 @@ class MemoryBudget:
             pass
 
     def release(self, nbytes: int) -> None:
+        if on_host():  # the host engine reserved nothing
+            return
         with self._lock:
             self.used = max(0, self.used - nbytes)
 

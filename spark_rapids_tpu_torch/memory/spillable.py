@@ -7,6 +7,10 @@ Parking never syncs: the row count stays a device scalar until something
 asks for `num_rows` (the split of `with_retry`, the catalog's dump). The
 JAX class reads it when it parks, which here would stall a prefetch
 producer once a batch.
+
+On the host engine (`cpu.hostbatch.on_host`) a spillable batch only
+holds its batch: no catalog entry, no budget charge, no permit, as the JAX
+CPU nodes park nothing.
 """
 
 from __future__ import annotations
@@ -24,10 +28,16 @@ __all__ = ["SpillableColumnarBatch"]
 class SpillableColumnarBatch:
     def __init__(self, batch: ColumnarBatch,
                  priority: int = SpillPriority.ACTIVE_ON_DECK):
-        self._catalog = BufferCatalog.get()
-        self._handle: Optional[int] = self._catalog.add_batch(batch, priority)
-        self._num_rows: Optional[int] = None
+        from ..cpu.hostbatch import on_host
         self.size_bytes = batch.device_memory_size()
+        self._num_rows: Optional[int] = None
+        # a host exec's batch stays where it is, outside the memory layer
+        self._held: Optional[ColumnarBatch] = batch if on_host() else None
+        if self._held is not None:
+            self._handle: Optional[int] = -1
+            return
+        self._catalog = BufferCatalog.get()
+        self._handle = self._catalog.add_batch(batch, priority)
         # parked device bytes count against the budget: under a tight one,
         # parking the Nth run or build spills older parked buffers to host
         MemoryBudget.get().note_parked(self.size_bytes)
@@ -39,7 +49,8 @@ class SpillableColumnarBatch:
         if self._num_rows is None:
             if self._handle is None:
                 raise ValueError("spillable batch already closed")
-            self._num_rows = self._catalog.rows_of(self._handle)
+            self._num_rows = self._held.row_count() if self._held \
+                is not None else self._catalog.rows_of(self._handle)
         return self._num_rows
 
     def get_batch(self, acquire_semaphore: bool = True) -> ColumnarBatch:
@@ -48,18 +59,23 @@ class SpillableColumnarBatch:
         stream, so taking it back must not take an admission permit."""
         if self._handle is None:
             raise ValueError("spillable batch already closed")
+        if self._held is not None:
+            return self._held
         if acquire_semaphore:
             TpuSemaphore.get().acquire_if_necessary()
         return self._catalog.acquire_batch(self._handle)
 
     @property
     def spilled(self) -> bool:
-        return self._handle is not None and \
+        return self._handle is not None and self._held is None and \
             self._catalog.tier_of(self._handle) != StorageTier.DEVICE
 
     def close(self) -> None:
         """Drop the batch from the catalog; idempotent."""
         if self._handle is None:
+            return
+        if self._held is not None:
+            self._held = self._handle = None
             return
         if self._catalog.remove(self._handle) == StorageTier.DEVICE:
             # device-resident: undo the park-time charge (a spilled entry

@@ -81,6 +81,16 @@ def apply_fusion(root, conf):
 
 
 def _walk(node, conf):
+    """Fuse below `node`, walking into both bridges of a mixed plan (JAX
+    `_walk`): a host node's device subtrees under CpuFromTpuExec, and a
+    TpuFromCpuExec's host subtree. No chain crosses a bridge."""
+    from ..exec.transitions import CpuFromTpuExec, TpuFromCpuExec
+    if isinstance(node, CpuFromTpuExec):
+        node.tpu_exec = _walk(node.tpu_exec, conf)
+        return node
+    if isinstance(node, TpuFromCpuExec):
+        node.cpu_plan = _walk(node.cpu_plan, conf)
+        return node
     fused = _try_fuse(node, conf)
     if fused is not None:
         # recurse BELOW the stage only (source + build exchanges)
@@ -110,6 +120,9 @@ def _fusible(node, head: bool) -> bool:
 def _try_fuse(node, conf):
     """Replace the maximal fusible chain headed at `node` (if >= minOps
     members) with a TpuFusedStageExec; None when nothing fuses."""
+    from ..exec.base import TpuExec
+    if not isinstance(node, TpuExec):  # a host plan node
+        return None
     chain = []
     cur = node
     while _fusible(cur, head=cur is node):

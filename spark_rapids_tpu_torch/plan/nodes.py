@@ -3,10 +3,12 @@
 hash join, sort, limit, union, window, and the hash partition spec of the
 distributed plan's exchanges).
 
-In the JAX package these nodes also carry a numpy interpreter, the CPU
-oracle its tests compare against. This engine only rewrites them into
-device execs (plan/overrides.py); the oracle stays the JAX package's, and
-the tests run both.
+The planner (plan/overrides.py) turns each node into its device exec, or
+leaves it a host node. A host node's `execute_cpu()` yields host batches:
+it builds the port's own exec for its kind on the CPU over its children's
+host batches (cpu/hostbatch.py), where the JAX package runs a numpy
+interpreter. Host execs read the thread's `host_conf()`, and plan no
+broadcast, exchange, top-k or fusion, as the JAX CPU nodes have none.
 """
 
 from __future__ import annotations
@@ -37,6 +39,19 @@ class PhysicalPlan:
     def name(self) -> str:
         return type(self).__name__
 
+    def execute_cpu(self):
+        """Host batches of this node, run by the host engine."""
+        from ..cpu.hostbatch import run_host
+        return run_host(self._host_exec())
+
+    def _host_exec(self):
+        """The port's exec for this node on the CPU, over `_host_inputs`."""
+        raise NotImplementedError
+
+    def _host_inputs(self):
+        from ..cpu.hostbatch import HostStreamExec, host_conf
+        return [HostStreamExec(c, host_conf()) for c in self.children]
+
     def tree_string(self, indent: int = 0) -> str:
         s = "  " * indent + f"{self.name}{self._arg_string()}\n"
         for c in self.children:
@@ -63,6 +78,11 @@ class CpuScanExec(PhysicalPlan):
     def _arg_string(self):
         return f"[{self.label}, {self.table.num_rows} rows]"
 
+    def _host_exec(self):
+        from ..cpu.hostbatch import HOST, host_conf
+        from ..exec.basic import TpuScanExec
+        return TpuScanExec(self.table, HOST, host_conf())
+
 
 class CpuProjectExec(PhysicalPlan):
     def __init__(self, exprs: Sequence[Expression], child: PhysicalPlan):
@@ -80,6 +100,11 @@ class CpuProjectExec(PhysicalPlan):
     def _arg_string(self):
         return f"[{', '.join(map(repr, self.exprs))}]"
 
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuProjectExec
+        return TpuProjectExec(self.exprs, *self._host_inputs(), host_conf())
+
 
 class CpuFilterExec(PhysicalPlan):
     def __init__(self, condition: Expression, child: PhysicalPlan):
@@ -93,6 +118,12 @@ class CpuFilterExec(PhysicalPlan):
 
     def _arg_string(self):
         return f"[{self.condition!r}]"
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuFilterExec
+        return TpuFilterExec(self.condition, *self._host_inputs(),
+                             host_conf())
 
 
 @dataclasses.dataclass
@@ -130,6 +161,12 @@ class CpuHashAggregateExec(PhysicalPlan):
         return (f"[keys={[repr(e) for e in self.group_exprs]}, "
                 f"aggs={[a.name for a in self.aggs]}]")
 
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.aggregate import TpuHashAggregateExec
+        return TpuHashAggregateExec(self.group_exprs, self.aggs,
+                                    *self._host_inputs(), host_conf())
+
 
 class CpuHashJoinExec(PhysicalPlan):
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
@@ -158,6 +195,20 @@ class CpuHashJoinExec(PhysicalPlan):
         return f"[{self.join_type}, keys={[repr(e) for e in self.left_keys]}" \
                f"{cond}]"
 
+    def _host_exec(self):
+        """A keyless join is the nested-loop exec, the rest a hash join of
+        both whole sides: no broadcast and no pruning on the host."""
+        from ..cpu.hostbatch import host_conf
+        from ..exec.joins import TpuNestedLoopJoinExec, \
+            TpuShuffledHashJoinExec
+        left, right = self._host_inputs()
+        if not self.left_keys:
+            return TpuNestedLoopJoinExec(left, right, self.condition,
+                                         self.join_type, host_conf())
+        return TpuShuffledHashJoinExec(left, right, self.left_keys,
+                                       self.right_keys, self.join_type,
+                                       host_conf(), condition=self.condition)
+
 
 class CpuSortExec(PhysicalPlan):
     def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
@@ -175,6 +226,11 @@ class CpuSortExec(PhysicalPlan):
     def _arg_string(self):
         return f"[{[(repr(e), a, nf) for e, a, nf in self.orders]}]"
 
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.sort import TpuSortExec
+        return TpuSortExec(self.orders, *self._host_inputs(), host_conf())
+
 
 class CpuLimitExec(PhysicalPlan):
     def __init__(self, limit: int, child: PhysicalPlan, offset: int = 0):
@@ -189,11 +245,22 @@ class CpuLimitExec(PhysicalPlan):
     def _arg_string(self):
         return f"[{self.limit}]"
 
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuLimitExec
+        return TpuLimitExec(self.limit, *self._host_inputs(), self.offset,
+                            host_conf())
+
 
 class CpuUnionExec(PhysicalPlan):
     @property
     def output(self) -> Schema:
         return self.children[0].output
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuUnionExec
+        return TpuUnionExec(self._host_inputs(), host_conf())
 
 
 class CpuWindowExec(PhysicalPlan):
@@ -231,6 +298,13 @@ class CpuWindowExec(PhysicalPlan):
     @property
     def output(self) -> Schema:
         return self._schema
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.window import TpuWindowExec
+        return TpuWindowExec(self.window_exprs, self.partition_spec,
+                             self.order_spec, *self._host_inputs(),
+                             host_conf())
 
 
 @dataclasses.dataclass

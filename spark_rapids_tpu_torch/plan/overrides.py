@@ -1,30 +1,44 @@
-"""Plan rewrite: plan nodes -> device execs (`spark_rapids_tpu/plan/overrides.py`
-rules `_c_scan` ... `_c_join`, with the broadcast choice by estimated
-build size, and `_c_sort`, `_c_limit` with its top-k rewrite, `_c_union`
-and `_c_window` with the checks of `_tag_window` and `_tag_window_agg`).
-After conversion the distribution pass (exec/requirements.py) and then
-fusion (plan/fusion.py) rewrite the device plan, in the JAX package's
-order; neither touches a sort, top-k, limit, union or window.
+"""Plan rewrite: plan nodes -> device execs, with per-node fallback to the
+host engine (`spark_rapids_tpu/plan/overrides.py`; reference
+GpuOverrides wrap/tag/convert, `:3633`, `:4036`, `:4363`).
 
-This slice has no CPU engine to fall back to, so the JAX engine's per-node
-"will not work" tags become errors: every type, expression, aggregate, join
-type or mode outside the slice raises NotImplementedError here, before any
-data moves, and nothing silently computes something else. ANSI mode
-(`spark.sql.ansi.enabled` or `spark.rapids.sql.ansi.enabled`) runs, with
-the JAX `_tag_cast` rule for casts: under it only numeric <-> numeric and
-decimal casts are admitted.
+Two phases, as in the JAX package (`_tag_tree` -> `_convert_tagged`):
+
+  * tag: a meta tree (plan/meta.py) mirrors the plan, and each node and
+    expression is held against its rule: the rule's TypeSig for its output
+    types, its `spark.rapids.sql.exec.*` / `spark.rapids.sql.expression.*`
+    key, and the cast rule (`_tag_cast`, with its ANSI part). A tag is a
+    reason the node will not run on the device; `explain` prints it after
+    a `!`, in the JAX wording.
+  * convert: a node without reasons becomes its device exec (the JAX
+    `_c_*` rules, the broadcast choice by estimated build size, the top-k
+    rewrite); a tagged node stays a host plan node, run by the port's own
+    execs on the CPU (cpu/hostbatch.py), with `TpuFromCpuExec` and
+    `CpuFromTpuExec` (exec/transitions.py) at each boundary.
+
+Then, only when the root is a device exec, the distribution pass
+(exec/requirements.py) and fusion (plan/fusion.py, which walks into both
+bridges) rewrite the device plan, in the JAX order.
+
+What the JAX engine runs but no exec of the port computes, on either
+device, is not a tag: it raises NotImplementedError while the tree is
+tagged (`_check_node`), before any data moves. The port never computes
+something else in silence, and nothing moves to the host because CUDA is
+absent or a kernel failed.
 """
 
 from __future__ import annotations
 
-from typing import List
+import copy
+import dataclasses
+from typing import Callable, Dict, List, Optional, Type
 
 import torch
 
 from .. import types as T
 from ..columnar.column import check_string_length, check_string_widths, \
     check_supported
-from ..config import TpuConf
+from ..config import TpuConf, register
 from ..expr import arithmetic as A
 from ..expr import cast as CA
 from ..expr import conditional as C
@@ -35,10 +49,14 @@ from ..expr.decimal128 import is_dec128
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
 from ..expr.hashing import INT_FAMILY, LONG_FAMILY
+from ..expr import windowexprs as WX
+from ..io.parquet import CpuParquetScanExec
 from ..io.scanbase import CpuFileScanExec, TpuFileScanExec
 from . import nodes as N
+from .meta import ExprMeta, PlanMeta
+from .typesig import TypeSig
 
-__all__ = ["Overrides"]
+__all__ = ["Overrides", "lookup_expr_rule"]
 
 _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     A.Add, A.Subtract, A.Multiply, A.Divide,
@@ -79,7 +97,7 @@ def _value_children(node: Expression):
     return []
 
 
-def _check_expr(e: Expression, ansi: bool) -> None:
+def _check_expr(e: Expression) -> None:
     for node in e.collect(lambda _: True):
         if not isinstance(node, _SUPPORTED_EXPRS):
             _unsupported(f"expression {type(node).__name__}")
@@ -91,11 +109,8 @@ def _check_expr(e: Expression, ansi: bool) -> None:
             check_string_length(len(node.value.encode("utf-8")))
         if isinstance(node, CA.Cast):
             src = node.children[0].data_type
-            if not CA.device_supported(src, node.to):
+            if not CA.host_supported(src, node.to):
                 _unsupported(f"cast from {src.simple_string()} to "
-                             f"{node.to.simple_string()}")
-            if ansi and not CA.ansi_supported(src, node.to):
-                _unsupported(f"ANSI-mode cast from {src.simple_string()} to "
                              f"{node.to.simple_string()}")
         decimals = [c.data_type for c in _value_children(node)
                     if not isinstance(c.data_type, T.NullType)]
@@ -251,9 +266,254 @@ def _estimated_bytes(plan: N.PhysicalPlan) -> float:
     return _estimated_rows(plan) * max(width, 1)
 
 
+# ----------------------------------------------------------------------------
+# Rules (JAX `expr_rule`/`exec_rule`, plan/overrides.py:48-54, :632-643):
+# a TypeSig for the node's output, the auto-registered enable key, and, for
+# an exec, the convert function and the expressions its meta tags. Only the
+# rules of nodes the port has are registered.
+# ----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ExprRule:
+    cls: Type
+    sig: TypeSig
+    conf_key: str
+    incompat: bool = False
+    tag_fn: Optional[Callable[[ExprMeta], None]] = None
+
+
+@dataclasses.dataclass
+class ExecRule:
+    cls: Type
+    sig: TypeSig
+    conf_key: str
+    convert_fn: Callable
+    expr_fn: Optional[Callable[[PlanMeta], None]] = None
+
+
+_EXPR_RULES: Dict[Type, ExprRule] = {}
+_EXEC_RULES: Dict[Type, ExecRule] = {}
+
+
+def expr_rule(cls: Type, sig: TypeSig, incompat: bool = False,
+              tag_fn=None) -> None:
+    key = f"spark.rapids.sql.expression.{cls.__name__}"
+    register(key, "bool", True,
+             f"Enable device execution of expression {cls.__name__}.")
+    _EXPR_RULES[cls] = ExprRule(cls, sig, key, incompat, tag_fn)
+
+
+def exec_rule(cls: Type, sig: TypeSig, convert_fn, expr_fn=None) -> None:
+    key = f"spark.rapids.sql.exec.{cls.__name__.replace('Cpu', 'Tpu')}"
+    register(key, "bool", True,
+             f"Enable device execution of {cls.__name__}.")
+    _EXEC_RULES[cls] = ExecRule(cls, sig, key, convert_fn, expr_fn)
+
+
+def lookup_expr_rule(expr: Expression, conf: TpuConf) -> ExprMeta:
+    return ExprMeta(expr, conf, _EXPR_RULES.get(type(expr)))
+
+
+def _tag_cast(meta: ExprMeta) -> None:
+    """JAX `_tag_cast`: a cast the device rule refuses, and under ANSI any
+    cast but numeric <-> numeric and those from or to a decimal, runs on
+    the host (expr/cast.py computes both sides)."""
+    e = meta.expr
+    src = e.children[0].data_type
+    if not CA.device_supported(src, e.to):
+        meta.will_not_work(
+            f"cast {src.simple_string()} -> {e.to.simple_string()} is not "
+            "supported on TPU")
+    if meta.conf.is_ansi and not CA.ansi_supported(src, e.to):
+        meta.will_not_work(
+            f"ANSI-mode cast {src.simple_string()} -> "
+            f"{e.to.simple_string()} is not supported on TPU yet")
+
+
+_basic = TypeSig.all_basic()
+_basic38 = TypeSig.all_basic(decimal_max=38)
+_nested38 = TypeSig.all_with_nested(decimal_max=38)
+_num = TypeSig.numeric()
+_num38 = TypeSig.numeric(decimal_max=38)
+_bool = TypeSig((T.BooleanType,))
+_dbl = TypeSig((T.DoubleType,))
+
+for _c in (Literal, AttributeReference, BoundReference, Alias):
+    expr_rule(_c, _nested38)
+for _c in (A.Add, A.Subtract, A.UnaryMinus, A.Abs):
+    expr_rule(_c, _num38)
+for _c in (A.Multiply, A.Divide, A.IntegralDivide, A.Remainder, A.Pmod):
+    expr_rule(_c, _num)
+for _c in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+           P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.In, NE.IsNull,
+           NE.IsNotNull, NE.IsNaN, AG.BoolAnd, AG.BoolOr):
+    expr_rule(_c, _bool)
+for _c in (NE.Coalesce, C.If, C.CaseWhen, AG.Sum, AG.Count, AG.Min, AG.Max,
+           AG.Average, AG.First, AG.Last):
+    expr_rule(_c, _basic38)
+for _c in (C.Least, C.Greatest, WX.RowNumber, WX.Rank, WX.DenseRank,
+           WX.PercentRank, WX.CumeDist, WX.NTile):
+    expr_rule(_c, _basic)
+# the port's window gathers limbs (the JAX rules stop at 18 digits; its
+# limb refusals are _check_window_agg's)
+for _c in (WX.Lead, WX.Lag, WX.WindowAggregate, WX.NthValue):
+    expr_rule(_c, _basic38)
+expr_rule(CA.Cast, _basic38, tag_fn=_tag_cast)
+# moment forms can differ from the JVM's streaming updates in low ULPs
+for _c in (AG.VariancePop, AG.VarianceSamp, AG.StddevPop, AG.StddevSamp,
+           AG.Skewness, AG.Kurtosis):
+    expr_rule(_c, _dbl, incompat=True)
+expr_rule(AG.CountIf, TypeSig((T.LongType,)))
+for _c in (AG.BitAndAgg, AG.BitOrAgg, AG.BitXorAgg):
+    expr_rule(_c, TypeSig.integral())
+
+
+def _exprs_project(m: PlanMeta):
+    for e in m.plan._bound:
+        m.add_expr(e)
+
+
+def _exprs_filter(m: PlanMeta):
+    m.add_expr(m.plan._bound)
+
+
+def _exprs_agg(m: PlanMeta):
+    for e in m.plan._bound_groups:
+        m.add_expr(e)
+    for a in m.plan._bound_aggs:
+        m.add_expr(a.func)
+
+
+def _exprs_join(m: PlanMeta):
+    for e in m.plan._bl + m.plan._br:
+        m.add_expr(e)
+    if m.plan._bcond is not None:
+        m.add_expr(m.plan._bcond)
+
+
+def _exprs_sort(m: PlanMeta):
+    for e, _, _ in m.plan._bound:
+        m.add_expr(e)
+
+
+def _exprs_window(m: PlanMeta):
+    for e in m.plan._bound_part:
+        m.add_expr(e)
+    for e, _, _ in m.plan._bound_order:
+        m.add_expr(e)
+    for f, _ in m.plan._bound_fns:
+        m.add_expr(f)
+
+
+def _c_scan(ov, plan, children):
+    from ..exec.basic import TpuScanExec
+    return TpuScanExec(plan.table, ov.device, ov.conf)
+
+
+def _c_file_scan(ov, plan, children):
+    return TpuFileScanExec(plan, ov.conf, ov.device)
+
+
+def _c_project(ov, plan, children):
+    from ..exec.basic import TpuProjectExec
+    return TpuProjectExec(plan.exprs, children[0], ov.conf)
+
+
+def _c_filter(ov, plan, children):
+    from ..exec.basic import TpuFilterExec
+    return TpuFilterExec(plan.condition, children[0], ov.conf)
+
+
+def _c_agg(ov, plan, children):
+    from ..exec.aggregate import TpuHashAggregateExec
+    return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],
+                                ov.conf)
+
+
+def _c_join(ov, plan, children):
+    """JAX `_c_join`: a keyless join is the nested-loop exec (its build
+    broadcast when small), a small build of a broadcastable type a
+    broadcast hash join, the rest (right and full always) a shuffled hash
+    join."""
+    from ..exec.broadcast import TpuBroadcastExchangeExec
+    from ..exec.joins import (TpuBroadcastHashJoinExec,
+                              TpuNestedLoopJoinExec,
+                              TpuShuffledHashJoinExec)
+    conf = ov.conf
+    threshold = conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
+    small_build = (threshold >= 0 and plan.join_type in _BROADCASTABLE
+                   and _estimated_bytes(plan.children[1]) <= threshold)
+    if not plan.left_keys:
+        build = TpuBroadcastExchangeExec(children[1], conf) \
+            if small_build else children[1]
+        return TpuNestedLoopJoinExec(children[0], build, plan.condition,
+                                     plan.join_type, conf)
+    if small_build:
+        join = TpuBroadcastHashJoinExec(
+            children[0], TpuBroadcastExchangeExec(children[1], conf),
+            plan.left_keys, plan.right_keys, plan.join_type, conf,
+            condition=plan.condition)
+        _wire_dynamic_pruning(join, plan, conf)
+        return join
+    return TpuShuffledHashJoinExec(children[0], children[1], plan.left_keys,
+                                   plan.right_keys, plan.join_type, conf,
+                                   condition=plan.condition)
+
+
+def _c_sort(ov, plan, children):
+    from ..exec.sort import TpuSortExec
+    return TpuSortExec(plan.orders, children[0], ov.conf)
+
+
+def _c_limit(ov, plan, children):
+    """LIMIT over ORDER BY becomes a top-k (TakeOrderedAndProjectExec
+    analog, GpuOverrides.scala:3705): a per-batch k-select and a running
+    merge replace the full sort, when spark.rapids.sql.topK.enabled and
+    limit + offset <= spark.rapids.sql.topK.threshold."""
+    from ..exec.basic import TpuLimitExec
+    from ..exec.sort import TpuSortExec, TpuTopKExec
+    conf, child = ov.conf, children[0]
+    if conf.get("spark.rapids.sql.topK.enabled") and \
+            isinstance(child, TpuSortExec) and not child.each_batch and \
+            plan.limit + plan.offset <= \
+            conf.get("spark.rapids.sql.topK.threshold"):
+        return TpuTopKExec(child.orders, plan.limit, child.child, conf,
+                           plan.offset)
+    return TpuLimitExec(plan.limit, child, plan.offset, conf)
+
+
+def _c_union(ov, plan, children):
+    from ..exec.basic import TpuUnionExec
+    return TpuUnionExec(children, ov.conf)
+
+
+def _c_window(ov, plan, children):
+    from ..exec.window import TpuWindowExec
+    return TpuWindowExec(plan.window_exprs, plan.partition_spec,
+                         plan.order_spec, children[0], ov.conf)
+
+
+# the join, file scan and window rules take decimals to 38 digits, the
+# precision their execs compute on the device, where the JAX rules stop at
+# 18 (ROADMAP.md "Known differences")
+exec_rule(N.CpuScanExec, _nested38, _c_scan)
+exec_rule(CpuParquetScanExec, _basic38, _c_file_scan)
+exec_rule(N.CpuProjectExec, _nested38, _c_project, _exprs_project)
+exec_rule(N.CpuFilterExec, _nested38, _c_filter, _exprs_filter)
+exec_rule(N.CpuHashAggregateExec, _nested38, _c_agg, _exprs_agg)
+exec_rule(N.CpuHashJoinExec, _nested38, _c_join, _exprs_join)
+exec_rule(N.CpuSortExec, TypeSig.orderable(decimal_max=38), _c_sort,
+          _exprs_sort)
+exec_rule(N.CpuLimitExec, _nested38, _c_limit)
+exec_rule(N.CpuUnionExec, _nested38, _c_union)
+exec_rule(N.CpuWindowExec, _basic38, _c_window, _exprs_window)
+
+
 class Overrides:
-    """Entry point (reference GpuOverrides.apply): check, convert,
-    distribute over the mesh, fuse."""
+    """Entry point (reference GpuOverrides.apply): refuse what the port
+    cannot run anywhere, tag, convert with transitions, then distribute
+    over the mesh and fuse a device-rooted plan."""
 
     def __init__(self, conf: TpuConf, device: torch.device):
         self.conf = conf
@@ -261,162 +521,160 @@ class Overrides:
         self.explain_log: List[str] = []
 
     def apply(self, plan: N.PhysicalPlan):
+        """A device exec (the whole plan, or a device root over host
+        subtrees) or a host plan whose device subtrees are bridged back."""
+        from ..exec.base import TpuExec
         if not self.conf.is_sql_enabled:
-            _unsupported("spark.rapids.sql.enabled=false (the CPU engine)")
-        if self.conf.get("spark.rapids.tpu.mesh.enabled"):
-            _unsupported("spark.rapids.tpu.mesh.enabled=true (the sharded "
-                         "plan)")
-        if self.conf.get("spark.rapids.tpu.sched.enabled"):
-            _unsupported("spark.rapids.tpu.sched.enabled=true (the query "
-                         "scheduler)")
-        if (self.conf.get("spark.rapids.tpu.sched.tenant.quotas") or
-                "").strip():
-            _unsupported("spark.rapids.tpu.sched.tenant.quotas (tenant "
-                         "memory sub-quotas)")
-        if self.conf.get("spark.rapids.tpu.mesh.hbmPerChip") > 0:
-            _unsupported("spark.rapids.tpu.mesh.hbmPerChip (per-chip memory "
-                         "ledgers)")
-        result = self._convert(plan)
-        # the distribution pass first (partial -> key-exchange -> final,
-        # zipped joins), then fusion, which takes the partial aggregate as
-        # its stage-terminal member
-        from ..exec.requirements import ensure_distribution
-        result = ensure_distribution(result, self.conf)
-        from .fusion import apply_fusion
-        return apply_fusion(result, self.conf)
+            return plan
+        for key, what in _UNPORTED_KEYS:
+            v = self.conf.get(key)
+            if (v.strip() if isinstance(v, str) else v):
+                _unsupported(f"{key}={v} ({what})")
+        meta = self._tag_tree(plan)
+        result = self._convert_tagged(plan, meta)
+        explain = self.conf.explain
+        if explain != "NONE":
+            lines = meta.explain_lines()
+            if explain == "ALL" or any(ln.lstrip().startswith("!")
+                                       for ln in lines):
+                self.explain_log.extend(lines)
+        if self.conf.get("spark.rapids.sql.mode") == "explainOnly":
+            return plan
+        if isinstance(result, TpuExec):
+            # the distribution pass first (partial -> key-exchange ->
+            # final, zipped joins), then fusion, which takes the partial
+            # aggregate as its stage-terminal member; under a host root
+            # neither runs, as in the JAX package
+            from ..exec.requirements import ensure_distribution
+            result = ensure_distribution(result, self.conf)
+            from .fusion import apply_fusion
+            result = apply_fusion(result, self.conf)
+        return result
 
     def explain_string(self) -> str:
         return "\n".join(self.explain_log)
 
     def _convert(self, plan: N.PhysicalPlan):
-        children = [self._convert(c) for c in plan.children]
-        conf = self.conf
-        if isinstance(plan, N.CpuScanExec):
-            for dt in plan.output.types:
-                check_supported(dt, "scan column")
-            check_string_widths(plan.table)
-            from ..exec.basic import TpuScanExec
-            out = TpuScanExec(plan.table, self.device, conf)
-        elif isinstance(plan, CpuFileScanExec):
-            out = self._convert_file_scan(plan)
-        elif isinstance(plan, N.CpuProjectExec):
-            for e in plan._bound:
-                _check_expr(e, conf.is_ansi)
-            from ..exec.basic import TpuProjectExec
-            out = TpuProjectExec(plan.exprs, children[0], conf)
-        elif isinstance(plan, N.CpuFilterExec):
-            _check_expr(plan._bound, conf.is_ansi)
-            if not isinstance(plan._bound.data_type, T.BooleanType):
-                _unsupported("a non-boolean filter condition")
-            from ..exec.basic import TpuFilterExec
-            out = TpuFilterExec(plan.condition, children[0], conf)
-        elif isinstance(plan, N.CpuHashAggregateExec):
-            out = self._convert_agg(plan, children)
-        elif isinstance(plan, N.CpuHashJoinExec):
-            out = self._convert_join(plan, children)
-        elif isinstance(plan, N.CpuSortExec):
-            _check_orders(plan._bound, conf.is_ansi)
-            from ..exec.sort import TpuSortExec
-            out = TpuSortExec(plan.orders, children[0], conf)
-        elif isinstance(plan, N.CpuLimitExec):
-            out = _convert_limit(plan, children, conf)
-        elif isinstance(plan, N.CpuUnionExec):
-            types = {tuple(c.output.types) for c in plan.children}
-            if len(types) > 1:
-                _unsupported("a union of children with different column "
-                             "types")
-            from ..exec.basic import TpuUnionExec
-            out = TpuUnionExec(children, conf)
-        elif isinstance(plan, N.CpuWindowExec):
-            _check_window(plan, conf.is_ansi)
-            from ..exec.window import TpuWindowExec
-            out = TpuWindowExec(plan.window_exprs, plan.partition_spec,
-                                plan.order_spec, children[0], conf)
-        else:
-            _unsupported(f"plan node {plan.name}")
-        if self.conf.explain == "ALL":
-            self.explain_log.append(f"*{plan.name} will run on "
-                                    f"{self.device} as {out.name}")
-        return out
+        """A plan tagged and converted, without the device passes."""
+        return self._convert_tagged(plan, self._tag_tree(plan))
 
-    def _convert_file_scan(self, plan):
-        """A parquet scan of columns of engine types. What the device
-        decode declines -- a column (the footer check), a row group (its
-        pages) or a file -- the scan decodes on the host, so only what no
-        path of the port holds is refused here: nested and binary columns
-        (`schema_from_arrow`, `check_supported`)."""
-        if plan.format_name != "parquet":
-            _unsupported(f"the {plan.format_name} scan")
+    def _tag_tree(self, plan: N.PhysicalPlan) -> PlanMeta:
+        """Phase 1: the meta tree, every node tagged before any converts.
+        A port-only refusal raises here, before any data moves."""
+        rule = _EXEC_RULES.get(type(plan))
+        meta = PlanMeta(plan, self.conf, rule)
+        for c in plan.children:
+            meta.child_metas.append(self._tag_tree(c))
+        _check_node(plan)
+        if rule is not None and rule.expr_fn is not None:
+            rule.expr_fn(meta)
+        meta.tag_for_device()
+        if self.conf.is_test_enabled and not meta.can_run_on_device:
+            raise AssertionError(
+                "spark.rapids.sql.test.enabled: plan node fell back to CPU: "
+                + "; ".join(meta.reasons))
+        return meta
+
+    def _convert_tagged(self, plan: N.PhysicalPlan, meta: PlanMeta):
+        """Phase 2: convert by the tags, bridging host <-> device. A host
+        node is a copy of the plan node over its converted children (the
+        caller's plan stays as it was)."""
+        from ..exec.base import TpuExec
+        from ..exec.transitions import CpuFromTpuExec, TpuFromCpuExec
+        children = [self._convert_tagged(c, cm)
+                    for c, cm in zip(plan.children, meta.child_metas)]
+        if meta.can_run_on_device:
+            children = [c if isinstance(c, TpuExec) else
+                        TpuFromCpuExec(c, self.conf, self.device)
+                        for c in children]
+            return meta.rule.convert_fn(self, plan, children)
+        node = copy.copy(plan)
+        node.children = [CpuFromTpuExec(c) if isinstance(c, TpuExec) else c
+                         for c in children]
+        return node
+
+
+# conf keys of modules the port does not have: each raises at plan time
+_UNPORTED_KEYS = (
+    ("spark.rapids.sql.optimizer.enabled", "the cost-based optimizer"),
+    ("spark.rapids.tpu.mesh.enabled", "the sharded plan"),
+    ("spark.rapids.tpu.sched.enabled", "the query scheduler"),
+    ("spark.rapids.tpu.sched.tenant.quotas", "tenant memory sub-quotas"),
+    ("spark.rapids.tpu.mesh.hbmPerChip", "per-chip memory ledgers"),
+)
+
+
+def _check_node(plan: N.PhysicalPlan) -> None:
+    """The port-only refusals of one plan node: what no exec of the port
+    computes, on either device, though the JAX engine runs it (ROADMAP.md
+    lists each). They raise NotImplementedError; a JAX tag does not."""
+    if isinstance(plan, N.CpuScanExec):
         for dt in plan.output.types:
             check_supported(dt, "scan column")
-        return TpuFileScanExec(plan, self.conf, self.device)
-
-    def _convert_agg(self, plan: N.CpuHashAggregateExec, children):
-        from ..exec.aggregate import TpuHashAggregateExec
-        ansi = self.conf.is_ansi
+        check_string_widths(plan.table)
+    elif isinstance(plan, CpuFileScanExec):
+        if plan.format_name != "parquet":
+            _unsupported(f"the {plan.format_name} scan")
+        # what the device decode declines is decoded on the host; only
+        # nested and binary columns (`schema_from_arrow`) are refused
+        for dt in plan.output.types:
+            check_supported(dt, "scan column")
+    elif isinstance(plan, N.CpuProjectExec):
+        for e in plan._bound:
+            _check_expr(e)
+    elif isinstance(plan, N.CpuFilterExec):
+        _check_expr(plan._bound)
+        if not isinstance(plan._bound.data_type, T.BooleanType):
+            _unsupported("a non-boolean filter condition")
+    elif isinstance(plan, N.CpuHashAggregateExec):
         for e in plan._bound_groups:
-            _check_expr(e, ansi)
+            _check_expr(e)
         for a in plan._bound_aggs:
-            _check_aggregate(a.func, ansi)
-        return TpuHashAggregateExec(plan.group_exprs, plan.aggs, children[0],
-                                    self.conf)
+            _check_aggregate(a.func)
+    elif isinstance(plan, N.CpuHashJoinExec):
+        _check_join(plan)
+    elif isinstance(plan, N.CpuSortExec):
+        _check_orders(plan._bound)
+    elif isinstance(plan, N.CpuUnionExec):
+        if len({tuple(c.output.types) for c in plan.children}) > 1:
+            _unsupported("a union of children with different column types")
+    elif isinstance(plan, N.CpuWindowExec):
+        _check_window(plan)
+    elif not isinstance(plan, N.CpuLimitExec):
+        _unsupported(f"plan node {plan.name}")
 
-    def _convert_join(self, plan: N.CpuHashJoinExec, children):
-        """JAX `_tag_join` as errors, then `_c_join`: a keyless join is the
-        nested-loop exec (its build broadcast when small), a small build of
-        a broadcastable type a broadcast hash join, the rest (right and
-        full always) a shuffled hash join."""
-        from ..exec.broadcast import TpuBroadcastExchangeExec
-        from ..exec.joins import (SUPPORTED_JOIN_TYPES,
-                                  TpuBroadcastHashJoinExec,
-                                  TpuNestedLoopJoinExec,
-                                  TpuShuffledHashJoinExec)
-        for e in plan.left_keys + plan.right_keys:
-            if not isinstance(e, AttributeReference):
-                _unsupported("a join key that is not a column reference "
-                             "(join keys must be column references: project "
-                             "them first)")
-        if plan.join_type not in SUPPORTED_JOIN_TYPES:
-            _unsupported(f"join type {plan.join_type}")
-        for e in plan._bl + plan._br:
-            check_supported(e.data_type, "join key")
-            if is_dec128(e.data_type):  # the JAX murmur3 stops at 18 digits
-                _unsupported(f"a {e.data_type.simple_string()} join key")
-        ints = INT_FAMILY + LONG_FAMILY
-        for lk, rk in zip(plan._bl, plan._br):
-            # keys hash by their stored values, so both sides must share one
-            # type (Spark casts them to one; a decimal also shares its scale
-            # and precision); only the int and long families mix, as before
-            if lk.data_type != rk.data_type and not (
-                    isinstance(lk.data_type, ints)
-                    and isinstance(rk.data_type, ints)
-                    and T.DecimalType not in (type(lk.data_type),
-                                              type(rk.data_type))):
-                _unsupported(f"join keys {lk.data_type.simple_string()} and "
-                             f"{rk.data_type.simple_string()}")
-        if plan._bcond is not None:
-            _check_expr(plan._bcond, self.conf.is_ansi)
-            if not isinstance(plan._bcond.data_type, T.BooleanType):
-                _unsupported("a non-boolean join condition")
-        threshold = self.conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
-        small_build = (threshold >= 0 and plan.join_type in _BROADCASTABLE
-                       and _estimated_bytes(plan.children[1]) <= threshold)
-        if not plan.left_keys:
-            build = TpuBroadcastExchangeExec(children[1], self.conf) \
-                if small_build else children[1]
-            return TpuNestedLoopJoinExec(children[0], build, plan.condition,
-                                         plan.join_type, self.conf)
-        if small_build:
-            join = TpuBroadcastHashJoinExec(
-                children[0], TpuBroadcastExchangeExec(children[1], self.conf),
-                plan.left_keys, plan.right_keys, plan.join_type, self.conf,
-                condition=plan.condition)
-            _wire_dynamic_pruning(join, plan, self.conf)
-            return join
-        return TpuShuffledHashJoinExec(children[0], children[1],
-                                       plan.left_keys, plan.right_keys,
-                                       plan.join_type, self.conf,
-                                       condition=plan.condition)
+
+def _check_join(plan: N.CpuHashJoinExec) -> None:
+    """JAX `_tag_join`'s cases (which the port's join computes on neither
+    device), the key checks of the port's hash join, and its condition."""
+    from ..exec.joins import SUPPORTED_JOIN_TYPES
+    for e in plan.left_keys + plan.right_keys:
+        if not isinstance(e, AttributeReference):
+            _unsupported("a join key that is not a column reference "
+                         "(join keys must be column references: project "
+                         "them first)")
+    if plan.join_type not in SUPPORTED_JOIN_TYPES:
+        _unsupported(f"join type {plan.join_type}")
+    for e in plan._bl + plan._br:
+        check_supported(e.data_type, "join key")
+        if is_dec128(e.data_type):  # the JAX murmur3 stops at 18 digits
+            _unsupported(f"a {e.data_type.simple_string()} join key")
+    ints = INT_FAMILY + LONG_FAMILY
+    for lk, rk in zip(plan._bl, plan._br):
+        # keys hash by their stored values, so both sides must share one
+        # type (Spark casts them to one; a decimal also shares its scale
+        # and precision); only the int and long families mix, as before
+        if lk.data_type != rk.data_type and not (
+                isinstance(lk.data_type, ints)
+                and isinstance(rk.data_type, ints)
+                and T.DecimalType not in (type(lk.data_type),
+                                          type(rk.data_type))):
+            _unsupported(f"join keys {lk.data_type.simple_string()} and "
+                         f"{rk.data_type.simple_string()}")
+    if plan._bcond is not None:
+        _check_expr(plan._bcond)
+        if not isinstance(plan._bcond.data_type, T.BooleanType):
+            _unsupported("a non-boolean join condition")
 
 
 # the aggregates over values of the numeric types only (their moments are
@@ -427,7 +685,7 @@ _NUMERIC_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
 _INTEGRAL_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
 
 
-def _check_aggregate(func, ansi: bool) -> None:
+def _check_aggregate(func) -> None:
     """A grouped aggregate of the slice over a child of a type it takes:
     every aggregate of the JAX `_agg_one`; CollectList, CollectSet and
     ApproximatePercentile (array results and the single-pass path) and
@@ -454,39 +712,22 @@ def _check_aggregate(func, ansi: bool) -> None:
         _unsupported(what)
     for pt in func.partial_types():
         check_supported(pt, f"{what}: its partial buffer")
-    _check_expr(func.child, ansi)
+    _check_expr(func.child)
     check_supported(func.data_type, f"{name} result")
 
 
-def _check_orders(bound_orders, ansi: bool) -> None:
+def _check_orders(bound_orders) -> None:
     """Sort keys: expressions of the slice, each of a carried type."""
     for e, _, _ in bound_orders:
-        _check_expr(e, ansi)
+        _check_expr(e)
         check_supported(e.data_type, "sort key")
-
-
-def _convert_limit(plan: N.CpuLimitExec, children, conf):
-    """LIMIT over ORDER BY becomes a top-k (TakeOrderedAndProjectExec
-    analog, GpuOverrides.scala:3705): a per-batch k-select and a running
-    merge replace the full sort, when spark.rapids.sql.topK.enabled and
-    limit + offset <= spark.rapids.sql.topK.threshold."""
-    from ..exec.basic import TpuLimitExec
-    from ..exec.sort import TpuSortExec, TpuTopKExec
-    child = children[0]
-    if conf.get("spark.rapids.sql.topK.enabled") and \
-            isinstance(child, TpuSortExec) and not child.each_batch and \
-            plan.limit + plan.offset <= \
-            conf.get("spark.rapids.sql.topK.threshold"):
-        return TpuTopKExec(child.orders, plan.limit, child.child, conf,
-                           plan.offset)
-    return TpuLimitExec(plan.limit, child, plan.offset, conf)
 
 
 _WINDOW_AGGREGATES = ("Sum", "Count", "Min", "Max", "Average", "First",
                       "Last")
 
 
-def _check_window(plan: N.CpuWindowExec, ansi: bool) -> None:
+def _check_window(plan: N.CpuWindowExec) -> None:
     """`_tag_window` and `_tag_window_agg` of the JAX package, as errors:
     every function needing an ORDER BY has one; value-offset RANGE frames
     have one order column of a numeric, date or timestamp type; window
@@ -497,11 +738,10 @@ def _check_window(plan: N.CpuWindowExec, ansi: bool) -> None:
     accumulates it in one 1-D buffer under a 128-bit type, and its result
     fails to convert) and a Min or Max over a decimal of more than 18
     digits (the JAX window's neutral fill does not broadcast over limbs)."""
-    from ..expr import windowexprs as WX
     for e in plan._bound_part:
-        _check_expr(e, ansi)
+        _check_expr(e)
         check_supported(e.data_type, "window partition key")
-    _check_orders(plan._bound_order, ansi)
+    _check_orders(plan._bound_order)
     has_order = bool(plan.order_spec)
     for f, name in plan._bound_fns:
         what = f"window column {name}"
@@ -521,7 +761,7 @@ def _check_window(plan: N.CpuWindowExec, ansi: bool) -> None:
                 _unsupported(f"{what}: a value-offset RANGE frame over a "
                              f"{key_t.simple_string()} order column")
         for c in f.children:
-            _check_expr(c, ansi)
+            _check_expr(c)
         if isinstance(f, WX.WindowAggregate):
             _check_window_agg(f, what)
         elif isinstance(f, (WX.Lead, WX.Lag)) and \
@@ -531,7 +771,6 @@ def _check_window(plan: N.CpuWindowExec, ansi: bool) -> None:
 
 
 def _check_window_agg(f, what: str) -> None:
-    from ..expr import windowexprs as WX
     name = type(f.func).__name__
     if name not in _WINDOW_AGGREGATES:
         _unsupported(f"{what}: {name} over a window")

@@ -2,6 +2,13 @@
 read_parquet and execute_plan, without the result cache, statistics, live view, scheduler
 or telemetry hooks).
 
+`execute_plan` runs the rewritten plan: a device root streams its batches
+to Arrow; a host root (a tagged root, `spark.rapids.sql.enabled=false`,
+`use_device=False`, `spark.rapids.sql.mode=explainOnly`) runs by
+`execute_cpu`. A device stream that raises `CpuFallbackRequired` is rerun
+whole on the host engine, and the rerun counted
+(`TaskMetrics.cpu_fallback_reruns`), as in the JAX session.
+
 The session owns the device. `TpuSession(conf)` runs on `cuda:0` (or
 `cuda:<spark.rapids.tpu.device.ordinal>`); with no CUDA it raises instead
 of moving to the CPU. Tests and CPU callers ask for the CPU explicitly with
@@ -67,7 +74,8 @@ class TpuSession:
                                                  **options))
 
     def plan_device(self, plan: PhysicalPlan):
-        """The device exec tree for a plan (rewrite + fusion)."""
+        """The rewritten plan: a device exec tree (with host subtrees
+        under TpuFromCpuExec), or a host plan."""
         ov = Overrides(self.conf, self.device)
         root = ov.apply(plan)
         self._last_explain = ov.explain_string()
@@ -75,15 +83,36 @@ class TpuSession:
             print(self._last_explain)
         return root
 
-    def execute_plan(self, plan: PhysicalPlan):
-        """Rewrite a plan, run it on the session device, and return a
-        pyarrow Table."""
+    def execute_plan(self, plan: PhysicalPlan,
+                     use_device: Optional[bool] = None):
+        """Rewrite a plan, run it, and return a pyarrow Table. With
+        `use_device=False`, or `spark.rapids.sql.enabled=false`, the whole
+        plan runs on the host engine."""
+        from .cpu.hostbatch import host_conf, set_host_conf
+        from .errors import CpuFallbackRequired
+        from .exec.base import TpuExec
         from .memory.budget import MemoryBudget
         from .utils.metrics import TaskMetrics
-        root = self.plan_device(plan)
+        enabled = self.conf.is_sql_enabled if use_device is None else \
+            use_device
+        root = self.plan_device(plan) if enabled else plan
         TaskMetrics.reset()  # fresh counters: they describe this collect
         MemoryBudget.get().reset_peak()
-        tables = [batch_to_arrow(b) for b in root.execute()]
+        prev = host_conf()
+        set_host_conf(self.conf)
+        try:
+            if not isinstance(root, TpuExec):
+                tables = [batch_to_arrow(b) for b in root.execute_cpu()]
+            else:
+                try:
+                    tables = [batch_to_arrow(b) for b in root.execute()]
+                except CpuFallbackRequired:
+                    # the device cannot represent this data: rerun the
+                    # whole plan on the host (plan sources are idempotent)
+                    TaskMetrics.get().cpu_fallback_reruns += 1
+                    tables = [batch_to_arrow(b) for b in plan.execute_cpu()]
+        finally:
+            set_host_conf(prev)
         return concat_tables(tables, plan.output)
 
     def explain_plan(self, plan: PhysicalPlan) -> str:

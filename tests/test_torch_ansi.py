@@ -715,14 +715,23 @@ def test_ansi_string_cast_refused_at_plan_time():
 
 def test_ansi_date_cast_refused_as_in_jax():
     """JAX `_tag_cast`: under ANSI only numeric and decimal casts run on
-    the device; a date or timestamp cast is refused (it runs without
-    ANSI)."""
+    the device; a date or timestamp cast is refused there and runs on the
+    host engine (its explain line says why), with the value it has
+    without ANSI, as in the JAX engine's CPU engine."""
     t = pa.table({"k": L(1, 2)})
-    q = lambda s: s.from_arrow(t).select(x=PE.Cast(PE.col("k"),
-                                                   T.TIMESTAMP))
-    with pytest.raises(NotImplementedError, match="ANSI-mode cast"):
-        q(TpuSession(ANSI, device="cpu")).explain()
-    assert q(TpuSession(BASE, device="cpu")).collect().num_rows == 2
+    q = lambda s, m, tp: s.from_arrow(t).select(  # noqa: E731
+        x=m.Cast(m.col("k"), tp.TIMESTAMP))
+    conf = dict(ANSI, **{"spark.rapids.sql.explain": "ALL"})
+    sess = TpuSession(conf, device="cpu")
+    sess.plan_device(q(sess, PE, T).plan)
+    assert sess._last_explain.splitlines()[0] == (
+        "! CpuProjectExec <- ANSI-mode cast long -> timestamp is not "
+        "supported on TPU yet")
+    got = q(sess, PE, T).collect()
+    assert got.equals(q(TpuSession(BASE, device="cpu"), PE, T).collect())
+    want = q(JaxSession(ANSI), JE, JT).collect_cpu()
+    assert got.column("x").cast(pa.int64()).to_pylist() == \
+        want.column("x").cast(pa.int64()).to_pylist() == [10 ** 6, 2 * 10 ** 6]
 
 
 @pytest.mark.parametrize("key", ["spark.sql.ansi.enabled",
