@@ -2415,8 +2415,8 @@ def dec38_array(pa, cents, valid=None):
 
 
 def agg_tables(pa, sizes=AGG_SIZES, seed: int = 47) -> dict:
-    """The tables of the tpcds_aggregates phase from one seed: date_dim as
-    join_tables builds it; item with i_item_desc (text of 4-200 bytes, its
+    """The tables of the tpcds_aggregates and strings phases from one
+    seed: date_dim as join_tables builds it, with TPC-DS's d_date; item with i_item_desc (text of 4-200 bytes, its
     first four letters unique to the item), i_brand, and i_current_price
     and i_wholesale_cost as decimal(7,2); store with a unique
     s_store_name; warehouse with w_warehouse_name of up to 20 bytes;
@@ -2432,10 +2432,12 @@ def agg_tables(pa, sizes=AGG_SIZES, seed: int = 47) -> dict:
     when = np.datetime64("1900-01-02") + day
     year = when.astype("datetime64[Y]").astype(np.int64) + 1970
     moy = when.astype("datetime64[M]").astype(np.int64) % 12 + 1
-    t = {"date_dim": pa.table({  # join_tables' date_dim
+    t = {"date_dim": pa.table({  # join_tables' date_dim, and d_date
         "d_date_sk": FIRST_DATE_SK + day,
         "d_year": year.astype(np.int32), "d_moy": moy.astype(np.int32),
-        "d_month_seq": ((year - 1900) * 12 + moy - 1).astype(np.int32)})}
+        "d_month_seq": ((year - 1900) * 12 + moy - 1).astype(np.int32),
+        "d_date": pa.array(when.astype("datetime64[D]").astype(np.int64)
+                           .astype(np.int32), pa.date32())})}
     wholesale = rng.integers(100, 10_001, n_item)  # 1.00 .. 100.00
     t["item"] = pa.table({
         "i_item_sk": np.arange(1, n_item + 1),
@@ -2870,7 +2872,8 @@ AGG_LAUNCHES = {
 
 def agg_data(pa, d: str, sizes=AGG_SIZES) -> dict:
     """agg_tables, their oracle and their parquet files in directory d,
-    with the seconds each took."""
+    and the strings phase's oracle and file (strings_data), with the
+    seconds each took."""
     import pyarrow.parquet as pq
     t0 = time.monotonic()
     tables = agg_tables(pa, sizes)
@@ -2878,9 +2881,11 @@ def agg_data(pa, d: str, sizes=AGG_SIZES) -> dict:
     want = agg_oracle(pa, tables)
     t2 = time.monotonic()
     paths = write_parquet(pq, tables, d, tag="_aggs")
+    t3 = time.monotonic()
+    strings = strings_data(pa, tables, d, paths)
     return {"tables": tables, "oracle": want, "paths": paths,
-            "tables_s": t1 - t0, "oracle_s": t2 - t1,
-            "write_s": time.monotonic() - t2}
+            "strings": strings, "tables_s": t1 - t0, "oracle_s": t2 - t1,
+            "write_s": t3 - t2, "strings_s": time.monotonic() - t3}
 
 
 def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
@@ -4198,6 +4203,488 @@ def cpu_engine_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
     lines.append(line)
     return lines, launches
 
+# ---- strings (slice 14): TPC-DS q23's frequent_ss_items, a text report
+# and LIKE/RLIKE over item's descriptions, and the long-string layout at
+# spark.rapids.tpu.string.headWidth=64, over agg_tables' files (with
+# date_dim's d_date). Each query is collected once, checked and counted.
+STRINGS_YEARS = (2000, 2001, 2002, 2003)  # q23: d_year in (2000, .., +3)
+STRINGS_HAVING = 4  # q23: having count(*) > 4
+STRINGS_LIMIT = 100
+STRINGS_MONTH = (2001, 1)  # 3(a): d_year = 2001 and d_moy = 1
+STRINGS_LIKE = "ab%"
+STRINGS_RLIKE = "^[a-c]b"
+STRINGS_HEAD = 64  # 3: spark.rapids.tpu.string.headWidth
+# 3(a): timed collects of each width after the checked one, in turns
+STRINGS_CARRY_ROUNDS = 4
+# 3(b): the host rerun reads the first 4 row groups of store_sales
+STRINGS_HOST_ROWS = 4 * (1 << 20)
+STRINGS_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False,
+                "spark.rapids.tpu.fusion.enabled": True}
+# kernel C a merged store_sales batch under the distributed plan: the
+# fused partial aggregates' int64 sums and counts (q23's count(*); the
+# report's five aggregates less the string max; the LIKE joins' price sum
+# and count(*)), as tests/test_torch_smoke_strings.py counts them on the
+# CPU; none on one device, and none in 3's month of sales (no aggregate).
+# A is 2 a fused join a batch (fused_joins).
+STRINGS_C_PER_BATCH = {"q23": 1, "q23_top": 1, "report": 7, "like": 3,
+                       "rlike": 3, "carry": 0}
+
+
+def strings_namespace() -> SimpleNamespace:
+    """The port's constructors that strings_queries uses."""
+    from spark_rapids_tpu_torch import expr as E
+    return SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "In", "Sum", "Count", "Average", "Max", "If",
+        "Substring", "Upper", "Length", "Contains", "Concat", "StringTrim",
+        "Like", "RLike")})
+
+
+def strings_queries(sess, m, paths: dict, sales: str = "store_sales"
+                    ) -> dict:
+    """The strings phase's queries as DataFrames of `sess` over agg_tables'
+    files, written once for either engine through the namespace `m`:
+    q23's frequent_ss_items (`q23`, with TPC-DS's HAVING, and `q23_top`,
+    the same aggregate ordered by cnt DESC, itemdesc, i_item_sk, d_date
+    LIMIT 100), the text report by upper(substr(i_item_desc, 1, 2)), the
+    sales per item of the items whose description matches LIKE 'ab%' and
+    RLIKE '^[a-c]b', and `carry` (3(a)): a month of sales with its items'
+    descriptions, no byte read. `sales` names the store_sales file."""
+    c, lit = m.col, m.lit
+
+    def read(name, cols):
+        return sess.read_parquet(paths[name], columns=cols)
+
+    def joined(cols):
+        dates = read("date_dim", ["d_date_sk", "d_year", "d_date"]).filter(
+            m.In(c("d_year"), list(STRINGS_YEARS))).select(
+            "d_date", ss_sold_date_sk=c("d_date_sk"))
+        items = read("item", ["i_item_sk", "i_item_desc", "i_brand"]) \
+            .select("i_item_desc", "i_brand", ss_item_sk=c("i_item_sk"))
+        return read(sales, ["ss_sold_date_sk", "ss_item_sk"] + cols) \
+            .join(dates, on="ss_sold_date_sk").join(items, on="ss_item_sk")
+
+    fs = joined([]).select(
+        itemdesc=m.Substring(c("i_item_desc"), lit(1), lit(30)),
+        i_item_sk=c("ss_item_sk"), d_date=c("d_date")) \
+        .group_by("itemdesc", "i_item_sk", "d_date") \
+        .agg(cnt=m.Count(lit(1)))
+    desc = c("i_item_desc")
+    report = joined(["ss_sales_price"]).select(
+        prefix=m.Upper(m.Substring(desc, lit(1), lit(2))),
+        price=c("ss_sales_price"), dlen=m.Length(desc),
+        qu=m.If(m.Contains(desc, lit(" qu")), lit(1), lit(0)),
+        label=m.Concat(c("i_brand"), lit("/"), m.StringTrim(
+            m.Substring(desc, lit(5), lit(12))))) \
+        .group_by("prefix").agg(
+            sales=m.Sum(c("price")), n=m.Count(lit(1)),
+            avg_len=m.Average(c("dlen")), qu=m.Sum(c("qu")),
+            label=m.Max(c("label"))).sort("prefix")
+
+    def matched(pred):
+        items = read("item", ["i_item_sk", "i_item_desc"]).filter(pred) \
+            .select(ss_item_sk=c("i_item_sk"))
+        return read(sales, ["ss_item_sk", "ss_sales_price"]) \
+            .join(items, on="ss_item_sk").group_by("ss_item_sk") \
+            .agg(sales=m.Sum(c("ss_sales_price")), n=m.Count(lit(1))) \
+            .sort("ss_item_sk")
+
+    month = read("date_dim", ["d_date_sk", "d_year", "d_moy"]).filter(
+        (c("d_year") == lit(STRINGS_MONTH[0]))
+        & (c("d_moy") == lit(STRINGS_MONTH[1]))).select(
+        ss_sold_date_sk=c("d_date_sk"))
+    carry = read(sales, ["ss_sold_date_sk", "ss_item_sk"]) \
+        .join(month, on="ss_sold_date_sk") \
+        .join(read("item", ["i_item_sk", "i_item_desc"]).select(
+            "i_item_desc", ss_item_sk=c("i_item_sk")), on="ss_item_sk") \
+        .select("ss_item_sk", "ss_sold_date_sk", "i_item_desc")
+    return {"q23": fs.filter(c("cnt") > lit(STRINGS_HAVING)).sort(
+                "itemdesc", "i_item_sk", "d_date"),
+            "q23_top": fs.sort(("cnt", False, False), "itemdesc",
+                               "i_item_sk", "d_date").limit(STRINGS_LIMIT),
+            "report": report,
+            "like": matched(m.Like(desc, lit(STRINGS_LIKE))),
+            "rlike": matched(m.RLike(desc, lit(STRINGS_RLIKE))),
+            "carry": carry}
+
+
+def strings_oracle(pa, t: dict, n_sales: int = None) -> dict:
+    """numpy answers to strings_queries over agg_tables (the first
+    `n_sales` sales when given): columns in the queries' order, decimals
+    as unscaled ints, dates as days since the epoch, strings as Python
+    str; `carry`'s row count and `q23_groups`."""
+    ss, dd, it = t["store_sales"], t["date_dim"], t["item"]
+    if n_sales is not None:
+        ss = ss.slice(0, n_sales)
+    dsk = dd.column("d_date_sk").to_numpy()
+    yr = np.zeros(dsk.max() + 1, np.int32)
+    yr[dsk] = dd.column("d_year").to_numpy()
+    moy = np.zeros(dsk.max() + 1, np.int32)
+    moy[dsk] = dd.column("d_moy").to_numpy()
+    day = np.zeros(dsk.max() + 1, np.int64)
+    day[dsk] = dd.column("d_date").cast(pa.int32()).to_numpy()
+    date = ss.column("ss_sold_date_sk").to_numpy()
+    item = ss.column("ss_item_sk").to_numpy()
+    cents, valid = unscaled(ss.column("ss_sales_price"))
+    descs = [v.encode() for v in it.column("i_item_desc").to_pylist()]
+    brands = [v.encode() for v in it.column("i_brand").to_pylist()]
+    n_item = len(descs)
+    keep = np.isin(yr[date], STRINGS_YEARS)
+    # q23: count(*) by (item, d_date); itemdesc is unique to the item
+    d0 = int(day.min())
+    span = int(day.max()) - d0 + 1
+    key = item[keep] * span + (day[date[keep]] - d0)
+    groups, cnt = np.unique(key, return_counts=True)
+    g_item, g_day = groups // span, groups % span + d0
+    desc30 = [d[:30] for d in descs]
+    rank = np.empty(n_item + 1, np.int64)
+    rank[1 + np.array(sorted(range(n_item), key=desc30.__getitem__))] = \
+        np.arange(n_item)
+
+    def rows(sel, limit=None):
+        ix = np.flatnonzero(sel)
+        ix = ix[np.lexsort((g_day[ix], g_item[ix], rank[g_item[ix]],
+                            -cnt[ix]) if limit else
+                           (g_day[ix], g_item[ix], rank[g_item[ix]]))]
+        ix = ix[:limit]
+        return {"itemdesc": [desc30[i - 1].decode() for i in g_item[ix]],
+                "i_item_sk": g_item[ix].tolist(),
+                "d_date": g_day[ix].tolist(), "cnt": cnt[ix].tolist()}
+
+    top_cut = np.partition(cnt, -STRINGS_LIMIT)[-STRINGS_LIMIT] \
+        if len(cnt) >= STRINGS_LIMIT else 0
+    out = {"q23": rows(cnt > STRINGS_HAVING),
+           "q23_top": rows(cnt >= top_cut, STRINGS_LIMIT),
+           "q23_groups": int(len(groups))}
+    # the report by upper(substr(desc, 1, 2)), over the prefixes sold
+    pcode, item_pid = np.unique(np.array([d[:2].upper() for d in descs],
+                                         object), return_inverse=True)
+    pid_of = np.concatenate(([0], item_pid))
+    sold, pid = np.unique(pid_of[item[keep]], return_inverse=True)
+    pcode = pcode[sold]
+    ng = len(pcode)
+    ok = valid[keep]
+    sales = np.zeros(ng, np.int64)
+    np.add.at(sales, pid[ok], cents[keep][ok])
+    has = np.bincount(pid[ok], minlength=ng) > 0
+    n = np.bincount(pid, minlength=ng)
+    lens = np.array([0] + [len(d) for d in descs], np.int64)
+    qu = np.array([0] + [b" qu" in d for d in descs], np.int64)
+    label = [b""] + [brands[i] + b"/" + descs[i][4:16].strip(b" ")
+                     for i in range(n_item)]
+    best = [b""] * ng
+    for gi in np.unique(pid * (n_item + 1) + item[keep]):
+        g, i = divmod(int(gi), n_item + 1)
+        best[g] = max(best[g], label[i])
+    out["report"] = {
+        "prefix": [p.decode() for p in pcode],
+        "sales": [int(v) if h else None for v, h in zip(sales, has)],
+        "n": n.tolist(),
+        "avg_len": (np.bincount(pid, weights=lens[item[keep]], minlength=ng)
+                    / n).tolist(),
+        "qu": np.bincount(pid, weights=qu[item[keep]], minlength=ng)
+        .astype(np.int64).tolist(),
+        "label": [b.decode() for b in best]}
+    for name, test in (("like", lambda d: d.startswith(b"ab")),
+                       ("rlike", lambda d: d[:1] in (b"a", b"b", b"c")
+                        and d[1:2] == b"b")):
+        hit = np.array([False] + [test(d) for d in descs])
+        sel = hit[item]
+        ks, kid = np.unique(item[sel], return_inverse=True)
+        ok = valid[sel]
+        tot = np.zeros(len(ks), np.int64)
+        np.add.at(tot, kid[ok], cents[sel][ok])
+        hs = np.bincount(kid[ok], minlength=len(ks)) > 0
+        out[name] = {"ss_item_sk": ks.tolist(),
+                     "sales": [int(v) if h else None for v, h in
+                               zip(tot, hs)],
+                     "n": np.bincount(kid, minlength=len(ks)).tolist()}
+        out[f"{name}_items"] = int(hit.sum())
+    out["carry_rows"] = int(((yr[date] == STRINGS_MONTH[0])
+                             & (moy[date] == STRINGS_MONTH[1])).sum())
+    out["long_descs"] = int(sum(len(d) > STRINGS_HEAD for d in descs))
+    return out
+
+
+def strings_data(pa, tables: dict, d: str, paths: dict,
+                 host_rows: int = STRINGS_HOST_ROWS) -> dict:
+    """The strings phase's oracles (over all sales, and over the first
+    `host_rows` that the host rerun reads) and the file of those first
+    rows, beside agg_data's files in directory d."""
+    import pyarrow.parquet as pq
+    head = {"store_sales_head": tables["store_sales"].slice(0, host_rows)}
+    return {"oracle": strings_oracle(pa, tables),
+            "oracle_head": strings_oracle(pa, tables, host_rows),
+            "paths": dict(paths, **write_parquet(pq, head, d,
+                                                 tag="_strings"))}
+
+
+def check_strings(pa, name: str, out, want: dict) -> None:
+    """Raise unless a strings query's result equals the oracle: every
+    column exact, the report's avg_len within rtol 1e-12."""
+    if out.num_rows != len(next(iter(want.values()))):
+        raise AssertionError(f"strings {name}: {out.num_rows} rows, the "
+                             f"oracle {len(next(iter(want.values())))}")
+    for col, w in want.items():
+        got = out.column(col)
+        if pa.types.is_decimal(got.type):
+            got = [None if v is None else int(v.scaleb(-v.as_tuple()
+                                                       .exponent))
+                   for v in got.to_pylist()]
+        elif pa.types.is_date32(got.type):
+            got = got.cast(pa.int32()).to_pylist()
+        else:
+            got = got.to_pylist()
+        if col == "avg_len":
+            if not np.allclose(got, w, rtol=1e-12, atol=0):
+                raise AssertionError(f"strings {name}: {col} differs")
+        elif got != w:
+            raise AssertionError(f"strings {name}: column {col} differs "
+                                 "from the oracle")
+
+
+def _string_bytes(batch, name: str) -> int:
+    """Bytes of one string column of a batch: head or flat matrix,
+    lengths, validity, and a long column's blob and tail offsets."""
+    c = batch.columns[batch.schema.names.index(name)]
+    return sum(t.numel() * t.element_size() for t in c.leaves())
+
+
+def strings_phases(torch, pa, mesh_conf: dict, counters, data: dict,
+                   conf=None, device=None, gather_rows: int = 1 << 20,
+                   c_per_batch=STRINGS_C_PER_BATCH,
+                   carry_rounds: int = STRINGS_CARRY_ROUNDS):
+    """Phase strings over agg_tables' files (`data`: strings_data):
+      1. q23's frequent_ss_items (HAVING and top 100) and 2. the text
+         report and the LIKE/RLIKE item sales, on one device and under the
+         distributed plan, exact against strings_oracle;
+      3. at headWidth=64: (a) a month of sales carrying i_item_desc (no
+         byte op: the plan stays on the card) against the same query at
+         the default width, as sorted row sets, with the string column's
+         bytes a batch at both widths, then `carry_rounds` timed collects
+         of each width in turns; (b) q23 over the first
+         STRINGS_HOST_ROWS sales, where Substring meets the long layout
+         and the plan reruns on the host once, against the oracle of
+         those rows and the same query at the default width; (c) (a)
+         with autoBroadcastJoinThreshold=-1 under the distributed plan,
+         item's tails crossing the exchange's byte plane.
+    Every collect launches A 2 a fused join (explain tree) a merged
+    store_sales batch, and C `c_per_batch` a batch under the distributed
+    plan (`held`); 3(b)'s device attempt at headWidth=64 stops at its
+    first batch's Substring, after that batch's probes, and the host
+    rerun launches nothing. Then the device times of the regex machine on item's descriptions and
+    of Substring on a `gather_rows`-row gather of them. Prints one line a
+    query and plan, and one for the kernels of the expressions; returns
+    the launches of each plan's run (one collect of each query)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.expr.base import EvalContext, Vec
+    from spark_rapids_tpu_torch.expr import regex as RX
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    from spark_rapids_tpu_torch.utils.metrics import TaskMetrics
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **STRINGS_CONF)
+    paths, want = data["paths"], data["oracle"]
+    def batches_of(name):
+        rgs = pq.ParquetFile(paths[name]).metadata.num_row_groups
+        return -(-rgs // CHUNKS_PER_DISPATCH)
+    batches = batches_of("store_sales")
+    m = strings_namespace()
+    t_phase = time.monotonic()
+
+    def collect(q):
+        """One collect: (table, wall s, launches, reruns, peak bytes)."""
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        return out, wall, launched(), \
+            TaskMetrics.get().cpu_fallback_reruns, peak
+
+    def launched():
+        return {k.__name__: k.launches for k in counters}
+
+    def held(what, shape, ran, name, n_batches, distributed):
+        """Raise unless a collect launched A and C as its explain tree
+        says: (A, C) of `n_batches` store_sales batches."""
+        a = 2 * fused_joins(shape) * n_batches
+        c = c_per_batch[name] * n_batches if distributed else 0
+        if (ran["murmur3_rows"], ran["segment_sum_i64"]) != (a, c):
+            raise AssertionError(f"strings {what} launched {ran}, not A "
+                                 f"{a} and C {c}")
+
+    launches = {}
+    for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+        qs = strings_queries(TpuSession(dict(conf, **extra), dev), m, paths)
+        run = {}
+        for n in ("q23", "q23_top", "report", "like", "rlike"):
+            shape = qs[n].explain()
+            out, wall, run[n], reruns, peak = collect(qs[n])
+            check_strings(pa, n, out, want[n])
+            held(f"{n} ({plan})", shape, run[n], n, batches,
+                 plan == "distributed")
+            if reruns:
+                raise AssertionError(f"strings {n} ({plan}): {reruns} "
+                                     "reruns")
+            emit({"phase": "strings", "query": n, "plan": plan,
+                  "rows": out.num_rows, "collect_s": wall,
+                  "launches": run[n], "fused_joins": fused_joins(shape),
+                  "store_sales_batches": batches,
+                  "exchanges": shape.count("TpuShuffleExchangeExec"),
+                  "cpu_fallback_reruns": reruns,
+                  "max_memory_allocated": peak})
+        path = "strings" if plan == "one_device" else "strings_distributed"
+        launches[path] = {k: sum(r[k] for r in run.values())
+                          for k in run["q23"]}
+    # 3. the long-string layout at headWidth=64
+    head = {"spark.rapids.tpu.string.headWidth": STRINGS_HEAD}
+    carry, carry_bytes, carry_q = {}, {}, {}
+    for width, extra in (("256", {}), ("64", head)):
+        sess = TpuSession(dict(conf, **extra), dev)
+        q = carry_q[width] = strings_queries(sess, m, paths)["carry"]
+        shape = q.explain()
+        out, wall, ran, reruns, peak = collect(q)
+        held(f"3(a) at width {width}", shape, ran, "carry", batches, False)
+        per_batch = [_string_bytes(b, "i_item_desc")
+                     for b in sess.plan_device(q.plan).execute()]
+        carry[width] = out.sort_by([(n, "ascending") for n in
+                                    out.column_names])
+        carry_bytes[width] = per_batch
+        if out.num_rows != want["carry_rows"] or reruns:
+            raise AssertionError(f"3(a) at width {width}: {out.num_rows} "
+                                 f"rows, {reruns} reruns")
+        emit({"phase": "strings", "query": "carry", "head_width": width,
+              "rows": out.num_rows, "collect_s": wall, "launches": ran,
+              "fused_joins": fused_joins(shape),
+              "cpu_fallback_reruns": reruns, "max_memory_allocated": peak,
+              "string_bytes_per_batch": per_batch})
+    if not carry["64"].equals(carry["256"]):
+        raise AssertionError("3(a): the row sets differ between widths")
+    carry_walls = {"256": [], "64": []}
+    for r in range(carry_rounds):
+        for width in ("256", "64") if r % 2 == 0 else ("64", "256"):
+            carry_walls[width].append(collect(carry_q[width])[1])
+    # bytes of the column gathered to gather_rows rows, at both widths
+    item = pq.read_table(paths["item"], columns=["i_item_desc"])
+    idx = torch.from_numpy(np.random.default_rng(3).integers(
+        0, item.num_rows, gather_rows)).to(dev)
+    gathered = {}
+    for width, hw in (("256", None), ("64", STRINGS_HEAD)):
+        col = batch_from_arrow(item, dev, conf=None if hw is None else
+                               TpuConf(head)).columns[0]
+        v = Vec.from_column(col).gather(idx)
+        gathered[width] = sum(t.numel() * t.element_size()
+                              for t in v.to_column().leaves())
+    # 3(b): q23 over the first rows: the host rerun
+    head_want = data["oracle_head"]
+    head_batches = batches_of("store_sales_head")
+    twins = {}
+    for width, extra in (("256", {}), ("64", head)):
+        q = strings_queries(TpuSession(dict(conf, **extra), dev), m, paths,
+                            sales="store_sales_head")["q23_top"]
+        shape = q.explain()
+        attempt = []  # the launches when the host rerun starts
+        rerun = q.plan.execute_cpu
+        q.plan.execute_cpu = lambda: (attempt.append(launched()),
+                                      rerun())[1]
+        out, wall, ran, reruns, peak = collect(q)
+        check_strings(pa, "q23_top (first rows)", out, head_want["q23_top"])
+        if reruns != (1 if width == "64" else 0) or \
+                len(attempt) != reruns:
+            raise AssertionError(f"3(b) at width {width}: {reruns} reruns")
+        if attempt:  # the device attempt, then nothing on the host
+            held("3(b)'s device attempt", shape, attempt[0], "q23_top", 1,
+                 False)
+            if ran != attempt[0]:
+                raise AssertionError(f"3(b): the host rerun launched "
+                                     f"{ran} after {attempt[0]}")
+        else:
+            held("3(b) at width 256", shape, ran, "q23_top", head_batches,
+                 False)
+        twins[width] = out
+        emit({"phase": "strings", "query": "q23_top_host_rerun",
+              "head_width": width, "sales_rows": STRINGS_HOST_ROWS,
+              "rows": out.num_rows, "collect_s": wall, "launches": ran,
+              "device_attempt_launches": attempt[0] if attempt else None,
+              "fused_joins": fused_joins(shape),
+              "store_sales_batches": head_batches,
+              "cpu_fallback_reruns": reruns, "max_memory_allocated": peak})
+    if not twins["64"].equals(twins["256"]):
+        raise AssertionError("3(b): the rerun differs from the device run")
+    # 3(c): (a) shuffled under the distributed plan at both widths
+    shuffled = {}
+    for width, extra in (("256", {}), ("64", head)):
+        sess = TpuSession(dict(conf, **mesh_conf, **extra, **{
+            "spark.rapids.sql.autoBroadcastJoinThreshold": -1}), dev)
+        q = strings_queries(sess, m, paths)["carry"]
+        shape = q.explain()
+        out, wall, ran, reruns, peak = collect(q)
+        held(f"3(c) at width {width}", shape, ran, "carry", batches, True)
+        shuffled[width] = out.sort_by([(n, "ascending") for n in
+                                       out.column_names])
+        if reruns or shape.count("TpuShuffleExchangeExec") < 2:
+            raise AssertionError(f"3(c) at width {width}: {reruns} reruns,"
+                                 f" plan:\n{shape}")
+        emit({"phase": "strings", "query": "carry_shuffled",
+              "head_width": width, "rows": out.num_rows, "collect_s": wall,
+              "launches": ran, "fused_joins": fused_joins(shape),
+              "exchanges": shape.count("TpuShuffleExchangeExec"),
+              "cpu_fallback_reruns": reruns, "max_memory_allocated": peak})
+        if not shuffled[width].equals(carry["256"]):
+            raise AssertionError(f"3(c) at width {width} differs from 3(a)")
+    # the device times of the string expressions
+    desc = batch_from_arrow(item, dev).columns[0]
+    like = m.Like(m.col("s"), m.lit(STRINGS_LIKE))
+    rlike = m.RLike(m.col("s"), m.lit(STRINGS_RLIKE))
+    got = RX.match_plan(like._plan, desc.data, desc.lengths)
+    n_like = int((got & desc.validity)[:item.num_rows].sum())
+    if n_like != want["like_items"]:
+        raise AssertionError(f"match_plan: {n_like} LIKE items, the oracle "
+                             f"{want['like_items']}")
+    big = Vec.from_column(desc).gather(idx)
+    bctx = EvalContext(torch.ones(gather_rows, dtype=torch.bool,
+                                  device=dev))
+    sub = m.Substring(m.col("s"), m.lit(1), m.lit(30))
+    one, thirty = (Vec.from_column(_lit_col(torch, v, gather_rows, dev))
+                   for v in (1, 30))
+    times = {
+        "like_match_plan": time_ms(torch, lambda: RX.match_plan(
+            like._plan, desc.data, desc.lengths), rounds=5, calls=3),
+        "rlike_match_plan": time_ms(torch, lambda: RX.match_plan(
+            rlike._plan, desc.data, desc.lengths), rounds=5, calls=3),
+        "substring_1_30": time_ms(torch, lambda: sub._compute(
+            bctx, big, one, thirty), rounds=5, calls=3)}
+    emit({"phase": "strings", "check": "layout_and_expressions",
+          "head_width": STRINGS_HEAD, "long_descs": want["long_descs"],
+          "items": item.num_rows, "like_items": want["like_items"],
+          "rlike_items": want["rlike_items"],
+          "q23_groups": want["q23_groups"],
+          "q23_having_rows": len(want["q23"]["cnt"]),
+          "carry_bytes_per_batch": carry_bytes,
+          "carry_collect_s": {w: spread(v) for w, v in carry_walls.items()},
+          "gathered_bytes": {"rows": gather_rows, **gathered,
+                             "ratio": gathered["256"] / gathered["64"]},
+          "device_ms": times, "substring_shape": [gather_rows,
+                                                  int(big.data.shape[1])],
+          "seconds": time.monotonic() - t_phase})
+    return launches
+
+
+def _lit_col(torch, value: int, n: int, dev):
+    """An INT column of n rows, all `value` (a Substring argument)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import Column
+    return Column(T.INT, torch.full((n,), value, dtype=torch.int32,
+                                    device=dev),
+                  torch.ones(n, dtype=torch.bool, device=dev))
+
 
 DATA_SETS = ("star", "decimal", "joins", "aggs")
 
@@ -4719,6 +5206,7 @@ def run_phases(torch, ready: dict) -> int:
     _, ansi_launches = ansi_phases(torch, pa, mesh_conf, kernels3,
                                    dec=dec_files, joins=join_data,
                                    aggs=agg_data)
+    strings_in = agg_data["strings"]
     del agg_data
 
     # ---- memory: at the session's budget no phase above spilled; the
@@ -4744,6 +5232,13 @@ def run_phases(torch, ready: dict) -> int:
     _, cpu_launches = cpu_engine_phases(torch, pa, mesh_conf, kernels3,
                                         dec=dec_files, fact=fact, dim=dim)
     del dec_files
+
+    # ---- strings: q23's frequent items, a text report and LIKE/RLIKE over
+    # item's descriptions on both plans, and the long-string layout at
+    # headWidth=64 (a month of sales carrying the descriptions, q23's host
+    # rerun, the exchange's tail-byte plane)
+    strings_launches = strings_phases(torch, pa, mesh_conf, kernels3,
+                                      strings_in)
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -4808,7 +5303,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in files_launches.items()},
                     **{p: n[name] for p, n in ansi_launches.items()},
                     **{p: n[name] for p, n in memory_launches.items()},
-                    **{p: n[name] for p, n in cpu_launches.items()})
+                    **{p: n[name] for p, n in cpu_launches.items()},
+                    **{p: n[name] for p, n in strings_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

@@ -89,8 +89,9 @@ class ColumnarBatch:
                             device=self.device) < self.num_rows
 
     def device_memory_size(self) -> int:
-        """Bytes of the columns' buffers (data, validity, lengths), the
-        JAX package's count: the row-count scalar is not counted."""
+        """Bytes of the columns' buffers (data, validity, lengths, a long
+        string's blob and tail offsets), the JAX package's count: the
+        row-count scalar is not counted."""
         return sum(t.numel() * t.element_size()
                    for c in self.columns for t in c.leaves())
 
@@ -100,7 +101,8 @@ class ColumnarBatch:
         counterpart of jax.tree_util.tree_flatten over the JAX batch."""
         leaves = [t for c in self.columns for t in c.leaves()]
         leaves.append(self.num_rows)
-        tree = (self.schema, tuple((c.dtype, len(c.leaves()))
+        tree = (self.schema, tuple((c.dtype, len(c.leaves()),
+                                    c.overflow is not None)
                                    for c in self.columns))
         return leaves, tree
 
@@ -110,8 +112,8 @@ class ColumnarBatch:
         """The batch that `flatten` gave `tree` and `leaves` for."""
         schema, cols = tree
         out, at = [], 0
-        for dtype, k in cols:
-            out.append(Column(dtype, *leaves[at:at + k]))
+        for dtype, k, ovf in cols:
+            out.append(Column.from_leaves(dtype, leaves[at:at + k], ovf))
             at += k
         return ColumnarBatch(schema, tuple(out), leaves[at])
 
@@ -121,7 +123,7 @@ class ColumnarBatch:
         storage would keep the whole storage alive after a spill."""
         cap = self.capacity if cap is None else cap
         return ColumnarBatch(self.schema, tuple(
-            Column(c.dtype, *[t[:cap].clone() for t in c.leaves()])
+            c.map_rows(lambda t: t[:cap].clone(), torch.clone)
             for c in self.columns), self.num_rows)
 
     def repadded(self, new_cap: int) -> "ColumnarBatch":
@@ -134,16 +136,22 @@ class ColumnarBatch:
             return torch.cat([t, t.new_zeros((new_cap - cap,) + t.shape[1:])])
 
         return ColumnarBatch(self.schema, tuple(
-            Column(c.dtype, *[fit(t) for t in c.leaves()])
-            for c in self.columns), self.num_rows)
+            c.map_rows(fit) for c in self.columns), self.num_rows)
 
 
 def batch_from_arrow(table, device: torch.device,
-                     capacity: Optional[int] = None) -> ColumnarBatch:
-    """pyarrow Table -> device ColumnarBatch (the H2D boundary)."""
+                     capacity: Optional[int] = None, conf=None,
+                     flat: bool = False) -> ColumnarBatch:
+    """pyarrow Table -> device ColumnarBatch (the H2D boundary). A string
+    column past the head width of `conf` (the process default when None)
+    takes the long-string layout; `flat` keeps every string column the
+    flat matrix, as the host engine holds it."""
+    from .strings import head_width
     n = table.num_rows
     cap = capacity or row_bucket(n)
-    cols: List[Column] = [col_from_arrow(table.column(i), device, cap)[0]
+    head = None if flat else head_width(conf)
+    cols: List[Column] = [col_from_arrow(table.column(i), device, cap,
+                                         head)[0]
                           for i in range(table.num_columns)]
     return ColumnarBatch(Schema.from_arrow(table.schema), tuple(cols),
                          torch.tensor(n, dtype=torch.int32, device=device))

@@ -12,10 +12,13 @@ A STRING column is the JAX package's flat layout: data uint8[cap, w] with
 w = width_bucket(longest value) and lengths int32[cap]. The bytes past each
 row's length are zero, so equality, the hash and the sort keys may read the
 whole row. Every operation that builds a byte matrix keeps that invariant.
-A value longer than MAX_STRING_WIDTH (256) bytes needs the JAX package's
-long-string overflow layout, which is not ported: it raises
-NotImplementedError, at plan time for scanned tables and literals and again
-at scan conversion.
+A column whose longest value passes the head width
+(`spark.rapids.tpu.string.headWidth`, columnar/strings.py) takes the
+long-string layout instead: data is the uint8[cap, head] head matrix and
+`overflow` holds (blob uint8[B], tail_start int32[cap]). The blob is not
+aligned to rows: a row move maps every other buffer (`map_rows`) and
+passes the blob through. `from_arrow` with `head=None` builds the flat
+matrix at any width, which is what the host engine holds.
 
 Fixed-width columns: BOOLEAN, BYTE (int8), SHORT (int16), INT, LONG,
 FLOAT (float32), DOUBLE, DATE (int32 days), TIMESTAMP (int64 microseconds
@@ -41,15 +44,10 @@ import numpy as np
 import torch
 
 from .. import types as T
-from .padding import row_bucket, width_bucket
+from .padding import row_bucket
 
-__all__ = ["Column", "torch_dtype", "check_supported", "MAX_STRING_WIDTH",
-           "check_string_length", "check_string_widths", "from_arrow",
+__all__ = ["Column", "torch_dtype", "check_supported", "from_arrow",
            "to_arrow", "data_shape"]
-
-# widest row of the flat string layout, in bytes (the JAX package's default
-# spark.rapids.tpu.string.headWidth, past which it uses its overflow layout)
-MAX_STRING_WIDTH = 256
 
 _TORCH_DTYPES = {
     T.BooleanType: torch.bool,
@@ -90,33 +88,15 @@ def data_shape(dt: T.DataType, cap: int) -> tuple:
     return (cap, 2) if T.is_dec128(dt) else (cap,)
 
 
-def check_string_length(longest: int) -> None:
-    """Raise NotImplementedError for a string the flat layout cannot hold."""
-    if longest > MAX_STRING_WIDTH:
-        raise NotImplementedError(
-            f"a string of {longest} bytes exceeds the flat string layout's "
-            f"{MAX_STRING_WIDTH} bytes; the long-string overflow layout is "
-            "not supported by spark_rapids_tpu_torch yet")
-
-
-def check_string_widths(table) -> None:
-    """Raise NotImplementedError when a string column of an Arrow table holds
-    a value longer than MAX_STRING_WIDTH (the plan-time form of the check
-    `from_arrow` makes)."""
-    import pyarrow as pa
-    import pyarrow.compute as pc
-    for col in table.columns:
-        if len(col) and (pa.types.is_string(col.type)
-                         or pa.types.is_large_string(col.type)):
-            check_string_length(pc.max(pc.binary_length(col)).as_py() or 0)
-
-
 @dataclasses.dataclass
 class Column:
     dtype: T.DataType
     data: torch.Tensor
     validity: torch.Tensor
     lengths: Optional[torch.Tensor] = None  # int32[cap], STRING only
+    # the long-string layout (columnar/strings.py): (blob uint8[B],
+    # tail_start int32[cap]); the blob is not aligned to rows
+    overflow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def capacity(self) -> int:
@@ -127,11 +107,31 @@ class Column:
         return isinstance(self.dtype, T.StringType)
 
     def leaves(self) -> List[torch.Tensor]:
-        """The row-aligned buffers: data, validity (, lengths)."""
+        """Every buffer: data, validity (, lengths) (, blob, tail_start)."""
         out = [self.data, self.validity]
         if self.lengths is not None:
             out.append(self.lengths)
+        if self.overflow is not None:
+            out.extend(self.overflow)
         return out
+
+    @staticmethod
+    def from_leaves(dtype: T.DataType, leaves, has_overflow: bool
+                    ) -> "Column":
+        """The column whose `leaves()` these are."""
+        if has_overflow:
+            *rows, blob, ts = leaves
+            return Column(dtype, *rows, overflow=(blob, ts))
+        return Column(dtype, *leaves)
+
+    def map_rows(self, fn, blob_fn=None) -> "Column":
+        """fn over every row-aligned buffer (tail_start included); the
+        blob goes through blob_fn, or as it is (JAX `vec_map_arrays`)."""
+        return Column(self.dtype, fn(self.data), fn(self.validity),
+                      None if self.lengths is None else fn(self.lengths),
+                      None if self.overflow is None else
+                      ((blob_fn or (lambda b: b))(self.overflow[0]),
+                       fn(self.overflow[1])))
 
 
 def _pad_to(arr: np.ndarray, cap: int) -> np.ndarray:
@@ -142,10 +142,13 @@ def _pad_to(arr: np.ndarray, cap: int) -> np.ndarray:
     return np.pad(arr, [(0, cap - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1))
 
 
-def _string_matrix(arr, cap: int):
-    """Arrow string array -> (uint8[cap, w] zero-tailed bytes, int32[cap]
-    lengths), w the width bucket of the longest value."""
+def _string_leaves(arr, cap: int, head: Optional[int]):
+    """Arrow string array -> (head or flat uint8[cap, w] zero-tailed
+    bytes, int32[cap] lengths, overflow or None). With `head` None, the
+    flat matrix at the longest value's width bucket; else the long-string
+    layout once a value passes `head` bytes."""
     import pyarrow as pa
+    from .strings import build_string_leaves
     if pa.types.is_string(arr.type):
         arr = arr.cast(pa.large_string())
     n = len(arr)
@@ -154,18 +157,11 @@ def _string_matrix(arr, cap: int):
     lens = np.diff(offsets)
     if arr.null_count:  # a null slot's bytes are not part of the matrix
         lens = np.where(np.asarray(arr.is_valid()), lens, 0)
+    databuf = np.frombuffer(arr.buffers()[2], dtype=np.uint8) \
+        if arr.buffers()[2] is not None else np.zeros(0, np.uint8)
     longest = int(lens.max()) if n else 0
-    check_string_length(longest)
-    w = width_bucket(max(longest, 1))
-    chars = np.zeros((cap, w), dtype=np.uint8)
-    total = int(lens.sum())
-    if total:
-        databuf = np.frombuffer(arr.buffers()[2], dtype=np.uint8)
-        row_id = np.repeat(np.arange(n), lens)
-        out_starts = np.cumsum(lens) - lens
-        within = np.arange(total) - np.repeat(out_starts, lens)
-        chars[row_id, within] = databuf[np.repeat(offsets[:-1], lens) + within]
-    return chars, _pad_to(lens.astype(np.int32), cap)
+    return build_string_leaves(databuf, offsets, lens.astype(np.int32), cap,
+                               longest if head is None else head)
 
 
 def _decimal_unscaled(arr, wide: bool) -> np.ndarray:
@@ -211,10 +207,11 @@ def _timestamp_micros(arr) -> np.ndarray:
     return raw * _US_PER_UNIT[arr.type.unit]
 
 
-def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
-               ) -> Tuple[Column, int]:
+def from_arrow(arr, device: torch.device, capacity: Optional[int] = None,
+               head: Optional[int] = None) -> Tuple[Column, int]:
     """Arrow array -> device Column; returns (column, num_rows). A string
-    longer than MAX_STRING_WIDTH raises."""
+    column takes the long-string layout once a value passes `head` bytes,
+    and is the flat matrix at any width when `head` is None."""
     import pyarrow as pa
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
@@ -226,9 +223,11 @@ def from_arrow(arr, device: torch.device, capacity: Optional[int] = None
         np.asarray(arr.is_valid())
     valid_t = torch.from_numpy(_pad_to(valid, cap)).to(device)
     if isinstance(dtype, T.StringType):
-        chars, lens = _string_matrix(arr, cap)
+        chars, lens, ovf = _string_leaves(arr, cap, head)
         return Column(dtype, torch.from_numpy(chars).to(device), valid_t,
-                      torch.from_numpy(lens).to(device)), n
+                      torch.from_numpy(lens).to(device),
+                      None if ovf is None else tuple(
+                          torch.from_numpy(a).to(device) for a in ovf)), n
     if isinstance(dtype, T.DecimalType):
         if pa.types.is_decimal256(arr.type):
             arr = arr.cast(pa.decimal128(dtype.precision, dtype.scale))
@@ -255,15 +254,15 @@ def to_arrow(col: Column, num_rows: int):
     valid = col.validity[:num_rows].cpu().numpy()
     mask = ~valid
     if col.is_string:
-        lens = np.where(valid, col.lengths[:num_rows].cpu().numpy(), 0)
-        chars = col.data[:num_rows].cpu().numpy()
-        keep = np.arange(chars.shape[1])[None, :] < lens[:, None]
-        offsets = np.concatenate(([0], np.cumsum(lens, dtype=np.int64)))
+        from .strings import live_bytes
+        flat, lens = live_bytes(col.data, col.lengths, col.overflow,
+                                col.validity, num_rows)
+        offsets = np.concatenate(([0], np.cumsum(lens.cpu().numpy())))
         return pa.Array.from_buffers(
             pa.large_string(), num_rows,
             [pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()),
              pa.py_buffer(offsets.tobytes()),
-             pa.py_buffer(chars[keep].tobytes())],
+             pa.py_buffer(flat.cpu().numpy().tobytes())],
             null_count=int(mask.sum())).cast(pa.string())
     vals = col.data[:num_rows].cpu().numpy()
     if isinstance(col.dtype, T.DecimalType):

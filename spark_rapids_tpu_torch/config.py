@@ -242,6 +242,17 @@ register("spark.rapids.tpu.mesh.hbmPerChip", "bytes", 0,
          "Per-chip memory sub-budgets of the sharded plan (mesh/): not in "
          "spark_rapids_tpu_torch yet, so a value above 0 raises at plan "
          "time.")
+register("spark.rapids.sql.regexp.enabled", "bool", True,
+         "Enable regular-expression offload via the transpiler (falls "
+         "back per-pattern).")
+register("spark.rapids.tpu.string.headWidth", "int", 256,
+         "Head width (bytes) of the long-string device layout: strings "
+         "longer than this keep their first headWidth bytes in the "
+         "rectangular byte matrix and the rest in a shared tail blob with "
+         "per-row offsets, so one long value does not widen the whole "
+         "column to cap x width. Byte-reading expressions over such a "
+         "column rerun the plan on the host; row moves stay on the "
+         "device.")
 
 
 class TpuConf:

@@ -45,7 +45,8 @@ _TLS = threading.local()
 
 
 def host_batch_from_arrow(table) -> HostBatch:
-    return batch_from_arrow(table, HOST)
+    """Strings at any width are the flat matrix on the host."""
+    return batch_from_arrow(table, HOST, flat=True)
 
 
 def on_host() -> bool:

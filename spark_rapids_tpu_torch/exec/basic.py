@@ -35,12 +35,14 @@ class TpuScanExec(TpuExec):
         return self._schema
 
     def do_execute(self):
+        from ..cpu.hostbatch import on_host
         n = self.table.num_rows
         step = self.batch_rows
         for off in range(0, max(n, 1), step):
             chunk = self.table.slice(off, min(step, n - off)) if n else \
                 self.table
-            yield batch_from_arrow(chunk, self.device)
+            yield batch_from_arrow(chunk, self.device, conf=self.conf,
+                                   flat=on_host())
             if n == 0:
                 break
 

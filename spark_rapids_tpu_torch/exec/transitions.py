@@ -10,6 +10,11 @@ bucket, to a host parent. Each copy counts its rows, buffer bytes and
 host nanoseconds in TaskMetrics (`to_device_*`, `to_host_*`), and on a
 card the timing events around its copies, whose device seconds
 `TaskMetrics.copy_seconds` reads.
+
+On the host a string column is always the flat matrix: a long-string
+column's live bytes (`live_bytes`) are laid out flat on the way to the
+host, and a host string column past the head width takes the long-string
+layout on the way to the device (`build_string_leaves`).
 """
 
 from __future__ import annotations
@@ -17,11 +22,13 @@ from __future__ import annotations
 import time
 from typing import Iterator, List
 
+import numpy as np
 import torch
 
 from ..columnar.batch import ColumnarBatch, Schema
 from ..columnar.column import Column
 from ..columnar.padding import row_bucket
+from ..columnar.strings import build_string_leaves, head_width, live_bytes
 from ..cpu.hostbatch import HOST, HostBatch, scoped_stream
 from ..utils.metrics import TaskMetrics
 from .base import TpuExec
@@ -30,13 +37,39 @@ __all__ = ["host_batch_to_device", "device_batch_to_host", "TpuFromCpuExec",
            "CpuFromTpuExec"]
 
 
-def _copy(b: ColumnarBatch, n: int, device: torch.device, events: list
-          ) -> ColumnarBatch:
+def _relayout(c: Column, n: int, hw) -> Column:
+    """A string column's first n rows laid out again on the host, at its
+    capacity: with `hw` None the flat matrix at the longest row's bucket
+    (the host's layout), else past `hw` bytes the long-string layout (JAX
+    `assemble_matrix` and `build_string_leaves`)."""
+    flat, lens = live_bytes(c.data, c.lengths, c.overflow, c.validity, n)
+    lens = lens.cpu().numpy()
+    offsets = np.concatenate(([0], np.cumsum(lens)))
+    longest = int(lens.max()) if n else 0
+    head, full, ovf = build_string_leaves(
+        flat.cpu().numpy(), offsets, lens.astype(np.int32), c.capacity,
+        longest if hw is None else hw)
+    return Column(c.dtype, torch.from_numpy(head), c.validity.cpu(),
+                  torch.from_numpy(full),
+                  None if ovf is None else
+                  tuple(torch.from_numpy(a) for a in ovf))
+
+
+def _copy(b: ColumnarBatch, n: int, device: torch.device, events: list,
+          hw: int = None) -> ColumnarBatch:
     """`b`'s first row bucket of `n` rows on `device`. Between a card and
     the host, the copies run between two timing events on the card's
     stream, appended to `events`; a copy to the card reads pinned buffers
-    (pinned before the first event) and runs asynchronously."""
+    (pinned before the first event) and runs asynchronously. A copy to
+    the device (`hw` given) lays out string columns past `hw` bytes as
+    long strings; a copy to the host flattens them."""
     b = b.repadded(row_bucket(n))
+    cols = list(b.columns)
+    for i, c in enumerate(cols):
+        if hw is None and c.overflow is not None or \
+                hw is not None and c.is_string and c.data.shape[1] > hw:
+            cols[i] = _relayout(c, n, hw)
+    b = ColumnarBatch(b.schema, tuple(cols), b.num_rows)
     leaves = [c.leaves() for c in b.columns]
     card = device if device.type == "cuda" else b.device
     if card.type == "cuda":
@@ -51,19 +84,21 @@ def _copy(b: ColumnarBatch, n: int, device: torch.device, events: list
         end.record(stream)
         events.append((start, end))
     return ColumnarBatch(b.schema, tuple(
-        Column(c.dtype, *ts) for c, ts in zip(b.columns, moved)),
+        Column.from_leaves(c.dtype, ts, c.overflow is not None)
+        for c, ts in zip(b.columns, moved)),
         torch.tensor(n, dtype=torch.int32, device=device))
 
 
-def host_batch_to_device(hb: HostBatch, device: torch.device
-                         ) -> ColumnarBatch:
+def host_batch_to_device(hb: HostBatch, device: torch.device,
+                         conf=None) -> ColumnarBatch:
     """A host batch on `device`, in the row bucket of its rows (JAX
     `row_bucket(n, op="transition")`; the port has no bucket tuner to
-    attribute it to)."""
+    attribute it to), strings past the head width of `conf` as long
+    strings."""
     t0 = time.perf_counter_ns()
     tm = TaskMetrics.get()
     n = hb.row_count()
-    out = _copy(hb, n, device, tm.to_device_copies)
+    out = _copy(hb, n, device, tm.to_device_copies, head_width(conf))
     tm.to_device_rows += n
     tm.to_device_bytes += out.device_memory_size()
     tm.to_device_ns += time.perf_counter_ns() - t0
@@ -96,7 +131,7 @@ class TpuFromCpuExec(TpuExec):
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         for hb in self.cpu_plan.execute_cpu():
-            yield host_batch_to_device(hb, self.device)
+            yield host_batch_to_device(hb, self.device, self.conf)
 
     def tree_string(self, indent: int = 0) -> str:
         return ("  " * indent + "TpuFromCpuExec\n"

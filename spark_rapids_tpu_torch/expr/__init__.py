@@ -10,6 +10,10 @@ from .predicates import (EqualTo, LessThan, LessThanOrEqual,  # noqa: F401
 from .nullexprs import IsNull, IsNotNull, IsNaN, Coalesce  # noqa: F401
 from .conditional import If, CaseWhen, Least, Greatest  # noqa: F401
 from .hashing import hash_vecs  # noqa: F401
+from .strings import (Length, Upper, Lower, Substring, Concat,  # noqa: F401
+                      StartsWith, EndsWith, Contains, StringTrim,
+                      StringTrimLeft, StringTrimRight)
+from .regex import RLike, Like, RegExpReplace, RegExpExtract  # noqa: F401
 from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
                          Max, Average, First, Last, CountDistinct,
                          VariancePop, VarianceSamp, StddevPop, StddevSamp,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import decimal as _decimal
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,11 +29,15 @@ __all__ = ["Vec", "EvalContext", "ansi_raise", "Expression",
 @dataclasses.dataclass
 class Vec:
     """dtype + data + validity, plus int32 lengths for a STRING value (data
-    is then the uint8[cap, w] byte matrix, zero past each row's length)."""
+    is then the uint8[cap, w] byte matrix, zero past each row's length).
+    A long-string value (columnar/strings.py) also has `overflow`, (blob,
+    tail_start): a row move gathers tail_start and passes the blob
+    through; a kernel that reads bytes goes through require_flat_strings."""
     dtype: T.DataType
     data: torch.Tensor
     validity: torch.Tensor
     lengths: Optional[torch.Tensor] = None
+    overflow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def is_string(self) -> bool:
@@ -41,26 +45,44 @@ class Vec:
 
     @staticmethod
     def from_column(col: Column) -> "Vec":
-        return Vec(col.dtype, col.data, col.validity, col.lengths)
+        return Vec(col.dtype, col.data, col.validity, col.lengths,
+                   col.overflow)
 
     def to_column(self) -> Column:
-        return Column(self.dtype, self.data, self.validity, self.lengths)
+        return Column(self.dtype, self.data, self.validity, self.lengths,
+                      self.overflow)
 
-    def gather(self, idx: torch.Tensor) -> "Vec":
+    def gather(self, idx) -> "Vec":
+        """Rows by index or slice: the blob of a long string stays shared,
+        only its tail offsets move."""
         return Vec(self.dtype, self.data[idx], self.validity[idx],
-                   None if self.lengths is None else self.lengths[idx])
+                   None if self.lengths is None else self.lengths[idx],
+                   None if self.overflow is None else
+                   (self.overflow[0], self.overflow[1][idx]))
 
     def with_validity(self, validity: torch.Tensor) -> "Vec":
-        return Vec(self.dtype, self.data, validity, self.lengths)
+        return Vec(self.dtype, self.data, validity, self.lengths,
+                   self.overflow)
+
+    def map_rows(self, fn, blob_fn=None) -> "Vec":
+        """fn over every row-aligned buffer, the blob through blob_fn (or
+        as it is): JAX `vec_map_arrays`."""
+        return Vec.from_column(self.to_column().map_rows(fn, blob_fn))
 
 
 def require_flat_strings(v: Vec, op: str) -> Vec:
     """Gate for the kernels that read every byte of a string (equality,
-    ordering, hashing, sort keys, merges): the value must be the flat byte
-    matrix with lengths. Widths are held to the flat layout's limit at plan
-    time (plan/overrides.py), so no wider value reaches here."""
+    ordering, hashing, sort keys, merges, the string functions): a value
+    in the long-string layout raises CpuFallbackRequired, and the session
+    reruns the plan on the host, whose strings are the flat matrix (JAX
+    `require_flat_strings`, the per-op fallback)."""
     if not v.is_string:
         return v
+    if v.overflow is not None:
+        from ..errors import CpuFallbackRequired
+        raise CpuFallbackRequired(
+            f"{op} needs full string bytes; column uses the long-string "
+            "overflow layout")
     if v.lengths is None or v.data.dim() != 2 or v.data.dtype != torch.uint8:
         raise TypeError(f"{op}: a string value must be a uint8 byte matrix "
                         "with lengths")
@@ -145,9 +167,18 @@ class Expression:
     def name(self) -> str:
         return type(self).__name__
 
+    # can this expression's kernel take the long-string layout? No
+    # expression does (as in the JAX package): eval() sends any other to
+    # the host rather than let a byte-matrix kernel stop at the head width
+    accepts_long_strings = False
+
     def eval(self, ctx: EvalContext, batch_vecs: Sequence[Vec]) -> Vec:
-        return self._compute(ctx, *[c.eval(ctx, batch_vecs)
-                                    for c in self.children])
+        child_results = [c.eval(ctx, batch_vecs) for c in self.children]
+        if not self.accepts_long_strings:
+            for v in child_results:
+                if v.overflow is not None:
+                    require_flat_strings(v, self.name)
+        return self._compute(ctx, *child_results)
 
     def _compute(self, ctx: EvalContext, *children: Vec) -> Vec:
         raise NotImplementedError(type(self).__name__)

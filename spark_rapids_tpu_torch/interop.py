@@ -29,7 +29,9 @@ def batch_from_numpy(schema_fields: Sequence[Tuple[str, Union[str,
     package or its simple string ("long", "date", "string", ...).
     datas/validities: one padded array per field, all of one capacity; a
     string field's data is a (uint8[cap, w] byte matrix, int32[cap]
-    lengths) pair. num_rows: the logical row count (<= capacity)."""
+    lengths) pair, or for a long-string column (head, lengths, blob
+    uint8[B], tail_start int32[cap]). num_rows: the logical row count
+    (<= capacity)."""
     device = torch.device(device)
     names = tuple(n for n, _ in schema_fields)
     types = tuple(T.parse_type(t) if isinstance(t, str) else t
@@ -44,13 +46,17 @@ def batch_from_numpy(schema_fields: Sequence[Tuple[str, Union[str,
     for dt, d, v in zip(types, datas, validities):
         valid = host(v, bool)
         if isinstance(dt, T.StringType):
-            chars, lens = d
+            chars, lens = d[0], d[1]
             chars, lens = host(chars, np.uint8), host(lens, np.int32)
             if chars.dim() != 2 or lens.shape != chars.shape[:1]:
                 raise ValueError("a string field takes (uint8[cap, w], "
                                  "int32[cap])")
+            ovf = None
+            if len(d) == 4:
+                ovf = (host(d[2], np.uint8).to(device),
+                       host(d[3], np.int32).to(device))
             cols.append(Column(dt, chars.to(device), valid.to(device),
-                               lens.to(device)))
+                               lens.to(device), ovf))
         else:
             data = host(d, dt.np_dtype)
             cols.append(Column(dt, data.to(device=device,

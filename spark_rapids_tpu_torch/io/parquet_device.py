@@ -23,7 +23,10 @@ Device, eager torch ops on an explicit device:
     same gather, and convert by vector shifts: big-endian two's complement
     sign-extended to int64 limbs (`_flba_to_limbs`), or INT96's nanos of the day
     and julian day to microseconds (`_int96_to_micros`);
-  * strings gather their byte spans into the flat `uint8[cap, w]` layout;
+  * strings gather their byte spans into the flat `uint8[cap, w]` layout,
+    or, past the scan's head width, into the long-string layout (the head
+    by the same gather, the rest into a tail blob; the packed path
+    declines such a column, which the row group's eager decode builds);
   * non-null values land in their row slots by the rank cumsum(defined) - 1.
 
 The default path (`decode_row_groups_fused`) decodes several row groups at
@@ -70,7 +73,7 @@ import contextlib
 import os
 import struct
 import threading
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,8 +81,10 @@ import torch
 from .. import native as _native
 from .. import types as T
 from ..columnar.batch import ColumnarBatch
-from ..columnar.column import MAX_STRING_WIDTH, Column, torch_dtype
+from ..columnar.column import Column, torch_dtype
 from ..columnar.padding import row_bucket, width_bucket
+from ..columnar.strings import blob_bucket, head_width, tail_byte_stream, \
+    tail_starts_for
 from ..errors import RapidsTpuError
 
 __all__ = ["DeviceDecodeUnsupported", "FALLBACK_ERRORS", "COUNTERS",
@@ -1048,11 +1053,12 @@ def _flba_values(mat: torch.Tensor, post: str, flen: int) -> torch.Tensor:
 # -- eager assembles: the page interleavings the packed path declines ---------
 
 def _device_phase(pf, rg: int, schema, works, nrows: int,
-                  device: torch.device, host_cols=()):
+                  device: torch.device, host_cols, hw: int):
     """Device half of one row group: the fast-path columns' arrays ship in
     one copy and decode with `_decode_col`; strings and odd page layouts
     run their eager assembles; then the host columns are decoded by
-    pyarrow and merged at the same capacity."""
+    pyarrow and merged at the same capacity. A string column past `hw`
+    bytes takes the long-string layout."""
     cap = row_bucket(nrows)
     fused = [w for w in works.values() if w.ship is not None]
     cols = {}
@@ -1077,7 +1083,8 @@ def _device_phase(pf, rg: int, schema, works, nrows: int,
         else:  # a required column, or a 0-row row group (no pages)
             defined = torch.arange(cap, device=device) < nrows
         if w.kind == "string":
-            cols[name] = _assemble_strings(w.chunk, dt, defined, cap, device)
+            cols[name] = _assemble_strings(w.chunk, dt, defined, cap, device,
+                                           hw)
         elif w.kind == "flba":
             cols[name] = _assemble_flba(w.chunk, w.spec, dt, defined, cap,
                                         device)
@@ -1085,32 +1092,37 @@ def _device_phase(pf, rg: int, schema, works, nrows: int,
             cols[name] = _assemble_fixed(w.chunk, w.phys, dt, defined, cap,
                                          device, w.spec.post)
     cols.update(_host_decode_cols(pf, [rg], schema, host_cols, cap, nrows,
-                                  device))
+                                  device, hw))
     return ColumnarBatch(schema, tuple(cols[n] for n in schema.names),
                          torch.tensor(nrows, dtype=torch.int32,
                                       device=device)), nrows
 
 
 def decode_row_group(pf, f, rg: int, schema, device: torch.device,
-                     host_cols=()):
+                     host_cols=(), head: Optional[int] = None):
     """Decode ONE row group on `device` -> (ColumnarBatch, row count). `pf`
     is a parsed ParquetFile; `f` an open binary handle on the same file;
     `host_cols` the columns columns_supported() refused, decoded by
-    pyarrow and merged into the batch. A page the walk declines raises
-    DeviceDecodeUnsupported, for the caller's fallback."""
+    pyarrow and merged into the batch. A string column past `head` bytes
+    (the default conf's head width when None) takes the long-string
+    layout. A page the walk declines raises DeviceDecodeUnsupported, for
+    the caller's fallback."""
+    hw = head_width() if head is None else head
     works, nrows = _host_phase(pf, f, rg, schema, host_cols)
-    out = _device_phase(pf, rg, schema, works, nrows, device, host_cols)
+    out = _device_phase(pf, rg, schema, works, nrows, device, host_cols, hw)
     COUNTERS.add(scan_chunks=1)
     return out
 
 
-def _host_cols_to_device(t, schema, names, cap: int, device):
+def _host_cols_to_device(t, schema, names, cap: int, device,
+                         head: Optional[int] = None):
     """Host-decoded Arrow columns -> {name: Column} at the batch's
     capacity, each cast to the scan's type first: the file's type may
     differ (a TIMESTAMP in nanoseconds), and a value merged at another
     type would be wrong without an error. A cast pyarrow finds lossy
     raises DeviceDecodeUnsupported, which falls the row group back whole
-    (JAX `_host_cols_to_device`)."""
+    (JAX `_host_cols_to_device`). A string past `head` bytes takes the
+    long-string layout (with None, the flat matrix: `from_arrow`)."""
     import pyarrow as pa
     from ..columnar.column import from_arrow
     by_name = dict(zip(schema.names, schema.types))
@@ -1124,12 +1136,12 @@ def _host_cols_to_device(t, schema, names, cap: int, device):
             except (pa.ArrowInvalid, pa.ArrowNotImplementedError) as e:
                 raise DeviceDecodeUnsupported(
                     f"host column cast {arr.type} -> {want}: {e}") from e
-        out[name] = from_arrow(arr, device, capacity=cap)[0]
+        out[name] = from_arrow(arr, device, capacity=cap, head=head)[0]
     return out
 
 
 def _host_decode_cols(pf, rgs, schema, host_cols, cap: int, nrows: int,
-                      device):
+                      device, hw: int):
     """pyarrow's decode of the host columns of row groups `rgs` ->
     {name: Column} at capacity `cap` (JAX `_host_decode_cols`); counts one
     host column chunk per column and row group."""
@@ -1144,7 +1156,7 @@ def _host_decode_cols(pf, rgs, schema, host_cols, cap: int, nrows: int,
         raise DeviceDecodeUnsupported(f"host column decode: {e}") from e
     if t.num_rows != nrows:
         raise DeviceDecodeUnsupported("host column row-count mismatch")
-    out = _host_cols_to_device(t, schema, names, cap, device)
+    out = _host_cols_to_device(t, schema, names, cap, device, head=hw)
     COUNTERS.add(host_columns=len(names) * len(rgs))
     return out
 
@@ -1382,18 +1394,12 @@ def _assemble_fixed(chunk: _Chunk, phys: str, dt, defined, cap: int,
     return Column(dt, _engine_data(data, dt, post), validity)
 
 
-def _check_width(max_len: int) -> None:
-    if max_len > MAX_STRING_WIDTH:
-        raise DeviceDecodeUnsupported(
-            f"a string of {max_len} bytes exceeds the flat string layout's "
-            f"{MAX_STRING_WIDTH} bytes (the long-string overflow layout is "
-            "not in spark_rapids_tpu_torch yet)")
-
-
-def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device):
-    """BYTE_ARRAY column in any page order -> the flat string layout. The
-    host runs only the serial offset scans; the device gathers every value
-    span out of the shipped page and dictionary blobs."""
+def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device,
+                      hw: int):
+    """BYTE_ARRAY column in any page order -> the flat string layout, or
+    past `hw` bytes the long-string layout. The host runs only the serial
+    offset scans; the device gathers every value span out of the shipped
+    page and dictionary blobs."""
     # the blob: PLAIN page payloads in page order, the dictionary at the end
     plain_bases = {}
     base = 0
@@ -1431,7 +1437,6 @@ def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device):
                 order.append(("host", [st + plain_bases[i]], [ln]))
         else:
             order.append(("dict", p))
-    _check_width(max_len)
     host_spans.append(np.concatenate(blob_parts) if blob_parts
                       else np.zeros(1, np.uint8))
     runs = [np.concatenate(o[1]) for o in order if o[0] == "host"] + \
@@ -1455,10 +1460,33 @@ def _assemble_strings(chunk: _Chunk, dt, defined, cap: int, device):
             ln_parts.append(dict_lens[idx])
     starts = _cat(st_parts, torch.zeros(0, dtype=torch.int64, device=device))
     lens = _cat(ln_parts, torch.zeros(0, dtype=torch.int32, device=device))
-    matrix, lengths = _gather_strings(blob, _pad_rows(starts, cap),
-                                      _pad_rows(lens, cap), defined,
+    starts, lens = _pad_rows(starts, cap), _pad_rows(lens, cap)
+    if max_len > hw:
+        return _assemble_long_strings(dt, blob, starts, lens, defined, hw)
+    matrix, lengths = _gather_strings(blob, starts, lens, defined,
                                       width_bucket(max_len))
     return Column(dt, matrix, defined, lengths)
+
+
+def _assemble_long_strings(dt, blob, starts, lens, defined, hw: int
+                           ) -> Column:
+    """The long-string layout from value spans (JAX
+    `_assemble_long_strings`): the head bytes through the flat gather at
+    the head width, the bytes past it into the tail blob, value by value
+    in row order, tail_start their exclusive cumsum. starts/lens hold one
+    entry per defined value, rows map to values by their rank."""
+    cap = defined.shape[0]
+    head, lengths = _gather_strings(blob, starts, lens, defined, hw)
+    tail_lens = torch.clamp(lengths.to(torch.int64) - hw, min=0)
+    rank = (torch.cumsum(defined.to(torch.int32), 0) - 1).clamp(0, cap - 1)
+    row_starts = starts[rank] + hw
+    stream, _ = tail_byte_stream(blob, row_starts, tail_lens)
+    total = int(stream.shape[0])
+    tail_blob = torch.zeros(blob_bucket(total), dtype=torch.uint8,
+                            device=blob.device)
+    tail_blob[:total] = stream
+    return Column(dt, head, defined, lengths,
+                  (tail_blob, tail_starts_for(tail_lens)))
 
 
 # -- the packed decode: one column's decode from the ship-order iterator ------
@@ -1561,7 +1589,8 @@ def _prep_string(chunk: _Chunk):
     """Host half of the string fast path: dictionary-prefix + PLAIN-suffix
     layouts only. The blob holds the PLAIN payloads in page order and the
     dictionary at the end; span tables come from the native offset scan.
-    Returns (ship, meta), or None for another page interleaving."""
+    Returns (ship, meta), meta["max_len"] the longest value, or None for
+    another page interleaving."""
     ndict = _dict_prefix(chunk)
     if ndict is None:
         return None
@@ -1604,7 +1633,7 @@ def _prep_string(chunk: _Chunk):
         meta["plain_ndef"] = sum(p.ndef for p in plain_pages)
     ship.append(np.concatenate(blob_parts) if blob_parts
                 else np.zeros(1, np.uint8))
-    _check_width(max_len)
+    meta["max_len"] = max_len
     meta["width"] = width_bucket(max_len)
     return ship, meta
 
@@ -1666,7 +1695,7 @@ def _read_chunks(pf, f, rgs, schema, host_cols=()):
     return chunks, total
 
 
-def _group_signatures(chunks, names):
+def _group_signatures(chunks, names, hw: int):
     """Fast-path prep of a whole dispatch group: per-chunk column sigs and
     the single packed buffer -> (groups_sig, caps, packed), or None when a
     column of a chunk declines the fast path."""
@@ -1683,7 +1712,8 @@ def _group_signatures(chunks, names):
                 # local only: `works` stays as it was, so the per-row-group
                 # decode assembles the string eagerly
                 prepped = _prep_string(w.chunk)
-                if prepped is not None:
+                # past the head: the eager assemble's long-string layout
+                if prepped is not None and prepped[1]["max_len"] <= hw:
                     ship, meta = prepped
             if ship is None:
                 return None
@@ -1703,35 +1733,39 @@ def _group_signatures(chunks, names):
 
 
 def decode_row_groups_fused(pf, f, rgs, schema, device: torch.device,
-                            host_cols=()):
+                            host_cols=(), head: Optional[int] = None):
     """Decode SEVERAL row groups as one dispatch group -> [(ColumnarBatch,
     rows)]. When every device column of every chunk takes a fast-path prep
     the group ships in ONE packed copy and the list holds one merged batch,
     the host columns decoded by one pyarrow read of the group and merged at
     its capacity; a declined layout decodes row group by row group from the
-    same host work (no host step repeats)."""
+    same host work (no host step repeats). A string column past `head`
+    bytes (the default conf's head width when None) takes the long-string
+    layout."""
+    hw = head_width() if head is None else head
     chunks, total = _read_chunks(pf, f, rgs, schema, host_cols)
-    return _decode_chunks_fused(pf, schema, chunks, total, device, host_cols)
+    return _decode_chunks_fused(pf, schema, chunks, total, device, host_cols,
+                                hw)
 
 
-def _per_rg_batches(pf, schema, chunks, device, host_cols=(),
+def _per_rg_batches(pf, schema, chunks, device, host_cols, hw: int,
                     declined: bool = True):
     """Per-row-group decode from the same works: no second host phase."""
-    out = [_device_phase(pf, rg, schema, works, nrows, device, host_cols)
+    out = [_device_phase(pf, rg, schema, works, nrows, device, host_cols, hw)
            for rg, works, nrows in chunks]
     COUNTERS.add(scan_chunks=len(out), declined_chunks=len(out) * declined)
     return out
 
 
 def _decode_chunks_fused(pf, schema, chunks, total: int, device,
-                         host_cols=()):
+                         host_cols, hw: int):
     names = [n for n in schema.names if n not in host_cols]
     if not names or total == 0:
-        return _per_rg_batches(pf, schema, chunks, device, host_cols,
+        return _per_rg_batches(pf, schema, chunks, device, host_cols, hw,
                                declined=False)
-    sig = _group_signatures(chunks, names)
+    sig = _group_signatures(chunks, names, hw)
     if sig is None:
-        return _per_rg_batches(pf, schema, chunks, device, host_cols)
+        return _per_rg_batches(pf, schema, chunks, device, host_cols, hw)
     groups_sig, caps, packed = sig
     cap_total = row_bucket(total)
     dev = torch.from_numpy(packed).to(device)
@@ -1741,7 +1775,7 @@ def _decode_chunks_fused(pf, schema, chunks, total: int, device,
     cols = {n: Column(by_name[n], data, validity, lengths)
             for n, (data, validity, lengths) in zip(names, outs)}
     cols.update(_host_decode_cols(pf, [rg for rg, _, _ in chunks], schema,
-                                  host_cols, cap_total, total, device))
+                                  host_cols, cap_total, total, device, hw))
     COUNTERS.add(h2d_copies=1, h2d_bytes=int(packed.nbytes),
                  fused_dispatches=1, scan_chunks=len(chunks))
     return [(ColumnarBatch(schema, tuple(cols[n] for n in schema.names),
@@ -1751,7 +1785,8 @@ def _decode_chunks_fused(pf, schema, chunks, total: int, device,
 
 def device_decode_file(pf, path: str, schema, device: torch.device,
                        chunks_per_dispatch: int = 1, rgs=None,
-                       host_cols=(), host_fallback=None) -> Iterator:
+                       host_cols=(), host_fallback=None,
+                       head: Optional[int] = None) -> Iterator:
     """Yield (ColumnarBatch, row count) per dispatch group of the file's
     row groups (all of them, or `rgs`), one group live at a time, the
     columns `host_cols` decoded by pyarrow. `chunks_per_dispatch` > 1
@@ -1760,7 +1795,9 @@ def device_decode_file(pf, path: str, schema, device: torch.device,
     group. Without `host_fallback`, a group fails on DeviceDecodeUnsupported
     and a row group's raises it. With it, a group or row group fails on
     FALLBACK_ERRORS, and `host_fallback(rg) -> (batch, rows)` decodes the
-    failed row group. A failed attempt counts nothing (COUNTERS.staged)."""
+    failed row group. A failed attempt counts nothing (COUNTERS.staged).
+    A string column past `head` bytes (the default conf's head width when
+    None) takes the long-string layout."""
     net = DeviceDecodeUnsupported if host_fallback is None \
         else FALLBACK_ERRORS
     group = max(int(chunks_per_dispatch), 1)
@@ -1774,7 +1811,8 @@ def device_decode_file(pf, path: str, schema, device: torch.device,
                 try:
                     with COUNTERS.staged():
                         outs = decode_row_groups_fused(
-                            pf, f, chunk_rgs, schema, device, host_cols)
+                            pf, f, chunk_rgs, schema, device, host_cols,
+                            head)
                 except net:
                     pass  # row group by row group below
                 else:
@@ -1784,7 +1822,7 @@ def device_decode_file(pf, path: str, schema, device: torch.device,
                 try:
                     with COUNTERS.staged():
                         out = decode_row_group(pf, f, rg, schema, device,
-                                               host_cols)
+                                               host_cols, head)
                 except net:
                     if host_fallback is None:
                         raise

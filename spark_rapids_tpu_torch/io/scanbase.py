@@ -30,6 +30,7 @@ import torch
 
 from .. import types as T
 from ..columnar.batch import Schema, batch_from_arrow
+from ..columnar.strings import head_width
 from ..config import TpuConf, get_default_conf
 from ..exec.base import TpuExec, maybe_prefetch
 from ..plan.nodes import PhysicalPlan
@@ -210,7 +211,7 @@ class TpuFileScanExec(TpuExec):
                                   name=f"scan-{fmt}")
 
     def _upload(self, t):
-        return batch_from_arrow(t, self.device)
+        return batch_from_arrow(t, self.device, conf=self.conf)
 
     def _decode_batches(self):
         if not self.cpu_scan.options.get("filters") and self.conf.get(
@@ -272,7 +273,8 @@ class TpuFileScanExec(TpuExec):
                        if keep is None or rg in keep]
                 for b, _ in device_decode_file(
                         pf, path, scan.output, self.device, group, rgs,
-                        host_cols[path], host_fallback):
+                        host_cols[path], host_fallback,
+                        head_width(self.conf)):
                     yield b
             finally:
                 pf.close()

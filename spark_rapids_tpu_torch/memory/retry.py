@@ -38,7 +38,6 @@ def split_batch_halves(spillable):
     parked halves, each a copy of exactly its rows (the JAX
     `Vec.slice_rows`); the input is closed."""
     from ..exec.base import batch_vecs, vecs_to_batch
-    from ..expr.base import Vec
     from .spillable import SpillableColumnarBatch
     batch = spillable.get_batch()
     n = spillable.num_rows
@@ -47,8 +46,7 @@ def split_batch_halves(spillable):
     half = n // 2
     outs = []
     for lo, hi in ((0, half), (half, n)):
-        vecs = [Vec(v.dtype, *[None if t is None else t[lo:hi].clone()
-                               for t in (v.data, v.validity, v.lengths)])
+        vecs = [v.map_rows(lambda t: t[lo:hi].clone())
                 for v in batch_vecs(batch)]
         outs.append(SpillableColumnarBatch(
             vecs_to_batch(batch.schema, vecs, hi - lo)))

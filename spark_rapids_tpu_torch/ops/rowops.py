@@ -137,6 +137,7 @@ def key_change_flags(key_vecs: Sequence[Vec], n: int) -> torch.Tensor:
     for v in key_vecs:
         both_valid = v.validity[1:] & v.validity[:-1]
         if v.is_string:  # zero-tailed rows: equal strings, equal bytes
+            require_flat_strings(v, "segment boundary over string")
             neq = (v.data[1:] != v.data[:-1]).any(dim=1) | \
                 (v.lengths[1:] != v.lengths[:-1])
         elif v.data.dim() == 2:  # decimal128 limbs

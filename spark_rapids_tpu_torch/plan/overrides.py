@@ -36,8 +36,7 @@ from typing import Callable, Dict, List, Optional, Type
 import torch
 
 from .. import types as T
-from ..columnar.column import check_string_length, check_string_widths, \
-    check_supported
+from ..columnar.column import check_supported
 from ..config import TpuConf, register
 from ..expr import arithmetic as A
 from ..expr import cast as CA
@@ -45,6 +44,8 @@ from ..expr import conditional as C
 from ..expr import nullexprs as NE
 from ..expr import predicates as P
 from ..expr import aggregates as AG
+from ..expr import regex as RX
+from ..expr import strings as ES
 from ..expr.decimal128 import is_dec128
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
@@ -65,7 +66,10 @@ _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
                     P.And, P.Or, P.Not, P.In, NE.IsNull, NE.IsNotNull,
                     NE.IsNaN, NE.Coalesce, C.If, C.CaseWhen, C.Least,
-                    C.Greatest)
+                    C.Greatest, ES.Length, ES.Upper, ES.Lower, ES.Substring,
+                    ES.Concat, ES.StartsWith, ES.EndsWith, ES.Contains,
+                    ES.StringTrim, ES.StringTrimLeft, ES.StringTrimRight,
+                    RX.RLike, RX.Like, RX.RegExpReplace, RX.RegExpExtract)
 _ARITH_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                 T.FloatType, T.DoubleType, T.DecimalType)
 _COMPARISONS = (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
@@ -105,8 +109,6 @@ def _check_expr(e: Expression) -> None:
                              A.UnaryMinus, A.Abs)):
             _check_arithmetic(node)
         check_supported(node.data_type, f"{type(node).__name__} result")
-        if isinstance(node, Literal) and isinstance(node.value, str):
-            check_string_length(len(node.value.encode("utf-8")))
         if isinstance(node, CA.Cast):
             src = node.children[0].data_type
             if not CA.host_supported(src, node.to):
@@ -143,8 +145,7 @@ def _check_expr(e: Expression) -> None:
 
 def _check_in_items(node: "P.In") -> None:
     """IN's items are literals of the value's kind: strings for a string
-    value (each within the flat layout), numbers otherwise (a decimal
-    value's as Decimal or int)."""
+    value, numbers otherwise (a decimal value's as Decimal or int)."""
     import decimal
     vt = node.children[0].data_type
     for item in node.items:
@@ -152,8 +153,6 @@ def _check_in_items(node: "P.In") -> None:
             continue
         if isinstance(vt, T.StringType):
             ok = isinstance(item, str)
-            if ok:
-                check_string_length(len(item.encode("utf-8")))
         elif isinstance(vt, T.DecimalType):
             ok = isinstance(item, (int, decimal.Decimal)) and \
                 not isinstance(item, bool)
@@ -281,6 +280,7 @@ class ExprRule:
     conf_key: str
     incompat: bool = False
     tag_fn: Optional[Callable[[ExprMeta], None]] = None
+    doc: str = ""
 
 
 @dataclasses.dataclass
@@ -297,11 +297,11 @@ _EXEC_RULES: Dict[Type, ExecRule] = {}
 
 
 def expr_rule(cls: Type, sig: TypeSig, incompat: bool = False,
-              tag_fn=None) -> None:
+              tag_fn=None, doc: str = "") -> None:
     key = f"spark.rapids.sql.expression.{cls.__name__}"
     register(key, "bool", True,
              f"Enable device execution of expression {cls.__name__}.")
-    _EXPR_RULES[cls] = ExprRule(cls, sig, key, incompat, tag_fn)
+    _EXPR_RULES[cls] = ExprRule(cls, sig, key, incompat, tag_fn, doc)
 
 
 def exec_rule(cls: Type, sig: TypeSig, convert_fn, expr_fn=None) -> None:
@@ -367,6 +367,45 @@ for _c in (AG.VariancePop, AG.VarianceSamp, AG.StddevPop, AG.StddevSamp,
 expr_rule(AG.CountIf, TypeSig((T.LongType,)))
 for _c in (AG.BitAndAgg, AG.BitOrAgg, AG.BitXorAgg):
     expr_rule(_c, TypeSig.integral())
+_str = TypeSig((T.StringType,))
+expr_rule(ES.Length, TypeSig((T.IntegerType,)))
+for _c in (ES.Upper, ES.Lower):
+    expr_rule(_c, _str, incompat=True,
+              doc="ASCII-only case mapping on device (non-ASCII passes "
+                  "through unchanged); reference notes similar locale "
+                  "corner cases.")
+for _c in (ES.Substring, ES.Concat, ES.StringTrim, ES.StringTrimLeft,
+           ES.StringTrimRight):
+    expr_rule(_c, _str)
+for _c in (ES.StartsWith, ES.EndsWith, ES.Contains):
+    expr_rule(_c, _bool)
+
+
+def _tag_regex(meta: ExprMeta) -> None:
+    """JAX `_tag_regex`: the user's switch, then the pattern's compile."""
+    e = meta.expr
+    if not meta.conf.get("spark.rapids.sql.regexp.enabled"):
+        meta.will_not_work("regular expressions are disabled via "
+                           "spark.rapids.sql.regexp.enabled")
+        return
+    if e.device_reason is not None:
+        meta.will_not_work(
+            f"{e.name} pattern is not supported on TPU: {e.device_reason}")
+
+
+def _tag_regex_cpu_only(meta: ExprMeta) -> None:
+    meta.will_not_work(
+        f"{meta.expr.name} runs on CPU (device byte-rewrite kernel pending)")
+
+
+for _c in (RX.RLike, RX.Like):
+    expr_rule(_c, _bool, incompat=True, tag_fn=_tag_regex,
+              doc="Byte-level regex machine: exact for ASCII subjects; "
+                  "counted quantifiers over multi-byte UTF-8 characters "
+                  "can differ from the JVM (reference marks regexp "
+                  "incompat similarly).")
+for _c in (RX.RegExpReplace, RX.RegExpExtract):
+    expr_rule(_c, _str, tag_fn=_tag_regex_cpu_only)
 
 
 def _exprs_project(m: PlanMeta):
@@ -611,7 +650,6 @@ def _check_node(plan: N.PhysicalPlan) -> None:
     if isinstance(plan, N.CpuScanExec):
         for dt in plan.output.types:
             check_supported(dt, "scan column")
-        check_string_widths(plan.table)
     elif isinstance(plan, CpuFileScanExec):
         if plan.format_name != "parquet":
             _unsupported(f"the {plan.format_name} scan")
@@ -764,9 +802,6 @@ def _check_window(plan: N.CpuWindowExec) -> None:
             _check_expr(c)
         if isinstance(f, WX.WindowAggregate):
             _check_window_agg(f, what)
-        elif isinstance(f, (WX.Lead, WX.Lag)) and \
-                isinstance(f.default, str):
-            check_string_length(len(f.default.encode("utf-8")))
         check_supported(f.data_type, f"{what} result")
 
 

@@ -831,8 +831,9 @@ class TestOutOfSlice:
     def test_scan_time_raises(self, tmp_path, case):
         """A v2-page file (each row group falls back whole) and an LZ4 file
         (no column the device decodes: the file is read by pyarrow) give
-        pyarrow's rows. A 300-byte string still raises: the device decode
-        declines it and the host decode's upload refuses it, never cut."""
+        pyarrow's rows. A 300-byte string (which once raised) decodes on
+        the device into the long-string layout and equals pyarrow's rows
+        and the JAX engine's."""
         t = kinds_table(n=400)
         kw = {"v2_pages": dict(data_page_version="2.0"),
               "lz4": dict(compression="lz4"),
@@ -850,11 +851,16 @@ class TestOutOfSlice:
             assert (host["host_row_groups"], host["host_files"]) == \
                 ((1, 0) if case == "v2_pages" else (0, 1))
             return
-        with pytest.raises(NotImplementedError, match="300 bytes"):
-            df.collect()
-        with pytest.raises(P.DeviceDecodeUnsupported):
-            pf = pq.ParquetFile(path)
-            list(P.device_decode_file(pf, path, _port_schema(path), CPU, 1))
+        P.COUNTERS.reset()
+        got = df.collect()
+        assert got.equals(pq.read_table(path))
+        assert got.equals(JaxSession(BASE).read_parquet(path).collect())
+        assert P.COUNTERS.host_row_groups == 0  # the device decoded it
+        pf = pq.ParquetFile(path)
+        (b, _), = P.device_decode_file(pf, path, _port_schema(path), CPU, 1)
+        si = b.schema.names.index("s")
+        assert b.columns[si].overflow is not None
+        assert b.columns[si].data.shape[1] == 256
 
     def test_unported_option_raises(self, files):
         """`filters=` (once refused) reads through pyarrow's row filter,

@@ -213,16 +213,17 @@ def test_sub_microsecond_nanos_raise_in_both_engines(tmp_path):
 
 @pytest.mark.parametrize("codec", ["snappy", "lz4"])
 def test_long_string_raises_on_every_path(tmp_path, codec):
-    """A 300-byte string, through the device decode's row-group fallback
-    (snappy) or the file's host decode (lz4), raises the flat layout's
-    NotImplementedError; it is never cut."""
+    """A 300-byte string, through the device decode (snappy) or the
+    file's host decode (lz4), once raised; it now takes the long-string
+    layout on either path and equals the JAX engine's rows, never cut."""
     t = probe_table(n=400)
     t = t.set_column(t.schema.get_field_index("str"), "str",
                      pa.array(["a" * 300] + ["b"] * 399))
     path = str(tmp_path / "long.parquet")
     pq.write_table(t, path, compression=codec)
-    with pytest.raises(NotImplementedError, match="300 bytes"):
-        TpuSession(BASE, device="cpu").read_parquet(path).collect()
+    got = TpuSession(BASE, device="cpu").read_parquet(path).collect()
+    assert got.equals(JaxSession(BASE).read_parquet(path).collect())
+    assert got.column("str")[0].as_py() == "a" * 300
 
 
 def test_a_device_failure_is_not_caught(files, monkeypatch):

@@ -308,8 +308,16 @@ class TestStrings:
         assert batch_to_arrow(port_batch(jb)).equals(t)
         edge = pa.table({"s": pa.array(["", None, "é" * 128, "x" * 256])})
         assert batch_to_arrow(batch_from_arrow(edge, "cpu")).equals(edge)
-        with pytest.raises(NotImplementedError):
-            batch_from_arrow(pa.table({"s": ["x" * 257]}), "cpu")
+        # past the head width: the long-string layout, leaf for leaf the
+        # JAX package's, and the same strings back
+        long = pa.table({"s": ["x" * 257, None, "y"]})
+        jc, pc = jax_batch_from_arrow(long).columns[0], \
+            batch_from_arrow(long, "cpu").columns[0]
+        assert pc.overflow is not None and jc.overflow is not None
+        for a, b in zip((jc.data, jc.lengths) + tuple(jc.overflow),
+                        (pc.data, pc.lengths) + tuple(pc.overflow)):
+            assert (np.asarray(a) == b.numpy()).all()
+        assert batch_to_arrow(batch_from_arrow(long, "cpu")).equals(long)
 
     def test_equality_and_ordering(self):
         jbs, pbs = _batches(seed=2)
@@ -473,6 +481,36 @@ class TestStrings:
                                        rtol=1e-9)
 
 
+_LONG_STRING_CASES = ("string_over_head_width", "string_literal_over_256",
+                      "string_over_256_under_a_wider_head_width_conf")
+
+
+def _long_string_case_equals_jax(case):
+    """One string case past 256 bytes on both engines, exact (the JAX
+    engine's head width is its default conf's, 256; the port reads the
+    session's)."""
+    t = pa.table({"k": np.arange(4, dtype=np.int64),
+                  "s": ["a", "b", "x" * 300, "d"]})
+    conf = {"spark.rapids.sql.explain": "NONE"}
+    if case == "string_over_256_under_a_wider_head_width_conf":
+        conf["spark.rapids.tpu.string.headWidth"] = 512
+        t = pa.table({"s": ["y" * 300, "y" * 300, "z"]})
+    outs = []
+    for sess, m in ((JaxSession(conf), JE),
+                    (TpuSession(conf, device="cpu"), PE)):
+        df = sess.from_arrow(t)
+        if case == "string_over_head_width":
+            df = df.filter(m.col("k") >= 1)
+        elif case == "string_literal_over_256":
+            df = df.filter(m.col("s") == m.lit("x" * 300))
+        else:
+            df = df.group_by("s").agg(n=m.Count(m.lit(1)))
+        outs.append(df.collect().sort_by("s"))
+    assert outs[0].equals(outs[1])
+    assert outs[1].num_rows == {"string_over_head_width": 3,
+                                "string_literal_over_256": 1}.get(case, 2)
+
+
 # --------------------------------------------------------------------------
 class TestBoundaries:
     @pytest.mark.parametrize("case", [
@@ -481,6 +519,9 @@ class TestBoundaries:
         "string_vs_int_compare", "string_literal_over_256",
         "string_over_256_under_a_wider_head_width_conf"])
     def test_out_of_slice_raises_at_plan_time(self, case):
+        """What the port refuses raises while planning; the string cases
+        that once did (past 256 bytes) now run and equal the JAX
+        engine."""
         sess = TpuSession(device="cpu")
         t = pa.table({"k": np.arange(4, dtype=np.int64),
                       "s": ["a", "b", "c", "d"]})
@@ -491,17 +532,10 @@ class TestBoundaries:
                 "d", pa.array([decimal.Decimal("1.25")] * 4,
                               pa.decimal128(20, 2)))).select(
                 x=c("d") / PE.lit(2))
-        elif case == "string_over_head_width":
-            df = sess.from_arrow(pa.table({"s": ["x" * 257]}))
-        elif case == "string_literal_over_256":
-            df = df.filter(c("s") == PE.lit("x" * 300))
-        elif case == "string_over_256_under_a_wider_head_width_conf":
-            # the JAX package's key moves its overflow boundary; this engine
-            # has no overflow layout, so 256 bytes stays the limit
-            df = TpuSession({"spark.rapids.tpu.string.headWidth": 512},
-                            device="cpu").from_arrow(
-                pa.table({"s": ["y" * 300]})).group_by("s").agg(
-                    n=PE.Count(PE.lit(1)))
+        elif case in _LONG_STRING_CASES:
+            # the long-string layout runs these: each equals the JAX engine
+            _long_string_case_equals_jax(case)
+            return
         elif case in ("min_over_string", "max_over_string"):
             # grouped MIN/MAX over strings run; a bounded window frame over
             # them does not, in either engine

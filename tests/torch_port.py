@@ -14,11 +14,15 @@ from spark_rapids_tpu_torch.interop import batch_from_numpy
 
 def port_batch(jb, device="cpu"):
     """The identical padded batch in the port: same capacity, padding
-    contents and masks (a string column's byte matrix and lengths)."""
+    contents and masks (a string column's byte matrix and lengths, and a
+    long-string column's blob and tail offsets)."""
     fields = [(n, t.simple_string())
               for n, t in zip(jb.schema.names, jb.schema.types)]
     datas = [np.asarray(c.data) if c.lengths is None else
-             (np.asarray(c.data), np.asarray(c.lengths)) for c in jb.columns]
+             (np.asarray(c.data), np.asarray(c.lengths)) +
+             (() if c.overflow is None else
+              tuple(np.asarray(a) for a in c.overflow))
+             for c in jb.columns]
     return batch_from_numpy(fields, datas,
                             [np.asarray(c.validity) for c in jb.columns],
                             int(jb.num_rows), device)
