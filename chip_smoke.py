@@ -26,27 +26,30 @@ distributed plan, and last the joins of TPC-DS q97 (a full outer join whose
 8.39 M-row build side takes the sub-partition join), q10 (existence joins),
 q58 (string keys with conditions) and q28 (cross joins) over store,
 catalog and web sales and their SF10 dimensions from parquet, both plans,
-the TPC-DS aggregates q65 and q39, and the decimal star's store_sales in
-seven more file forms (zstd, gzip, columns pyarrow decodes, v2 pages, lz4,
-64 files under each reader strategy, a row filter) read by Q3 and Q7
-with the scan's counters held to their predictions, the decimal star, q65,
-q39a and q58 under ANSI mode, and last the memory layer: 1 GiB through the
-spill catalog under each codec, the running window, the out-of-core sort,
-q97 and the distributed engine query at the session's memory budget and
-at a tight one (spills to host and disk, results equal) and injected OOMs,
-and last the host engine: decimal star Q7 with every parquet scan on the
-host (both plans), ordered Q7 with a cast the device refuses on the host
-between device stages (both plans), and the engine query with
-spark.rapids.sql.enabled=false, each beside the same query on the card;
-it checks each against numpy oracles, holds kernels A
-and C to their exact launch counts there, and holds them against their
-twins on the inputs those paths hand them (a merged batch of 4 row
-groups). Each phase prints
-one JSON line; then a `kernels` line, the card's `nvidia-smi`
-name and power limit, and last `{"ok": true, "device": {...}}`. Any failure
-exits non-zero without that last line. Without CUDA (or without the package
-beside this file) it exits 2 and prints no result. It imports nothing of
-JAX.
+the TPC-DS aggregates q65 and q39, and the decimal star's first 4,194,304
+sales in seven more file forms (zstd, gzip, columns pyarrow decodes, v2
+pages, lz4, 64 files under each reader strategy, a row filter) read by Q3
+and Q7 with the scan's counters held to their predictions, the decimal
+star, q65, q39a and q58 under ANSI mode, and last the memory layer: 1 GiB
+through the spill catalog under each codec, the running window, the
+out-of-core sort, q97 and the distributed engine query at the session's
+memory budget and at a tight one (spills to host and disk, results equal)
+and injected OOMs, and last the host engine: decimal star Q7 with every
+parquet scan on the host (both plans), ordered Q7 with a cast the device
+refuses on the host between device stages (both plans), and the engine
+query with spark.rapids.sql.enabled=false, each beside the same query on
+the card, and then the strings: TPC-DS q23's frequent items, a text report
+and LIKE/RLIKE over item's descriptions, the long-string layout, and last
+the rest of the string functions and the casts from and to STRING (TPC-DS
+q21 with its date window cast from string literals, a formatted store
+report, and a parse of sales staged as text, under ANSI too); it checks
+each against numpy oracles, holds kernels A and C to their exact launch
+counts there, and holds them against their twins on the inputs those paths
+hand them (a merged batch of 4 row groups). Each phase prints one JSON
+line; then a `kernels` line, the card's `nvidia-smi` name and power limit,
+and last `{"ok": true, "device": {...}}`. Any failure exits non-zero
+without that last line. Without CUDA (or without the package beside this
+file) it exits 2 and prints no result. It imports nothing of JAX.
 
 Kernel times are device times from CUDA events (see time_ms), the median
 of 10 rounds after warm-up, back to back on one input. Kernel B is also
@@ -103,7 +106,10 @@ K_STEPS = 8
 # its 1,200 s limit with the parquet_files phase (slice 10): WALL_ROUNDS
 # from 11 to 5, STAR_ROUNDS from 5 to 1, DECODE_ROUNDS from 5 to 1,
 # PARQUET_ROUNDS from 7 to 1, ORDERED_ROUNDS, JOINS_ROUNDS and AGG_ROUNDS
-# from 3 to 1; no size changed
+# from 3 to 1; no size changed. Slice 15 cut parquet_files' depth: its
+# seven forms hold the first 4,194,304 sales, not 16,777,216
+# (FILES_SALES_ROWS; the phase took 240-319 s and the script 902-1,048 s
+# of its 1,200 s before the strings_ext phase was added)
 WALL_ROUNDS = 5
 MESH_POSITIONS = 4
 H100_BYTES_PER_S = 3.35e12
@@ -1381,6 +1387,7 @@ def star_decimal_data(pa, d: str, n_sales=STAR_SALES_ROWS,
     want = star_decimal_oracle(pa, star)
     paths = write_parquet(pq, star, d, tag="_decimal")
     return {"tables": star, "oracle": want, "paths": paths,
+            "files_head": files_head(pa, star, d),
             "setup_s": time.monotonic() - t0}
 
 
@@ -2883,9 +2890,12 @@ def agg_data(pa, d: str, sizes=AGG_SIZES) -> dict:
     paths = write_parquet(pq, tables, d, tag="_aggs")
     t3 = time.monotonic()
     strings = strings_data(pa, tables, d, paths)
+    t4 = time.monotonic()
+    ext = strings_ext_data(pa, tables, d, paths)
     return {"tables": tables, "oracle": want, "paths": paths,
-            "strings": strings, "tables_s": t1 - t0, "oracle_s": t2 - t1,
-            "write_s": t3 - t2, "strings_s": time.monotonic() - t3}
+            "strings": strings, "strings_ext": ext, "tables_s": t1 - t0,
+            "oracle_s": t2 - t1, "write_s": t3 - t2,
+            "strings_s": t4 - t3, "strings_ext_s": time.monotonic() - t4}
 
 
 def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
@@ -3017,6 +3027,10 @@ def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
 # timed), and FILES_DECODE_ROUNDS decodes, all timed, the first checked
 FILES_ROUNDS = 1
 FILES_DECODE_ROUNDS = 2
+# the forms hold the first FILES_SALES_ROWS sales (4 row groups, 1 merged
+# batch), cut from all 16,777,216 in slice 15: the phase took 240-319 s of
+# the script's 1,200 s limit, and the next phase needed the room
+FILES_SALES_ROWS = 4 * (1 << 20)
 FILES_SPLIT = 64  # many_files: the file count of a 64-task Spark write
 FILES_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False}
 FILES_QUERIES = ("q3", "q7")
@@ -3032,6 +3046,18 @@ FILES_HOST_COLS = ("ss_quantity", "ss_sold_date_sk", "ss_sales_price")
 READER_TYPE = "spark.rapids.sql.format.parquet.reader.type"
 SCAN_COUNTS = ("scan_chunks", "fused_dispatches", "declined_chunks",
                "host_columns", "host_row_groups", "host_files")
+
+
+def files_head(pa, tables: dict, d: str) -> dict:
+    """The first FILES_SALES_ROWS sales of star_decimal_tables written as
+    the run's snappy file under d, and their int64 oracle: the forms of
+    parquet_files are written from them."""
+    import pyarrow.parquet as pq
+    head = tables["store_sales"].slice(0, FILES_SALES_ROWS)
+    return {"oracle": star_decimal_oracle(pa, dict(tables,
+                                                   store_sales=head)),
+            "store_sales": write_parquet(pq, {"store_sales": head}, d,
+                                         tag="_files_head")["store_sales"]}
 
 
 def files_forms(pa, pq, ss, d: str, snappy: str, dates: tuple) -> dict:
@@ -3154,8 +3180,11 @@ def files_phases(torch, pa, mesh_conf: dict, counters, data: dict,
                 **{"spark.rapids.tpu.fusion.enabled": True})
     batch_rows = TpuSession(conf, dev).conf.batch_size_rows
     ns = star_namespace()
-    tables, want = data["tables"], data["oracle"]
-    ss = tables["store_sales"]
+    tables = data["tables"]
+    ss = tables["store_sales"].slice(0, FILES_SALES_ROWS)
+    want = data["files_head"]["oracle"]
+    head_paths = dict(data["paths"],
+                      store_sales=data["files_head"]["store_sales"])
     dd = tables["date_dim"]
 
     def counted(fn):
@@ -3219,11 +3248,11 @@ def files_phases(torch, pa, mesh_conf: dict, counters, data: dict,
 
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as d:
-        forms = files_forms(pa, pq, ss, d, data["paths"]["store_sales"],
+        forms = files_forms(pa, pq, ss, d, head_paths["store_sales"],
                             dates)
         write_s = time.monotonic() - t0
         snappy_q = star_decimal_queries(TpuSession(conf, dev), ns,
-                                        data["paths"])
+                                        head_paths)
         snappy_walls = {}
         for q in FILES_QUERIES:
             check_star_decimal(pa, q, snappy_q[q].collect(), want[q])
@@ -4686,6 +4715,535 @@ def _lit_col(torch, value: int, n: int, dev):
                   torch.ones(n, dtype=torch.bool, device=dev))
 
 
+# ---- strings_ext (slice 15): the rest of the string functions and the
+# casts from and to STRING, over agg_tables' files: TPC-DS q21 with its
+# date window as dates cast from string literals, a formatted store report
+# (concat_ws, lpad of keys cast to STRING, initcap, translate, replace,
+# soundex, format_number, an average cast to STRING on the host engine),
+# and store_sales staged as text, as a CSV load leaves it, parsed back by
+# casts (under ANSI its malformed rows raise). One checked collect a query
+# and plan.
+EXT_WINDOW = ("2001-02-09", "2001-04-10")  # q21: 30 days either side of
+EXT_PIVOT = "2001-03-11"  # the pivot (DateAdd comes with the datetime slice)
+EXT_PRICE = ("0.99", "1.49")  # q21: i_current_price between
+EXT_RATIO = (2.0 / 3.0, 3.0 / 2.0)  # q21: inv_after / inv_before between
+EXT_LIMIT = 100
+EXT_YEAR = 2001  # the report's year
+EXT_TEXT_ROWS = 4 * (1 << 20)  # the first sales, staged as text
+EXT_SPACED = 0.01  # texts with surrounding spaces (each column)
+EXT_MALFORMED = 0.001  # prices that do not parse: "12.3.4" or "n/a"
+EXT_MALFORMS = ("12.3.4", "n/a")
+EXT_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False,
+            "spark.rapids.tpu.fusion.enabled": True}
+# kernel C a merged probe batch under the distributed plan, as
+# tests/test_torch_smoke_strings_ext.py counts them on the CPU: q21's two
+# int64 sums and their counts in the fused partial aggregate; none in the
+# report (its host cast above the aggregate stops the distribution pass,
+# so the aggregate runs complete) or in the text parse (a bare scan under
+# the partial aggregate: no fused stage); the ANSI twin's filter fuses
+# with its partial aggregate: the bigint sum, the double sum's count and
+# count(...) with its own, 4. None on one device. A is 2 a fused join a
+# batch (fused_joins).
+EXT_C_PER_BATCH = {"q21": 4, "report": 0, "text": 0, "text_good": 4}
+
+
+def strings_ext_namespace() -> SimpleNamespace:
+    """The port's constructors that strings_ext_queries uses, and its
+    types as `T`."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    m = SimpleNamespace(**{n: getattr(E, n) for n in (
+        "col", "lit", "Cast", "CaseWhen", "Sum", "Count", "Average",
+        "Concat", "ConcatWs", "StringLPad", "InitCap", "StringTranslate",
+        "StringReplace", "SoundEx", "FormatNumber", "Like")})
+    m.T = T
+    return m
+
+
+def strings_ext_queries(sess, m, paths: dict) -> dict:
+    """The phase's queries as DataFrames of `sess` over agg_tables' files
+    and the text file (`store_sales_text`), written once for either engine
+    through the namespace `m`: `q21`, `report` and the text parse by store
+    (`text`), and `text_good`, the same over the rows whose price text is
+    well formed (the ANSI twin)."""
+    import decimal
+    c, lit, T = m.col, m.lit, m.T
+
+    def read(name, cols):
+        return sess.read_parquet(paths[name], columns=cols)
+
+    def day(text):
+        return m.Cast(lit(text), T.DATE)
+
+    low, high = (lit(decimal.Decimal(p), T.DecimalType(3, 2))
+                 for p in EXT_PRICE)
+    items = read("item", ["i_item_sk", "i_current_price"]).filter(
+        (c("i_current_price") >= low) & (c("i_current_price") <= high)) \
+        .select(inv_item_sk=c("i_item_sk"))
+    dates = read("date_dim", ["d_date_sk", "d_date"]).filter(
+        (c("d_date") >= day(EXT_WINDOW[0]))
+        & (c("d_date") <= day(EXT_WINDOW[1]))).select(
+        "d_date", inv_date_sk=c("d_date_sk"))
+    wh = read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]).select(
+        "w_warehouse_name", inv_warehouse_sk=c("w_warehouse_sk"))
+    qty = c("inv_quantity_on_hand")
+    pivot = day(EXT_PIVOT)
+    x = read("inventory", ["inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                           "inv_quantity_on_hand"]) \
+        .join(wh, on="inv_warehouse_sk").join(items, on="inv_item_sk") \
+        .join(dates, on="inv_date_sk").select(
+            "w_warehouse_name", i_item_sk=c("inv_item_sk"),
+            before=m.CaseWhen([(c("d_date") < pivot, qty)], lit(0)),
+            after=m.CaseWhen([(c("d_date") >= pivot, qty)], lit(0))) \
+        .group_by("w_warehouse_name", "i_item_sk").agg(
+            inv_before=m.Sum(c("before")), inv_after=m.Sum(c("after")))
+    ratio = m.CaseWhen([(c("inv_before") > lit(0),
+                         c("inv_after") / c("inv_before"))],
+                       lit(None, T.DOUBLE))
+    q21 = x.filter((ratio >= lit(EXT_RATIO[0]))
+                   & (ratio <= lit(EXT_RATIO[1]))) \
+        .sort("w_warehouse_name", "i_item_sk").limit(EXT_LIMIT)
+
+    months = read("date_dim", ["d_date_sk", "d_year", "d_moy"]).filter(
+        c("d_year") == lit(EXT_YEAR)).select(
+        "d_year", "d_moy", ss_sold_date_sk=c("d_date_sk"))
+    stores = read("store", ["s_store_sk", "s_store_name"]).select(
+        "s_store_name", ss_store_sk=c("s_store_sk"))
+    name = c("s_store_name")
+
+    def text(e):
+        return m.Cast(e, T.STRING)
+
+    report = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_sales_price"]) \
+        .join(months, on="ss_sold_date_sk").join(stores, on="ss_store_sk") \
+        .select("ss_store_sk", "s_store_name", "d_year", "d_moy",
+                "ss_sales_price",
+                price=m.Cast(c("ss_sales_price"), T.DOUBLE)) \
+        .group_by("ss_store_sk", "s_store_name", "d_year", "d_moy").agg(
+            total=m.Sum(c("ss_sales_price")),
+            avg_price=m.Average(c("price")), n=m.Count(lit(1))) \
+        .select("avg_price", "n",
+                id=m.ConcatWs(lit("-"), lit("store"), m.StringLPad(
+                    text(c("ss_store_sk")), lit(4), lit("0"))),
+                month=m.Concat(text(c("d_year")), lit("-"), m.StringLPad(
+                    text(c("d_moy")), lit(2), lit("0"))),
+                title=m.InitCap(name),
+                vowels=m.StringTranslate(name, lit("aeiou"), lit("AEIOU")),
+                short=m.StringReplace(name, lit(" pack"), lit("-pk")),
+                code=m.SoundEx(name),
+                total=m.FormatNumber(m.Cast(c("total"), T.DOUBLE), lit(2))) \
+        .select("id", "month", "title", "vowels", "short", "code", "total",
+                "avg_price", "n", avg=text(c("avg_price"))) \
+        .sort("id", "month")
+
+    staged = read("store_sales_text", ["ss_store_sk", "item_text",
+                                       "price_text"])
+
+    def parsed(df):
+        return df.group_by("ss_store_sk").agg(
+            items=m.Sum(m.Cast(c("item_text"), T.LONG)),
+            price=m.Sum(m.Cast(c("price_text"), T.DOUBLE)),
+            n=m.Count(m.Cast(c("price_text"), T.DOUBLE))).sort("ss_store_sk")
+
+    good = ~m.Like(c("price_text"), lit("%/%")) \
+        & ~m.Like(c("price_text"), lit("%.%.%"))
+    return {"q21": q21, "report": report, "text": parsed(staged),
+            "text_good": parsed(staged.filter(good))}
+
+
+def _days(text: str) -> int:
+    return int(np.datetime64(text, "D").astype(np.int64))
+
+
+def spark_soundex(s: str) -> str:
+    """UTF8String.soundex: a first byte that is not a letter returns the
+    string; H and W carry the last code, any other non-coded byte resets
+    it (the phase's store names hold no case where the JAX kernel's
+    carry-through of a non-letter differs)."""
+    codes = "01230127022455012623017202"
+    if not s or not s[0].isascii() or not s[0].isalpha():
+        return s
+    out, last = s[0].upper(), codes[ord(s[0].upper()) - 65]
+    for ch in s[1:]:
+        if not (ch.isascii() and ch.isalpha()):
+            last = "0"
+            continue
+        code = codes[ord(ch.upper()) - 65]
+        if code == "7":
+            continue
+        if code != "0" and code != last:
+            out += code
+            if len(out) == 4:
+                break
+        last = code
+    return out.ljust(4, "0")
+
+
+def spark_format_number(v: float, d: int) -> str:
+    """format_number as the phase uses it: the double HALF_UP to d places,
+    a comma every three integer digits."""
+    from decimal import ROUND_HALF_UP, Decimal
+    q = Decimal(v).quantize(Decimal(1).scaleb(-d), ROUND_HALF_UP)
+    return format(q, f",.{d}f")
+
+
+def java_plain_double(v: float) -> str:
+    """Double.toString for 10^-3 <= |v| < 10^7, where Java writes the
+    shortest digits plainly: Python's repr there."""
+    if not 1e-3 <= abs(v) < 1e7:
+        raise ValueError(f"{v!r} is outside the plain range")
+    return repr(v)
+
+
+def strings_ext_text(pa, ss, n: int = EXT_TEXT_ROWS, seed: int = 59):
+    """store_sales' first n rows as a text load leaves them: ss_store_sk,
+    item_text (ss_item_sk's digits) and price_text (ss_sales_price as
+    "12.34"); EXT_SPACED of each text column wrapped in spaces, a share
+    EXT_MALFORMED of the prices replaced by EXT_MALFORMS, the null prices
+    null. Returns (table, bad mask)."""
+    import pyarrow.compute as pc
+    head = ss.slice(0, n)
+    n = head.num_rows
+    rng = np.random.default_rng(seed)
+    cents, valid = unscaled(head.column("ss_sales_price"))
+
+    def spaced(arr):
+        return pc.if_else(pa.array(rng.random(n) < EXT_SPACED),
+                          pc.binary_join_element_wise(" ", arr, " ", ""),
+                          arr)
+
+    price = pc.binary_join_element_wise(
+        pc.cast(pa.array(cents // 100, mask=~valid), pa.string()),
+        pc.utf8_lpad(pc.cast(pa.array(cents % 100), pa.string()), 2, "0"),
+        ".")
+    bad = (rng.random(n) < EXT_MALFORMED) & valid
+    price = pc.if_else(pa.array(bad), pc.if_else(
+        pa.array(rng.random(n) < 0.5), EXT_MALFORMS[0], EXT_MALFORMS[1]),
+        spaced(price))
+    item = spaced(pc.cast(head.column("ss_item_sk"), pa.string()))
+    return pa.table({"ss_store_sk": head.column("ss_store_sk"),
+                     "item_text": item, "price_text": price}), bad
+
+
+def strings_ext_oracle(pa, t: dict, text_bad=None) -> dict:
+    """numpy answers to strings_ext_queries over agg_tables and the text
+    table (`t["store_sales_text"]`, its malformed rows `text_bad`):
+    columns in the queries' order, decimals as unscaled ints, the
+    report's formatted columns as Spark writes them (the average's text
+    is checked against the port's own double, check_strings_ext)."""
+    dd, it, inv = t["date_dim"], t["item"], t["inventory"]
+    dsk = dd.column("d_date_sk").to_numpy()
+    day = np.zeros(dsk.max() + 1, np.int64)
+    day[dsk] = dd.column("d_date").cast(pa.int32()).to_numpy()
+    yr = np.zeros(dsk.max() + 1, np.int64)
+    yr[dsk] = dd.column("d_year").to_numpy()
+    moy = np.zeros(dsk.max() + 1, np.int64)
+    moy[dsk] = dd.column("d_moy").to_numpy()
+    out = {}
+    # q21
+    price, _ = unscaled(it.column("i_current_price"))
+    lo, hi = (int(round(float(p) * 100)) for p in EXT_PRICE)
+    chosen = np.zeros(len(price) + 1, bool)
+    chosen[it.column("i_item_sk").to_numpy()] = (price >= lo) & \
+        (price <= hi)
+    d = day[inv.column("inv_date_sk").to_numpy()]
+    item = inv.column("inv_item_sk").to_numpy()
+    wh = inv.column("inv_warehouse_sk").to_numpy()
+    qcol = inv.column("inv_quantity_on_hand")
+    q = qcol.fill_null(0).to_numpy().astype(np.int64)
+    qv = np.asarray(qcol.is_valid())
+    keep = chosen[item] & (d >= _days(EXT_WINDOW[0])) & \
+        (d <= _days(EXT_WINDOW[1]))
+    pv = _days(EXT_PIVOT)
+    key = wh[keep] * (len(price) + 1) + item[keep]
+    groups, gid = np.unique(key, return_inverse=True)
+    sums = {}
+    for name, side in (("inv_before", d[keep] < pv),
+                       ("inv_after", d[keep] >= pv)):
+        val = np.where(side, q[keep], 0)
+        ok = np.where(side, qv[keep], True)
+        tot = np.zeros(len(groups), np.int64)
+        np.add.at(tot, gid[ok], val[ok])
+        sums[name] = (tot, np.bincount(gid[ok], minlength=len(groups)) > 0)
+    (b, bh), (a, ah) = sums["inv_before"], sums["inv_after"]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = a.astype(np.float64) / b
+    sel = bh & ah & (b > 0) & (ratio >= EXT_RATIO[0]) & \
+        (ratio <= EXT_RATIO[1])
+    whn = np.array(t["warehouse"].column("w_warehouse_name").to_pylist(),
+                   object)
+    g_wh, g_item = groups // (len(price) + 1), groups % (len(price) + 1)
+    names = whn[g_wh - 1]
+    ix = np.flatnonzero(sel)
+    ix = ix[np.lexsort((g_item[ix], names[ix].astype(str)))][:EXT_LIMIT]
+    out["q21"] = {"w_warehouse_name": names[ix].tolist(),
+                  "i_item_sk": g_item[ix].tolist(),
+                  "inv_before": b[ix].tolist(), "inv_after": a[ix].tolist()}
+    out["q21_groups"] = int(len(groups))
+    out["q21_having"] = int(sel.sum())
+    # the report
+    ss = t["store_sales"]
+    sdate = ss.column("ss_sold_date_sk").to_numpy()
+    store = ss.column("ss_store_sk").to_numpy()
+    cents, valid = unscaled(ss.column("ss_sales_price"))
+    in_year = yr[sdate] == EXT_YEAR
+    rkey = store[in_year] * 13 + moy[sdate[in_year]]
+    rg, rid = np.unique(rkey, return_inverse=True)
+    ok = valid[in_year]
+    total = np.zeros(len(rg), np.int64)
+    np.add.at(total, rid[ok], cents[in_year][ok])
+    has = np.bincount(rid[ok], minlength=len(rg)) > 0
+    psum = np.bincount(rid[ok], weights=cents[in_year][ok] / 100.0,
+                       minlength=len(rg))
+    cnt_ok = np.bincount(rid[ok], minlength=len(rg))
+    names = dict(zip(t["store"].column("s_store_sk").to_pylist(),
+                     t["store"].column("s_store_name").to_pylist()))
+    sk, mo = rg // 13, rg % 13
+    nm = [names[int(k)] for k in sk]
+    out["report"] = {
+        "id": [f"store-{int(k):04d}" for k in sk],
+        "month": [f"{EXT_YEAR}-{int(v):02d}" for v in mo],
+        "title": [" ".join(w[:1].upper() + w[1:].lower()
+                           for w in v.split(" ")) for v in nm],
+        "vowels": [v.translate(str.maketrans("aeiou", "AEIOU")) for v in nm],
+        "short": [v.replace(" pack", "-pk") for v in nm],
+        "code": [spark_soundex(v) for v in nm],
+        "total": [spark_format_number(float(v) / 100.0, 2) if h else None
+                  for v, h in zip(total, has)],
+        "avg_price": [s / c if c else None for s, c in zip(psum, cnt_ok)],
+        "n": np.bincount(rid, minlength=len(rg)).tolist()}
+    # the text parse by store, and over the well-formed rows only
+    tx = t.get("store_sales_text")
+    if tx is not None:
+        tstore = tx.column("ss_store_sk").to_numpy()
+        titem = ss.column("ss_item_sk").to_numpy()[:tx.num_rows]
+        tcents, tvalid = cents[:tx.num_rows], valid[:tx.num_rows]
+        fine = tvalid & ~text_bad
+        for name, rows in (("text", np.ones(tx.num_rows, bool)),
+                           ("text_good", fine)):
+            ks, kid = np.unique(tstore[rows], return_inverse=True)
+            f = fine[rows]
+            out[name] = {
+                "ss_store_sk": ks.tolist(),
+                "items": np.bincount(kid, weights=titem[rows],
+                                     minlength=len(ks)).astype(np.int64)
+                .tolist(),
+                "price": np.bincount(kid[f], weights=tcents[rows][f] / 100.0,
+                                     minlength=len(ks)).tolist(),
+                "n": np.bincount(kid[f], minlength=len(ks)).tolist()}
+        out["text_malformed"] = int(text_bad.sum())
+    return out
+
+
+def strings_ext_data(pa, tables: dict, d: str, paths: dict,
+                     text_rows: int = EXT_TEXT_ROWS) -> dict:
+    """The phase's text file (strings_ext_text over the first `text_rows`
+    sales) beside agg_data's files in directory d, and its oracle."""
+    import pyarrow.parquet as pq
+    text, bad = strings_ext_text(pa, tables["store_sales"], text_rows)
+    want = strings_ext_oracle(pa, dict(tables, store_sales_text=text), bad)
+    return {"oracle": want, "paths": dict(paths, **write_parquet(
+        pq, {"store_sales_text": text}, d, tag="_text"))}
+
+
+def check_strings_ext(pa, name: str, out, want: dict) -> None:
+    """Raise unless a strings_ext query's result equals the oracle: every
+    column exact but the doubles (the report's average, the parsed price
+    sums: rtol 1e-12); the report's average text equal to Java's
+    Double.toString of the average the engine computed."""
+    n = len(next(iter(want.values())))
+    if out.num_rows != n:
+        raise AssertionError(f"strings_ext {name}: {out.num_rows} rows, the "
+                             f"oracle {n}")
+    for col, w in want.items():
+        got = out.column(col).to_pylist()
+        if col in ("avg_price", "price"):
+            if any((g is None) != (v is None) for g, v in zip(got, w)) or \
+                    not np.allclose([g for g in got if g is not None],
+                                    [v for v in w if v is not None],
+                                    rtol=1e-12, atol=0):
+                raise AssertionError(f"strings_ext {name}: {col} differs")
+        elif got != w:
+            raise AssertionError(f"strings_ext {name}: column {col} "
+                                 "differs from the oracle")
+    if name == "report":
+        avg = out.column("avg_price").to_pylist()
+        text = out.column("avg").to_pylist()
+        if text != [None if v is None else java_plain_double(v)
+                    for v in avg]:
+            raise AssertionError("strings_ext report: the average's text "
+                                 "is not Java's Double.toString")
+
+
+def strings_ext_phases(torch, pa, mesh_conf: dict, counters, data: dict,
+                       conf=None, device=None,
+                       c_per_batch=EXT_C_PER_BATCH):
+    """Phase strings_ext over agg_tables' files and the text file (`data`:
+    strings_ext_data), dynamic pruning off, fusion on:
+      1. q21 and 2. the formatted store report, on one device and under
+         the distributed plan, exact against strings_ext_oracle; the
+         report's average cast to STRING runs on the host engine between
+         device stages (its `!` line);
+      3. the text parse by store on both plans, exact (the double sums
+         rtol 1e-12), and under ANSI: the collect raises
+         [CAST_INVALID_INPUT], its twin over the well-formed rows is
+         exact; the first row group's prices parsed on the device equal
+         Python float() bit for bit;
+      4. the device times of the float parse and of lpad(cast(... as
+         string)) over one row group's rows, beside their byte bounds.
+    Every collect launches A 2 a fused join (explain tree) a merged probe
+    batch and C `c_per_batch` a batch under the distributed plan. Prints
+    one line a query and plan and one for the expressions; returns the
+    launches of each plan's run (one collect of each query)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    from spark_rapids_tpu_torch.expr.base import BoundReference, \
+        EvalContext, Vec
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **EXT_CONF)
+    paths, want = data["paths"], data["oracle"]
+    rate = H100_BYTES_PER_S
+    m = strings_ext_namespace()
+    t_phase = time.monotonic()
+
+    def batches_of(name):
+        rgs = pq.ParquetFile(paths[name]).metadata.num_row_groups
+        return -(-rgs // CHUNKS_PER_DISPATCH)
+
+    probe = {"q21": batches_of("inventory"),
+             "report": batches_of("store_sales"),
+             "text": batches_of("store_sales_text"),
+             "text_good": batches_of("store_sales_text")}
+
+    def launched():
+        return {k.__name__: k.launches for k in counters}
+
+    def collect(q):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launched()
+
+    def held(what, shape, ran, name, distributed):
+        a = 2 * fused_joins(shape) * probe[name]
+        c = c_per_batch[name] * probe[name] if distributed else 0
+        if (ran["murmur3_rows"], ran["segment_sum_i64"]) != (a, c):
+            raise AssertionError(f"strings_ext {what} launched {ran}, not "
+                                 f"A {a} and C {c}")
+
+    launches = {}
+    for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+        sess = TpuSession(dict(conf, **extra), dev)
+        qs = strings_ext_queries(sess, m, paths)
+        run = {}
+        for n in ("q21", "report", "text"):
+            shape = qs[n].explain()
+            out, wall, run[n] = collect(qs[n])
+            check_strings_ext(pa, n, out, want[n])
+            held(f"{n} ({plan})", shape, run[n], n, plan == "distributed")
+            bangs = fallback_lines(sess, qs[n], dev)
+            if bangs != ([] if n != "report" else [
+                    "! CpuProjectExec <- cast double -> string is not "
+                    "supported on TPU"]):
+                raise AssertionError(f"strings_ext {n} ({plan}): {bangs}")
+            emit({"phase": "strings_ext", "query": n, "plan": plan,
+                  "rows": out.num_rows, "collect_s": wall,
+                  "launches": run[n], "fused_joins": fused_joins(shape),
+                  "probe_batches": probe[n], "host_nodes": bangs,
+                  "exchanges": shape.count("TpuShuffleExchangeExec")})
+        # ANSI: the malformed prices raise; the twin over the well-formed
+        # rows answers exactly
+        asess = TpuSession(dict(conf, **extra, **ANSI_CONF), dev)
+        aq = strings_ext_queries(asess, m, paths)
+        try:
+            aq["text"].collect()
+        except AnsiViolation as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"strings_ext text ({plan}) did not raise "
+                                 "under ANSI")
+        # item_text always parses: the price's cast raises
+        if message != ("[CAST_INVALID_INPUT] value cannot be cast to "
+                       "double"):
+            raise AssertionError(f"strings_ext ANSI: {message!r}")
+        shape = aq["text_good"].explain()
+        out, wall, ran = collect(aq["text_good"])
+        check_strings_ext(pa, "text_good", out, want["text_good"])
+        held(f"text_good ({plan}, ANSI)", shape, ran, "text_good",
+             plan == "distributed")
+        emit({"phase": "strings_ext", "query": "text_ansi", "plan": plan,
+              "raised": message, "twin_rows": out.num_rows,
+              "twin_collect_s": wall, "twin_launches": ran})
+        path = "strings_ext" if plan == "one_device" else \
+            "strings_ext_distributed"
+        launches[path] = {k: sum(r[k] for r in run.values())
+                          for k in run["q21"]}
+    # the first row group's prices on the device against Python float()
+    pf = pq.ParquetFile(paths["store_sales_text"])
+    first = pf.read_row_group(0, columns=["ss_store_sk", "price_text"])
+    rows = first.num_rows
+    cols = batch_from_arrow(first, dev).columns
+    store, price = (Vec.from_column(c) for c in cols)
+    from spark_rapids_tpu_torch.expr import cast as CA
+    got = CA._from_string(price, T.DOUBLE)
+    bits = got.data[:rows].cpu().numpy().view(np.int64)
+    ok = got.validity[:rows].cpu().numpy()
+
+    def py_float(s):
+        try:
+            return float(s)
+        except (TypeError, ValueError):
+            return None
+
+    ref = [py_float(s) for s in first.column("price_text").to_pylist()]
+    ref_ok = np.array([v is not None for v in ref])
+    ref_bits = np.array([0.0 if v is None else v for v in ref]) \
+        .view(np.int64)
+    if not (np.array_equal(ok, ref_ok) and
+            np.array_equal(bits[ref_ok], ref_bits[ref_ok])):
+        raise AssertionError("strings_ext: the device float parse differs "
+                             "from Python float()")
+    # device times over the row group, beside their byte bounds
+    pctx = EvalContext(torch.ones(price.validity.shape[0], dtype=torch.bool,
+                                  device=dev))
+    lpad = m.StringLPad(m.Cast(BoundReference(0, T.LONG), T.STRING),
+                        m.lit(8), m.lit("0"))
+    padded = lpad.eval(pctx, [store])
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    times = {
+        "float_parse": {
+            "ms": time_ms(torch, lambda: CA._from_string(price, T.DOUBLE),
+                          rounds=5, calls=3),
+            "bound_ms": nbytes(price.data, price.lengths, price.validity,
+                               got.data, got.validity) / rate * 1e3,
+            "shape": list(price.data.shape)},
+        "lpad_cast_string": {
+            "ms": time_ms(torch, lambda: lpad.eval(pctx, [store]),
+                          rounds=5, calls=3),
+            "bound_ms": nbytes(store.data, store.validity, padded.data,
+                               padded.lengths, padded.validity)
+            / rate * 1e3,
+            "shape": list(padded.data.shape)}}
+    emit({"phase": "strings_ext", "check": "parse_and_expressions",
+          "first_batch_rows": rows, "parsed": int(ok.sum()),
+          "bit_identical_to_python_float": True,
+          "malformed": want["text_malformed"],
+          "q21_groups": want["q21_groups"],
+          "q21_having": want["q21_having"], "device_ms": times,
+          "seconds": time.monotonic() - t_phase})
+    return launches
+
+
 DATA_SETS = ("star", "decimal", "joins", "aggs")
 
 
@@ -5207,6 +5765,7 @@ def run_phases(torch, ready: dict) -> int:
                                    dec=dec_files, joins=join_data,
                                    aggs=agg_data)
     strings_in = agg_data["strings"]
+    strings_ext_in = agg_data["strings_ext"]
     del agg_data
 
     # ---- memory: at the session's budget no phase above spilled; the
@@ -5239,6 +5798,13 @@ def run_phases(torch, ready: dict) -> int:
     # rerun, the exchange's tail-byte plane)
     strings_launches = strings_phases(torch, pa, mesh_conf, kernels3,
                                       strings_in)
+
+    # ---- strings_ext: q21 with its dates cast from strings, a formatted
+    # store report (a double cast to STRING on the host) and a parse of
+    # sales staged as text (under ANSI the malformed rows raise), both
+    # plans
+    ext_launches = strings_ext_phases(torch, pa, mesh_conf, kernels3,
+                                      strings_ext_in)
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -5304,7 +5870,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in ansi_launches.items()},
                     **{p: n[name] for p, n in memory_launches.items()},
                     **{p: n[name] for p, n in cpu_launches.items()},
-                    **{p: n[name] for p, n in strings_launches.items()})
+                    **{p: n[name] for p, n in strings_launches.items()},
+                    **{p: n[name] for p, n in ext_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

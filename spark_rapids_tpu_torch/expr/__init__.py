@@ -14,6 +14,14 @@ from .strings import (Length, Upper, Lower, Substring, Concat,  # noqa: F401
                       StartsWith, EndsWith, Contains, StringTrim,
                       StringTrimLeft, StringTrimRight)
 from .regex import RLike, Like, RegExpReplace, RegExpExtract  # noqa: F401
+from .strings_ext import (StringRepeat, StringLPad,  # noqa: F401
+                          StringRPad, StringLocate, StringInstr,
+                          StringReplace, StringTranslate, StringReverse,
+                          ConcatWs, SubstringIndex, InitCap, Ascii, Chr,
+                          Left, Right, StringSpace, BitLength, OctetLength,
+                          FindInSet)
+from .strings_more import (Overlay, Levenshtein, SoundEx,  # noqa: F401
+                           FormatNumber, Empty2Null, Conv)
 from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
                          Max, Average, First, Last, CountDistinct,
                          VariancePop, VarianceSamp, StddevPop, StddevSamp,

@@ -1,6 +1,6 @@
-"""Cast, the numeric part (`spark_rapids_tpu/expr/cast.py`:
-`device_supported`, `_numeric_cast`, `_decimal_cast` and the date and
-timestamp casts).
+"""Cast (`spark_rapids_tpu/expr/cast.py`: `device_supported`,
+`_numeric_cast`, `_decimal_cast`, the date and timestamp casts, and the
+casts from and to STRING).
 
 Java semantics: integral narrowing wraps; float -> integral truncates
 toward zero, clamps to the target's range and maps NaN to 0 (`convert`,
@@ -11,41 +11,59 @@ integral range is null; a decimal of more than 18 digits on either side
 rescales in limbs (`_decimal128_cast`).
 DATE -> TIMESTAMP is midnight UTC, TIMESTAMP -> DATE and -> LONG
 floor-divide (days, seconds), LONG -> TIMESTAMP multiplies seconds.
-Casts from and to strings are not ported: the planner refuses them.
+
+To STRING (`_to_string`): BOOLEAN as true/false, the integral types as
+their decimal digits (INT64_MIN too: the digits come from the value's
+non-positive form), DATE as yyyy-MM-dd for years 0-9999. From STRING
+(`_from_string`), after trimming ASCII whitespace: the integral types by
+`Long.parseLong`'s rule (overflow and anything else are null, never a
+wrapped value), BOOLEAN by Spark's true/false words, DATE by
+`stringToDate`'s grammar, FLOAT/DOUBLE exactly to the bit through
+expr/floatparse.py (a FLOAT rounds through the double). Under ANSI a
+non-null string that parses to null raises `[CAST_INVALID_INPUT]`.
 
 The casts that `device_supported` (the JAX device rule) refuses run on the
-host engine only (`host_only`; a CUDA tensor raises). Two follow Spark's
+host engine only (`host_only`; a CUDA tensor raises). Three follow Spark's
 rule where the JAX CPU engine departs from it (ROADMAP.md "Known
 differences"): FLOAT/DOUBLE -> DECIMAL takes the shortest decimal digits
 that give the double back (Python's `repr`, Java's `Double.toString` from
 JDK 19 on) rounded HALF_UP to the scale, null for NaN, infinities and
-values past the precision; BYTE/SHORT/INT -> TIMESTAMP reads seconds, as
-LONG -> TIMESTAMP does. The rest (DATE -> numeric, numeric -> DATE,
-TIMESTAMP -> numeric other than LONG, BOOLEAN/FLOAT/DOUBLE/DECIMAL ->
-TIMESTAMP) give the JAX CPU engine's values through the paths below; their
-Spark rule waits for confirmation (ROADMAP.md Queue C).
+values past the precision; FLOAT/DOUBLE -> STRING lays those shortest
+digits out as `Double.toString`/`Float.toString` does (`java_float_str`);
+BYTE/SHORT/INT -> TIMESTAMP reads seconds, as LONG -> TIMESTAMP does. The
+rest (DATE -> numeric, numeric -> DATE, TIMESTAMP -> numeric other than
+LONG, BOOLEAN/FLOAT/DOUBLE/DECIMAL -> TIMESTAMP) give the JAX CPU engine's
+values through the paths below; their Spark rule waits for confirmation
+(ROADMAP.md Queue C). STRING -> DECIMAL/TIMESTAMP and DECIMAL/TIMESTAMP
+-> STRING are refused at plan time (`host_supported`): the JAX CPU engine
+computes another value than Spark there, or fails (Queue C).
 
 ANSI mode (`ctx.ansi`) raises where the non-ANSI cast clamps, wraps or
 makes null: float -> integral out of range or NaN and integral narrowing
 out of range raise `[CAST_OVERFLOW]`; a decimal cast that makes null from
 a non-null value raises `[CAST_OVERFLOW]` to an integral type and
 `[NUMERIC_VALUE_OUT_OF_RANGE]` to a decimal (JAX messages). Under ANSI
-the planner keeps only numeric <-> numeric and decimal casts on the
-device (`ansi_supported`, JAX `_tag_cast`); the others run on the host.
+the planner keeps numeric <-> numeric, decimal and string-parse casts on
+the device (`ansi_supported`, JAX `_tag_cast`); the others run on the
+host.
 """
 
 from __future__ import annotations
 
+import decimal
 import math
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..columnar.column import torch_dtype
 from .base import EvalContext, Expression, Vec, ansi_raise
+from .datetime_ import civil_from_days, days_from_civil
+from .floatparse import compose_float64, mul10_add
 
 __all__ = ["Cast", "device_supported", "host_supported", "ansi_supported",
-           "convert"]
+           "convert", "java_float_str"]
 
 _US_PER_DAY = 86_400_000_000
 _INT_BOUNDS = {
@@ -59,13 +77,20 @@ _NUMERIC = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
 
 
 def device_supported(src: T.DataType, dst: T.DataType) -> bool:
-    """The casts this engine computes (the JAX rule without strings)."""
+    """The casts the device computes (the JAX rule)."""
     if src == dst:
         return True
     if isinstance(src, _NUMERIC) and isinstance(dst, _NUMERIC):
         return True
+    if isinstance(src, _NUMERIC) and isinstance(dst, T.StringType):
+        return not T.is_floating(src)  # float -> string is host-only
+    if isinstance(src, T.StringType):
+        return isinstance(dst, (T.ByteType, T.ShortType, T.IntegerType,
+                                T.LongType, T.BooleanType, T.DateType,
+                                T.FloatType, T.DoubleType))
     if isinstance(src, T.DateType):
-        return isinstance(dst, (T.TimestampType, T.IntegerType))
+        return isinstance(dst, (T.StringType, T.TimestampType,
+                                T.IntegerType))
     if isinstance(src, T.TimestampType):
         return isinstance(dst, (T.DateType, T.LongType))
     if isinstance(src, T.LongType) and isinstance(dst, T.TimestampType):
@@ -84,19 +109,25 @@ _CARRIED = _NUMERIC + (T.DecimalType, T.DateType, T.TimestampType)
 
 def host_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The casts this engine computes: the device ones, and on the host
-    every other pair of the carried types but strings."""
-    return device_supported(src, dst) or (isinstance(src, _CARRIED)
-                                          and isinstance(dst, _CARRIED))
+    every other pair of the carried types but strings, and FLOAT/DOUBLE
+    -> STRING. STRING -> DECIMAL/TIMESTAMP and DECIMAL/TIMESTAMP ->
+    STRING are not among them (ROADMAP.md Queue C)."""
+    return device_supported(src, dst) or (
+        isinstance(src, _CARRIED) and isinstance(dst, _CARRIED)) or (
+        T.is_floating(src) and isinstance(dst, T.StringType))
 
 
 def ansi_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The casts the device runs under ANSI (JAX `_tag_cast`): numeric
-    <-> numeric and any cast from or to a decimal. The date and timestamp
-    casts go to the host engine, as in the JAX planner."""
+    <-> numeric, any cast from or to a decimal, and the string parses to
+    the integral, floating, BOOLEAN and DATE types. The other date and
+    timestamp casts go to the host engine, as in the JAX planner."""
     plain = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
              T.LongType, T.FloatType, T.DoubleType)
     return (isinstance(src, plain) and isinstance(dst, plain)) or \
-        isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType)
+        isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType) \
+        or (isinstance(src, T.StringType) and
+            isinstance(dst, plain + (T.DateType,)))
 
 
 def _float_to_int(a: torch.Tensor, want: torch.dtype):
@@ -149,11 +180,24 @@ class Cast(Expression):
                 raise RuntimeError(
                     f"cast {src.simple_string()} -> {dst.simple_string()} "
                     "runs on the host engine only")
+            if T.is_floating(src) and isinstance(dst, T.StringType):
+                return _float_to_string(c)
             if T.is_floating(src) and isinstance(dst, T.DecimalType):
                 return _float_to_decimal(ctx, c, dst)
             if T.is_integral(src) and isinstance(dst, T.TimestampType):
                 return Vec(dst, c.data.to(torch.int64) * 1_000_000,
                            c.validity)
+        if isinstance(dst, T.StringType):
+            return _to_string(c)
+        if isinstance(src, T.StringType):
+            out = _from_string(c, dst)
+            if ctx.ansi:
+                # a non-null string that parsed to null: malformed or out
+                # of range
+                ansi_raise(ctx, c.validity & ~out.validity,
+                           "[CAST_INVALID_INPUT] value cannot be cast to "
+                           f"{dst.simple_string()}")
+            return out
         if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
             return Vec(dst, c.data.to(torch.int64) * _US_PER_DAY, c.validity)
         if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
@@ -323,3 +367,362 @@ def _float_to_decimal(ctx: EvalContext, c: Vec, dst: T.DecimalType) -> Vec:
     else:
         data = torch.tensor(out, dtype=torch.int64)
     return Vec(dst, data, c.validity & ok_t)
+
+
+# ---------------------------------------------------------------------------
+# To STRING
+# ---------------------------------------------------------------------------
+
+def _cols(w: int, device) -> torch.Tensor:
+    return torch.arange(w, dtype=torch.int64, device=device)[None, :]
+
+
+def _digits_to_matrix(value: torch.Tensor, width: int):
+    """Signed int64 -> (uint8[n, width] digits, left-aligned with a '-' for
+    a negative value, zero past the length; int32 lengths). The digits
+    come from -|value|, which INT64_MIN has, by truncating division."""
+    neg = value < 0
+    nonpos = torch.where(neg, value, -value)
+    digs, rem = [], nonpos
+    for _ in range(width):
+        digs.append(-torch.fmod(rem, 10))
+        rem = torch.div(rem, 10, rounding_mode="trunc")
+    mat = torch.stack(digs[::-1], dim=1)  # most significant first
+    ndig = torch.ones_like(value)
+    for k in range(1, 19):  # 10^19 is past int64: 19 digits at most
+        ndig = ndig + (nonpos <= -10 ** k).to(torch.int64)
+    ineg = neg.to(torch.int64)
+    total = ndig + ineg
+    j = _cols(width, value.device)
+    src = torch.clamp(width - ndig[:, None] + j - ineg[:, None], 0,
+                      width - 1)
+    out = torch.gather(mat, 1, src) + ord("0")
+    out = torch.where((j == 0) & neg[:, None], ord("-"), out)
+    out = torch.where(j < total[:, None], out, 0)
+    return out.to(torch.uint8), total.to(torch.int32)
+
+
+def _word_rows(words, w: int, device) -> torch.Tensor:
+    rows = torch.zeros((len(words), w), dtype=torch.uint8)
+    for i, word in enumerate(words):
+        rows[i, :len(word)] = torch.tensor(list(word), dtype=torch.uint8)
+    return rows.to(device)
+
+
+def _to_string(c: Vec) -> Vec:
+    """BOOLEAN, the integral types and DATE on either device (JAX
+    `_to_string`)."""
+    sd, dev = c.dtype, c.data.device
+    if isinstance(sd, T.BooleanType):
+        rows = _word_rows((b"false", b"true"), 8, dev)
+        pick = c.data.to(torch.int64)
+        return Vec(T.STRING, rows[pick], c.validity,
+                   torch.where(c.data, 4, 5).to(torch.int32))
+    if T.is_integral(sd):
+        out, total = _digits_to_matrix(c.data.to(torch.int64), 24)
+        return Vec(T.STRING, out, c.validity, total)
+    if isinstance(sd, T.DateType):
+        # yyyy-MM-dd for years 0..9999 (the JAX layout)
+        y, m, d = (v.to(torch.int64) for v in civil_from_days(c.data))
+        n = c.data.shape[0]
+        dash = torch.full((n,), ord("-"), dtype=torch.int64, device=dev)
+
+        def digit(v, p):
+            return torch.remainder(torch.div(v, p, rounding_mode="floor"),
+                                   10) + ord("0")
+
+        cols = [digit(y, 1000), digit(y, 100), digit(y, 10), digit(y, 1),
+                dash, digit(m, 10), digit(m, 1), dash, digit(d, 10),
+                digit(d, 1)]
+        data = torch.nn.functional.pad(torch.stack(cols, dim=1), (0, 6))
+        return Vec(T.STRING, data.to(torch.uint8), c.validity,
+                   torch.full((n,), 10, dtype=torch.int32, device=dev))
+    raise TypeError(f"cast {sd.simple_string()} -> string is not computed "
+                    "by this engine")
+
+
+def java_float_str(v: float, is_float: bool) -> str:
+    """Java's `Double.toString` (`Float.toString` for a FLOAT), from JDK
+    19 on: the shortest decimal digits that give the value back (Python's
+    `repr` for a double, numpy's shortest form for a float32), or, where
+    one digit is enough, the closest of the one- and two-digit decimals
+    that do (4.9E-324, not 5E-324); written plain when 10^-3 <= |v| <
+    10^7 and as d.dddEn otherwise, with at least one digit after the
+    point. Spark's cast to STRING prints this."""
+    if math.isnan(v):
+        return "NaN"
+    if math.isinf(v):
+        return "Infinity" if v > 0 else "-Infinity"
+    if v == 0:
+        return "-0.0" if math.copysign(1.0, v) < 0 else "0.0"
+    if is_float:
+        v = float(np.float32(v))
+    d = decimal.Decimal(str(np.float32(v)) if is_float else repr(v))
+    if len(d.as_tuple().digits) == 1:
+        exact = decimal.Decimal(v)
+        two = decimal.Context(prec=2).plus(exact)
+        back = float(np.float32(float(two))) if is_float else float(two)
+        if back == v and abs(two - exact) < abs(d - exact):
+            d = two
+    digits = "".join(map(str, d.as_tuple().digits)).lstrip("0").rstrip("0")
+    e = d.adjusted()  # the exponent of the leading digit
+    sign = "-" if v < 0 else ""
+    if 1e-3 <= abs(v) < 1e7:
+        if e >= 0:
+            whole = digits[:e + 1].ljust(e + 1, "0")
+            frac = digits[e + 1:] or "0"
+        else:
+            whole, frac = "0", "0" * (-e - 1) + digits
+        return f"{sign}{whole}.{frac}"
+    return f"{sign}{digits[0]}.{digits[1:] or '0'}E{e}"
+
+
+def _float_to_string(c: Vec) -> Vec:
+    """FLOAT/DOUBLE -> STRING on the host, a row at a time
+    (`java_float_str`), at the bucket of the longest row."""
+    from .strings import strings_to_vec
+    is_float = isinstance(c.dtype, T.FloatType)
+    return strings_to_vec([java_float_str(v, is_float) if live else None
+                           for v, live in zip(c.data.to(torch.float64)
+                                              .tolist(),
+                                              c.validity.tolist())],
+                          c.validity)
+
+
+# ---------------------------------------------------------------------------
+# From STRING
+# ---------------------------------------------------------------------------
+
+def _byte_at(chars: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """chars[i, pos[i]] with pos clamped into the row."""
+    pos = torch.clamp(pos, 0, chars.shape[1] - 1).to(torch.int64)
+    return torch.gather(chars, 1, pos[:, None])[:, 0]
+
+
+def _from_string(c: Vec, dst: T.DataType) -> Vec:
+    """JAX `_from_string`: trim ASCII whitespace (bytes <= 0x20), then
+    parse by the target type."""
+    chars, lengths = c.data, c.lengths
+    w = chars.shape[1]
+    j = _cols(w, chars.device)
+    in_row = j < lengths[:, None]
+    content = in_row & (chars > 0x20)
+    any_c = content.any(dim=1)
+    first = content.to(torch.uint8).argmax(dim=1)
+    last = w - 1 - content.flip(1).to(torch.uint8).argmax(dim=1)
+    if isinstance(dst, T.BooleanType):
+        return _parse_bool(c, first, last, any_c)
+    if isinstance(dst, T.DateType):
+        return _parse_date(c, first, last, any_c)
+    if T.is_floating(dst):
+        return _parse_float(c, first, last, any_c, dst)
+    return _parse_integral(c, j, first, last, any_c, dst)
+
+
+def _parse_integral(c: Vec, j, first, last, any_c, dst) -> Vec:
+    """[+-]?digits with `Long.parseLong`'s overflow rule: accumulate the
+    negative value (so Long.MIN_VALUE parses); overflow is null."""
+    chars = c.data
+    ch0 = _byte_at(chars, first)
+    neg = ch0 == ord("-")
+    dstart = first + (neg | (ch0 == ord("+"))).to(torch.int64)
+    in_num = (j >= dstart[:, None]) & (j <= last[:, None])
+    digit = (chars.to(torch.int64) - ord("0"))
+    is_digit = (digit >= 0) & (digit <= 9) & in_num
+    valid_num = any_c & (~in_num | is_digit).all(dim=1) & (last >= dstart)
+    limit = torch.where(neg, -2 ** 63, -(2 ** 63 - 1))
+    multmin = -922337203685477580  # trunc(limit / 10), either sign
+    acc = torch.zeros_like(first)
+    ovf = torch.zeros_like(any_c)
+    for k in range(chars.shape[1]):
+        active = in_num[:, k] & valid_num
+        d = torch.where(active, digit[:, k], 0)
+        ovf = ovf | (active & (acc < multmin))
+        # clamped: a row past multmin has overflowed, and no product
+        # leaves int64
+        acc10 = torch.clamp(acc, min=multmin) * 10
+        ovf = ovf | (active & (acc10 < limit + d))
+        acc = torch.where(active & ~ovf, acc10 - d, acc)
+    signed = torch.where(neg, acc, -acc)
+    lo, hi = _INT_BOUNDS[torch_dtype(dst)]
+    in_range = (signed >= lo) & (signed <= hi) & ~ovf
+    return Vec(dst, torch.where(in_range, signed, 0).to(torch_dtype(dst)),
+               c.validity & valid_num & in_range)
+
+
+def _parse_float(c: Vec, first, last, any_c, dst) -> Vec:
+    """JAX `_parse_float_device`, on either device: a per-row phase (sign /
+    integer / fraction / exponent sign / exponent digits) advances down
+    the byte columns, the mantissa accumulates exactly in 128 bits (up to
+    38 significant digits; a dropped nonzero tail sets a sticky bit), and
+    compose_float64 rounds M x 10^E to float64 with integer arithmetic.
+    NaN, Infinity and Inf (any case, signed) are words. A FLOAT rounds
+    through the correctly rounded double (double rounding can differ from
+    `Float.parseFloat` by 1 ulp at rare boundaries, as in JAX)."""
+    chars = c.data
+    n, w = chars.shape
+    jcol = _cols(w, chars.device)
+    inside = (jcol >= first[:, None]) & (jcol <= last[:, None])
+    lower = torch.where((chars >= 65) & (chars <= 90), chars + 32, chars)
+    ln = last - first + 1
+
+    def word_eq(word: bytes, off):
+        m = ln == (len(word) + off)
+        for i, by in enumerate(word):
+            m = m & (_byte_at(lower, first + off + i) == by)
+        return m
+
+    lead = _byte_at(lower, first)
+    signed_minus = lead == ord("-")
+    off0 = (signed_minus | (lead == ord("+"))).to(torch.int64)
+    is_nan = word_eq(b"nan", 0) | word_eq(b"nan", off0)
+    is_inf = torch.zeros_like(any_c)
+    for word in (b"infinity", b"inf"):
+        is_inf = is_inf | word_eq(word, 0) | word_eq(word, off0)
+
+    ph_sign, ph_int, ph_frac, ph_esign, ph_exp = 0, 1, 2, 3, 4
+    zi = torch.zeros_like(first)
+    zb = torch.zeros_like(any_c)
+    phase = zi.clone()
+    mhi, mlo = zi.clone(), zi.clone()   # the mantissa, 128-bit exact
+    msticky = zb.clone()                # a nonzero digit dropped past 38
+    mdigits = zi.clone()                # significant digits kept
+    idigits = zi.clone()                # integer digits past the kept 38
+    fdigits = zi.clone()                # fraction digits kept
+    any_digit, neg, seen_sign, seen_esign, eneg = (zb.clone()
+                                                   for _ in range(5))
+    eval_ = zi.clone()
+    any_edigit, bad = zb.clone(), zb.clone()
+    for j in range(w):
+        ch = lower[:, j]
+        act = inside[:, j]
+        d = ch.to(torch.int64) - ord("0")
+        is_digit = (d >= 0) & (d <= 9) & act
+        is_dot = (ch == ord(".")) & act
+        is_e = (ch == ord("e")) & act
+        is_minus = (ch == ord("-")) & act
+        is_plus = (ch == ord("+")) & act
+        other = act & ~(is_digit | is_dot | is_e | is_minus | is_plus)
+        sign_ok = (is_minus | is_plus) & (phase == ph_sign) & ~seen_sign
+        seen_sign = seen_sign | sign_ok
+        neg = neg | (is_minus & sign_ok)
+        esign_ok = (is_minus | is_plus) & (phase == ph_esign) & ~seen_esign
+        seen_esign = seen_esign | esign_ok
+        eneg = eneg | (is_minus & esign_ok)
+        in_mant = is_digit & (phase <= ph_frac)
+        # leading zeros are not significant: they use none of the 38-digit
+        # budget, though fraction ones still shift the exponent
+        lead_zero = in_mant & (d == 0) & (mhi == 0) & (mlo == 0)
+        keep = in_mant & ~lead_zero & (mdigits < 38)
+        thi, tlo = mul10_add(mhi, mlo, torch.where(keep, d, 0))
+        mhi = torch.where(keep, thi, mhi)
+        mlo = torch.where(keep, tlo, mlo)
+        dropped = in_mant & ~lead_zero & ~keep
+        msticky = msticky | (dropped & (d > 0))
+        mdigits = mdigits + keep.to(torch.int64)
+        idigits = idigits + (dropped & (phase <= ph_int)).to(torch.int64)
+        fdigits = fdigits + ((keep | lead_zero) &
+                             (phase == ph_frac)).to(torch.int64)
+        any_digit = any_digit | in_mant
+        in_exp = is_digit & ((phase == ph_esign) | (phase == ph_exp))
+        eval_ = torch.where(in_exp, torch.clamp(eval_ * 10 + d, max=9999),
+                            eval_)
+        any_edigit = any_edigit | in_exp
+        bad = bad | other | (is_dot & (phase >= ph_frac)) | \
+            (is_e & ((phase > ph_frac) | ~any_digit)) | \
+            ((is_minus | is_plus) & ~sign_ok & ~esign_ok)
+        phase = torch.where(is_digit & (phase == ph_sign), ph_int, phase)
+        phase = torch.where(is_dot & (phase <= ph_int), ph_frac, phase)
+        phase = torch.where(is_e & (phase <= ph_frac), ph_esign, phase)
+        phase = torch.where(in_exp, ph_exp, phase)
+    bad = bad | ~any_digit | \
+        (((phase == ph_esign) | (phase == ph_exp)) & ~any_edigit)
+    dexp = torch.where(eneg, -eval_, eval_) + idigits - fdigits
+    val = compose_float64(mhi, mlo, msticky, dexp, neg)
+    val = torch.where(is_nan, math.nan, val)
+    val = torch.where(is_inf, torch.where(signed_minus, -math.inf, math.inf),
+                      val)
+    ok = c.validity & any_c & (is_nan | is_inf | ~bad)
+    out = val.to(torch_dtype(dst))
+    return Vec(dst, torch.where(ok, out, 0), ok)
+
+
+def _parse_bool(c: Vec, first, last, any_c) -> Vec:
+    """Spark's `StringUtils.isTrueString`/`isFalseString`: t, true, y, yes,
+    1 and f, false, n, no, 0, any case."""
+    chars = c.data
+    ln = last - first + 1
+
+    def word_is(word: bytes):
+        m = ln == len(word)
+        for i, b in enumerate(word):
+            ch = _byte_at(chars, first + i)
+            m = m & (torch.where((ch >= 65) & (ch <= 90), ch + 32, ch) == b)
+        return m
+
+    t = word_is(b"true") | word_is(b"t") | word_is(b"yes") | \
+        word_is(b"y") | word_is(b"1")
+    f = word_is(b"false") | word_is(b"f") | word_is(b"no") | \
+        word_is(b"n") | word_is(b"0")
+    return Vec(T.BOOLEAN, t, c.validity & any_c & (t | f))
+
+
+def _parse_date(c: Vec, first, last, any_c) -> Vec:
+    """Spark `DateTimeUtils.stringToDate`'s grammar: yyyy | yyyy-[m]m |
+    yyyy-[m]m-[d]d, the full form optionally followed by a 'T' or space
+    segment (ignored); the year 4-7 digits, in 1..9999, the day within its
+    month; anything else is null."""
+    chars = c.data
+    w = chars.shape[1]
+    j = _cols(w, chars.device)
+    in_tok = (j >= first[:, None]) & (j <= last[:, None])
+    sep = ((chars == ord("T")) | (chars == ord(" "))) & in_tok
+    has_sep = sep.any(dim=1)
+    sep_at = torch.where(has_sep, sep.to(torch.uint8).argmax(dim=1), w)
+    last = torch.minimum(last, sep_at - 1)
+    in_tok = (j >= first[:, None]) & (j <= last[:, None])
+    dash = (chars == ord("-")) & in_tok & (j != first[:, None])
+    ndash = dash.sum(dim=1)
+    d1 = dash.to(torch.uint8).argmax(dim=1)
+    d2 = (dash & (j > d1[:, None])).to(torch.uint8).argmax(dim=1)
+    digit = chars.to(torch.int64) - ord("0")
+    is_digit = (digit >= 0) & (digit <= 9)
+
+    def parse_num(lo, hi):
+        good = hi >= lo
+        acc = torch.zeros_like(lo)
+        for k in range(w):
+            inside = (k >= lo) & (k <= hi)
+            good = good & (~inside | is_digit[:, k])
+            # capped: no valid segment passes 7 digits, and no product
+            # leaves int64
+            acc = torch.where(inside & good,
+                              torch.clamp(acc, max=10 ** 12) * 10
+                              + digit[:, k], acc)
+        return acc, good
+
+    one = torch.ones_like(first)
+    y_end = torch.where(ndash >= 1, d1 - 1, last)
+    m_end = torch.where(ndash == 2, d2 - 1, last)
+    y, gy = parse_num(first, y_end)
+    m_p, gm_p = parse_num(d1 + 1, m_end)
+    d_p, gd_p = parse_num(d2 + 1, last)
+    m = torch.where(ndash >= 1, m_p, one)
+    gm = torch.where(ndash >= 1, gm_p, True)
+    d = torch.where(ndash == 2, d_p, one)
+    gd = torch.where(ndash == 2, gd_p, True)
+    y_len = y_end - first + 1
+    m_len = torch.where(ndash >= 1, m_end - d1, 1)
+    d_len = torch.where(ndash == 2, last - d2, 1)
+    digits_ok = (y_len >= 4) & (y_len <= 7) & (m_len >= 1) & \
+        (m_len <= 2) & (d_len >= 1) & (d_len <= 2)
+    ok = any_c & (ndash <= 2) & (~has_sep | (ndash == 2)) & gy & gm & gd & \
+        digits_ok & (m >= 1) & (m <= 12) & (d >= 1) & (d <= 31) & \
+        (y >= 1) & (y <= 9999)
+    days = days_from_civil(torch.where(ok, y, 1970), torch.where(ok, m, 1),
+                           torch.where(ok, d, 1))
+    # a day past its month's end does not round-trip
+    y2, m2, dd2 = civil_from_days(days)
+    ok = ok & (y2.to(torch.int64) == y) & (m2.to(torch.int64) == m) & \
+        (dd2.to(torch.int64) == d)
+    return Vec(T.DATE, days.to(torch.int32), c.validity & ok)

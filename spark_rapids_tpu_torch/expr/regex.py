@@ -36,6 +36,7 @@ import torch
 from .. import types as T
 from ..columnar.padding import width_bucket
 from .base import EvalContext, Expression, Literal, Vec
+from .strings import decode_rows, strings_to_vec
 
 __all__ = ["RegexUnsupportedError", "parse_regex", "compile_device_plan",
            "RLike", "Like", "RegExpReplace", "RegExpExtract",
@@ -577,15 +578,6 @@ def _pattern_literal(expr: Expression) -> Optional[str]:
     return None
 
 
-def _decode_rows(v: Vec) -> List[Optional[str]]:
-    """Host: the byte matrix as Python strings (None for a null)."""
-    chars = v.data.cpu().numpy()
-    lens = v.lengths.cpu().numpy()
-    valid = v.validity.cpu().numpy()
-    return [bytes(chars[i, :lens[i]]).decode("utf-8", "replace")
-            if valid[i] else None for i in range(len(valid))]
-
-
 def _on_host() -> bool:
     from ..cpu.hostbatch import on_host
     return on_host()
@@ -620,7 +612,7 @@ class RLike(Expression):
             import re
             rx = re.compile(self.pattern)
             ok = [bool(rx.search(r)) if r is not None else False
-                  for r in _decode_rows(s)]
+                  for r in decode_rows(s)]
             return Vec(T.BOOLEAN, _bools(ok, s.validity), s.validity)
         if self._plan is None:
             raise RuntimeError(
@@ -699,7 +691,7 @@ class Like(Expression):
             # a trailing newline, which SQL LIKE must not
             rx = re.compile(self.regex, re.DOTALL)
             ok = [bool(rx.fullmatch(r)) if r is not None else False
-                  for r in _decode_rows(s)]
+                  for r in decode_rows(s)]
             return Vec(T.BOOLEAN, _bools(ok, s.validity), s.validity)
         if self._plan is None:
             raise RuntimeError(f"LIKE {self.pattern!r} not device-compilable")
@@ -709,21 +701,6 @@ class Like(Expression):
     def __repr__(self):
         extra = f", escape={self.escape!r}" if self.escape != "\\" else ""
         return f"Like({self.children[0]!r}, {self.pattern!r}{extra})"
-
-
-def _strings_to_vec(rows: List[Optional[str]], validity: torch.Tensor
-                    ) -> Vec:
-    """Python strings -> a flat string value on validity's device."""
-    enc = [r.encode("utf-8") if r is not None else b"" for r in rows]
-    w = width_bucket(max((len(b) for b in enc), default=1) or 1)
-    data = np.zeros((len(enc), w), np.uint8)
-    lens = np.zeros(len(enc), np.int32)
-    for i, b in enumerate(enc):
-        data[i, :len(b)] = np.frombuffer(b, np.uint8)
-        lens[i] = len(b)
-    dev = validity.device
-    return Vec(T.STRING, torch.from_numpy(data).to(dev), validity,
-               torch.from_numpy(lens).to(dev))
 
 
 class RegExpReplace(Expression):
@@ -747,8 +724,8 @@ class RegExpReplace(Expression):
         repl = re.sub(r"\$(\d+)", r"\\\1", self.replacement)
         rx = re.compile(self.pattern)
         out = [rx.sub(repl, row) if row is not None else None
-               for row in _decode_rows(s)]
-        return _strings_to_vec(out, s.validity)
+               for row in decode_rows(s)]
+        return strings_to_vec(out, s.validity)
 
     def __repr__(self):
         return f"RegExpReplace({self.children[0]!r}, {self.pattern!r})"
@@ -788,14 +765,14 @@ class RegExpExtract(Expression):
         import re
         rx = re.compile(self.pattern)
         out = []
-        for row in _decode_rows(s):
+        for row in decode_rows(s):
             if row is None:
                 out.append(None)
                 continue
             m = rx.search(row)
             g = None if m is None else m.group(self.idx)
             out.append(g if g is not None else "")
-        return _strings_to_vec(out, s.validity)
+        return strings_to_vec(out, s.validity)
 
     def __repr__(self):
         return f"RegExpExtract({self.children[0]!r}, {self.pattern!r}, " \

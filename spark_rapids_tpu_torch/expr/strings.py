@@ -20,8 +20,9 @@ it to the host first (expr/base.py `require_flat_strings`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -56,6 +57,30 @@ def _shift_rows(chars: torch.Tensor, start: torch.Tensor, out_len, ow: int
     idx = torch.clamp(start[:, None].to(torch.int64) + j, max=w - 1)
     data = torch.gather(chars.expand(start.shape[0], -1), 1, idx)
     return torch.where(j < out_len[:, None], data, 0).to(torch.uint8)
+
+
+def decode_rows(v: Vec) -> List[Optional[str]]:
+    """Host: the byte matrix as Python strings (None for a null)."""
+    chars = v.data.cpu().numpy()
+    lens = v.lengths.cpu().numpy()
+    valid = v.validity.cpu().numpy()
+    return [bytes(chars[i, :lens[i]]).decode("utf-8", "replace")
+            if valid[i] else None for i in range(len(valid))]
+
+
+def strings_to_vec(rows: List[Optional[str]], validity: torch.Tensor
+                   ) -> Vec:
+    """Python strings -> a flat string value on validity's device."""
+    enc = [r.encode("utf-8") if r is not None else b"" for r in rows]
+    w = width_bucket(max((len(b) for b in enc), default=1) or 1)
+    data = np.zeros((len(enc), w), np.uint8)
+    lens = np.zeros(len(enc), np.int32)
+    for i, b in enumerate(enc):
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    dev = validity.device
+    return Vec(T.STRING, torch.from_numpy(data).to(dev), validity,
+               torch.from_numpy(lens).to(dev))
 
 
 class StringUnary(Expression):
@@ -119,37 +144,42 @@ class Substring(Expression):
 
     def _compute(self, ctx: EvalContext, c: Vec, pos_v: Vec, len_v: Vec
                  ) -> Vec:
-        chars, lengths = c.data, c.lengths
-        w = chars.shape[1]
-        in_row = _pos_mask(chars, lengths)
-        starts = _is_char_start(chars) & in_row
-        nchars = starts.sum(dim=1, dtype=torch.int32)
-        # char index of each byte (0-based)
-        char_id = torch.cumsum(starts, dim=1, dtype=torch.int32) - 1
-        pos = pos_v.data.to(torch.int32)
-        slen = torch.clamp(len_v.data.to(torch.int32), min=0)
-        # end = start + len before start is clamped: a window that begins
-        # before the string is shortened, not shifted
-        raw_start = torch.where(pos > 0, pos - 1,
-                                torch.where(pos < 0, nchars + pos, 0))
-        end_char = torch.minimum(torch.clamp(raw_start + slen, min=0),
-                                 nchars)
-        start_char = torch.minimum(torch.clamp(raw_start, min=0), nchars)
+        return substring(c, pos_v, len_v, _int_literal(self.children[2]))
 
-        def byte_offset(k):
-            # bytes of the row before its character k
-            return (in_row & (char_id < k[:, None])).sum(dim=1,
-                                                         dtype=torch.int32)
 
-        b0 = byte_offset(start_char)
-        out_len = torch.clamp(byte_offset(end_char) - b0, min=0)
-        # a literal length bounds the output: at most 4 bytes a character
-        lit_len = _int_literal(self.children[2])
-        ow = w if lit_len is None else \
-            min(w, width_bucket(max(4 * max(lit_len, 0), 1)))
-        validity = and_validity(c.validity, pos_v.validity, len_v.validity)
-        return Vec(T.STRING, _shift_rows(chars, b0, out_len, ow), validity,
-                   out_len)
+def substring(c: Vec, pos_v: Vec, len_v: Vec, lit_len: Optional[int]
+              ) -> Vec:
+    """Substring's kernel (Left and Right call it too); `lit_len`, a
+    literal length, bounds the output width."""
+    chars, lengths = c.data, c.lengths
+    w = chars.shape[1]
+    in_row = _pos_mask(chars, lengths)
+    starts = _is_char_start(chars) & in_row
+    nchars = starts.sum(dim=1, dtype=torch.int32)
+    # char index of each byte (0-based)
+    char_id = torch.cumsum(starts, dim=1, dtype=torch.int32) - 1
+    pos = pos_v.data.to(torch.int32)
+    slen = torch.clamp(len_v.data.to(torch.int32), min=0)
+    # end = start + len before start is clamped: a window that begins
+    # before the string is shortened, not shifted
+    raw_start = torch.where(pos > 0, pos - 1,
+                            torch.where(pos < 0, nchars + pos, 0))
+    end_char = torch.minimum(torch.clamp(raw_start + slen, min=0), nchars)
+    start_char = torch.minimum(torch.clamp(raw_start, min=0), nchars)
+
+    def byte_offset(k):
+        # bytes of the row before its character k
+        return (in_row & (char_id < k[:, None])).sum(dim=1,
+                                                     dtype=torch.int32)
+
+    b0 = byte_offset(start_char)
+    out_len = torch.clamp(byte_offset(end_char) - b0, min=0)
+    # a literal length bounds the output: at most 4 bytes a character
+    ow = w if lit_len is None else \
+        min(w, width_bucket(max(4 * max(lit_len, 0), 1)))
+    validity = and_validity(c.validity, pos_v.validity, len_v.validity)
+    return Vec(T.STRING, _shift_rows(chars, b0, out_len, ow), validity,
+               out_len)
 
 
 class Concat(Expression):

@@ -46,6 +46,8 @@ from ..expr import predicates as P
 from ..expr import aggregates as AG
 from ..expr import regex as RX
 from ..expr import strings as ES
+from ..expr import strings_ext as ESX
+from ..expr import strings_more as ESM
 from ..expr.decimal128 import is_dec128
 from ..expr.base import Alias, AttributeReference, BoundReference, \
     Expression, Literal
@@ -69,7 +71,15 @@ _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     C.Greatest, ES.Length, ES.Upper, ES.Lower, ES.Substring,
                     ES.Concat, ES.StartsWith, ES.EndsWith, ES.Contains,
                     ES.StringTrim, ES.StringTrimLeft, ES.StringTrimRight,
-                    RX.RLike, RX.Like, RX.RegExpReplace, RX.RegExpExtract)
+                    RX.RLike, RX.Like, RX.RegExpReplace, RX.RegExpExtract,
+                    ESX.StringRepeat, ESX.StringLPad, ESX.StringRPad,
+                    ESX.StringLocate, ESX.StringInstr, ESX.StringReplace,
+                    ESX.StringTranslate, ESX.StringReverse, ESX.ConcatWs,
+                    ESX.SubstringIndex, ESX.InitCap, ESX.Ascii, ESX.Chr,
+                    ESX.Left, ESX.Right, ESX.StringSpace, ESX.BitLength,
+                    ESX.OctetLength, ESX.FindInSet, ESM.Overlay,
+                    ESM.Levenshtein, ESM.SoundEx, ESM.Empty2Null,
+                    ESM.FormatNumber, ESM.Conv)
 _ARITH_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                 T.FloatType, T.DoubleType, T.DecimalType)
 _COMPARISONS = (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
@@ -114,6 +124,11 @@ def _check_expr(e: Expression) -> None:
             if not CA.host_supported(src, node.to):
                 _unsupported(f"cast from {src.simple_string()} to "
                              f"{node.to.simple_string()}")
+        if isinstance(node, ESM.FormatNumber) and \
+                isinstance(node.children[0].data_type, T.DecimalType):
+            # the JAX kernel formats a decimal's unscaled value
+            _unsupported("format_number over "
+                         + node.children[0].data_type.simple_string())
         decimals = [c.data_type for c in _value_children(node)
                     if not isinstance(c.data_type, T.NullType)]
         if any(isinstance(t, T.DecimalType) for t in decimals):
@@ -406,6 +421,35 @@ for _c in (RX.RLike, RX.Like):
                   "incompat similarly).")
 for _c in (RX.RegExpReplace, RX.RegExpExtract):
     expr_rule(_c, _str, tag_fn=_tag_regex_cpu_only)
+
+
+def _tag_device_reason(meta: ExprMeta) -> None:
+    """The JAX literal and ASCII tags of strings_ext (`_lit_tag`,
+    `_tag_pad`, `_tag_translate`, `_tag_replace`,
+    `_tag_substring_index`): a non-literal size, pad, separator or
+    pattern, or a non-ASCII pad or translate argument, runs on the host,
+    where the expression computes Spark's rule row by row."""
+    reason = meta.expr.device_reason()
+    if reason is not None:
+        meta.will_not_work(reason)
+
+
+_int = TypeSig((T.IntegerType,))
+for _c in (ESX.StringRepeat, ESX.StringLPad, ESX.StringRPad,
+           ESX.StringReplace, ESX.StringTranslate, ESX.ConcatWs,
+           ESX.SubstringIndex, ESX.StringSpace):
+    expr_rule(_c, _str, tag_fn=_tag_device_reason)
+for _c in (ESX.StringLocate, ESX.StringInstr, ESX.Ascii, ESX.BitLength,
+           ESX.OctetLength, ESX.FindInSet, ESM.Levenshtein):
+    expr_rule(_c, _int)
+for _c in (ESX.StringReverse, ESX.Chr, ESX.Left, ESX.Right, ESM.Overlay,
+           ESM.SoundEx, ESM.Empty2Null, ESM.Conv):
+    expr_rule(_c, _str)
+expr_rule(ESX.InitCap, _str, incompat=True,
+          doc="ASCII-only case mapping on device, like Upper/Lower.")
+expr_rule(ESM.FormatNumber, _str,
+          doc="Enable format_number; |values| at int64 scale or beyond "
+              "return null (19+ digit JVM DecimalFormat not reproduced).")
 
 
 def _exprs_project(m: PlanMeta):
