@@ -2428,7 +2428,9 @@ def agg_tables(pa, sizes=AGG_SIZES, seed: int = 47) -> dict:
     and i_wholesale_cost as decimal(7,2); store with a unique
     s_store_name; warehouse with w_warehouse_name of up to 20 bytes;
     store_sales (sold dates uniform over 1998-01-02 .. 2003-01-02, items
-    and stores uniform, ss_sales_price decimal(7,2) with 3 % null) and the
+    and stores uniform, ss_sales_price decimal(7,2) with 3 % null, and
+    TPC-DS's ss_sold_time_sk, seconds of the day uniform over 0..86,399,
+    drawn from a generator of its own) and the
     same prices as decimal(38,18) (`store_sales_dec38`); and inventory:
     `inventory_weeks` weekly dates of 2001, every second item in every
     warehouse, inv_quantity_on_hand uniform over 0..1000 with 5 % null."""
@@ -2475,7 +2477,10 @@ def agg_tables(pa, sizes=AGG_SIZES, seed: int = 47) -> dict:
         "ss_sold_date_sk": rng.integers(SOLD_DATE_SK[0], SOLD_DATE_SK[1] + 1,
                                         n_ss),
         "ss_item_sk": item, "ss_store_sk": store,
-        "ss_sales_price": decimal_array(pa, price, *MONEY, valid)})
+        "ss_sales_price": decimal_array(pa, price, *MONEY, valid),
+        # its own generator: every other column stays as it was
+        "ss_sold_time_sk": np.random.default_rng([seed, 86_400]).integers(
+            0, 86_400, n_ss).astype(np.int32)})
     t["store_sales_dec38"] = pa.table({
         "ss_store_sk": store, "ss_sales_price": dec38_array(pa, price,
                                                              valid)})
@@ -2892,10 +2897,13 @@ def agg_data(pa, d: str, sizes=AGG_SIZES) -> dict:
     strings = strings_data(pa, tables, d, paths)
     t4 = time.monotonic()
     ext = strings_ext_data(pa, tables, d, paths)
+    t5 = time.monotonic()
+    dt = datetime_data(pa, tables, ext)
     return {"tables": tables, "oracle": want, "paths": paths,
-            "strings": strings, "strings_ext": ext, "tables_s": t1 - t0,
-            "oracle_s": t2 - t1, "write_s": t3 - t2,
-            "strings_s": t4 - t3, "strings_ext_s": time.monotonic() - t4}
+            "strings": strings, "strings_ext": ext, "datetime": dt,
+            "tables_s": t1 - t0, "oracle_s": t2 - t1, "write_s": t3 - t2,
+            "strings_s": t4 - t3, "strings_ext_s": t5 - t4,
+            "datetime_s": time.monotonic() - t5}
 
 
 def aggregates_phases(torch, pa, mesh_conf: dict, counters, sizes=AGG_SIZES,
@@ -4717,14 +4725,17 @@ def _lit_col(torch, value: int, n: int, dev):
 
 # ---- strings_ext (slice 15): the rest of the string functions and the
 # casts from and to STRING, over agg_tables' files: TPC-DS q21 with its
-# date window as dates cast from string literals, a formatted store report
+# date window as TPC-DS writes it, `cast('2001-03-11' as date)` -/+ 30
+# days (DateSub/DateAdd, slice 16), a formatted store report
 # (concat_ws, lpad of keys cast to STRING, initcap, translate, replace,
 # soundex, format_number, an average cast to STRING on the host engine),
 # and store_sales staged as text, as a CSV load leaves it, parsed back by
 # casts (under ANSI its malformed rows raise). One checked collect a query
 # and plan.
-EXT_WINDOW = ("2001-02-09", "2001-04-10")  # q21: 30 days either side of
-EXT_PIVOT = "2001-03-11"  # the pivot (DateAdd comes with the datetime slice)
+EXT_PIVOT = "2001-03-11"  # q21: the pivot, and 30 days either side of it
+EXT_DAYS = 30
+EXT_WINDOW = tuple(str(np.datetime64(EXT_PIVOT) + k)
+                   for k in (-EXT_DAYS, EXT_DAYS))
 EXT_PRICE = ("0.99", "1.49")  # q21: i_current_price between
 EXT_RATIO = (2.0 / 3.0, 3.0 / 2.0)  # q21: inv_after / inv_before between
 EXT_LIMIT = 100
@@ -4755,7 +4766,8 @@ def strings_ext_namespace() -> SimpleNamespace:
     m = SimpleNamespace(**{n: getattr(E, n) for n in (
         "col", "lit", "Cast", "CaseWhen", "Sum", "Count", "Average",
         "Concat", "ConcatWs", "StringLPad", "InitCap", "StringTranslate",
-        "StringReplace", "SoundEx", "FormatNumber", "Like")})
+        "StringReplace", "SoundEx", "FormatNumber", "Like", "DateAdd",
+        "DateSub")})
     m.T = T
     return m
 
@@ -4780,14 +4792,14 @@ def strings_ext_queries(sess, m, paths: dict) -> dict:
     items = read("item", ["i_item_sk", "i_current_price"]).filter(
         (c("i_current_price") >= low) & (c("i_current_price") <= high)) \
         .select(inv_item_sk=c("i_item_sk"))
+    pivot = day(EXT_PIVOT)
     dates = read("date_dim", ["d_date_sk", "d_date"]).filter(
-        (c("d_date") >= day(EXT_WINDOW[0]))
-        & (c("d_date") <= day(EXT_WINDOW[1]))).select(
+        (c("d_date") >= m.DateSub(pivot, lit(EXT_DAYS)))
+        & (c("d_date") <= m.DateAdd(pivot, lit(EXT_DAYS)))).select(
         "d_date", inv_date_sk=c("d_date_sk"))
     wh = read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]).select(
         "w_warehouse_name", inv_warehouse_sk=c("w_warehouse_sk"))
     qty = c("inv_quantity_on_hand")
-    pivot = day(EXT_PIVOT)
     x = read("inventory", ["inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
                            "inv_quantity_on_hand"]) \
         .join(wh, on="inv_warehouse_sk").join(items, on="inv_item_sk") \
@@ -5043,8 +5055,9 @@ def strings_ext_data(pa, tables: dict, d: str, paths: dict,
     import pyarrow.parquet as pq
     text, bad = strings_ext_text(pa, tables["store_sales"], text_rows)
     want = strings_ext_oracle(pa, dict(tables, store_sales_text=text), bad)
-    return {"oracle": want, "paths": dict(paths, **write_parquet(
-        pq, {"store_sales_text": text}, d, tag="_text"))}
+    return {"oracle": want, "text_bad": bad, "paths": dict(
+        paths, **write_parquet(pq, {"store_sales_text": text}, d,
+                               tag="_text"))}
 
 
 def check_strings_ext(pa, name: str, out, want: dict) -> None:
@@ -5240,6 +5253,534 @@ def strings_ext_phases(torch, pa, mesh_conf: dict, counters, data: dict,
           "malformed": want["text_malformed"],
           "q21_groups": want["q21_groups"],
           "q21_having": want["q21_having"], "device_ms": times,
+          "seconds": time.monotonic() - t_phase})
+    return launches
+
+
+# ---- datetime (slice 16): dates, times, math and bitwise, and the casts
+# between STRING and DECIMAL/TIMESTAMP, over agg_tables' files and the
+# strings_ext text file: a calendar report by year, ISO week and weekday,
+# TPC-DS q96's half hour on timestamps built from ss_sold_time_sk, an
+# hourly report for January 2001 with a TIMESTAMP -> STRING cast on the
+# host between device stages, and the sales' price text parsed as
+# decimal(7,2) on the host (under ANSI its malformed rows raise). Dynamic
+# pruning off, fusion on; one checked collect and one warm collect a query
+# and plan.
+DT_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False,
+           "spark.rapids.tpu.fusion.enabled": True}
+DT_HOUR = (20, 30)  # q96: hour(ts) = 20 and minute(ts) >= 30
+DT_MONTH = (2001, 1)  # the hourly report's month
+DT_TS_PATTERN = "yyyy-MM-dd HH:mm:ss"
+DT_ROUNDS = 1
+# kernel C a merged probe batch under the distributed plan, as
+# tests/test_torch_smoke_datetime.py counts them on the CPU (None on one
+# device); A is 2 a fused join a batch (fused_joins)
+DT_C_PER_BATCH = {"calendar": 12, "q96": 1, "hourly": 0, "parse": 0}
+
+
+DT_NAMES = ("col", "lit", "Cast", "CaseWhen", "Sum", "Count", "Max", "Min",
+            "Average", "Year", "WeekOfYear", "DayOfWeek", "DayName",
+            "DateDiff", "LastDay", "AddMonths", "NextDay", "DateFormat",
+            "TruncDate", "Round", "Sqrt", "Log10", "Floor", "Ceil",
+            "ShiftRight", "BitwiseAnd", "BitwiseXor", "UnixDate",
+            "TimestampSeconds", "Hour", "Minute", "TruncTimestamp",
+            "UnixTimestamp", "UnixTimestampFromTs")
+
+
+def datetime_namespace() -> SimpleNamespace:
+    """The port's constructors that datetime_queries uses, and its types
+    as `T`."""
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    m = SimpleNamespace(**{n: getattr(E, n) for n in DT_NAMES})
+    m.T = T
+    return m
+
+
+def datetime_queries(sess, m, paths: dict) -> dict:
+    """The phase's queries as DataFrames of `sess` over agg_tables' files
+    and the text file, written once for either engine through `m`:
+    `calendar`, `q96`, `hourly` and `parse`."""
+    c, lit, T = m.col, m.lit, m.T
+
+    def read(name, cols):
+        return sess.read_parquet(paths[name], columns=cols)
+
+    sales = read("store_sales", ["ss_sold_date_sk", "ss_sold_time_sk",
+                                 "ss_item_sk", "ss_store_sk",
+                                 "ss_sales_price"])
+    d = c("d_date")
+    cal = sales.join(read("date_dim", ["d_date_sk", "d_date"]).select(
+        "d_date", ss_sold_date_sk=c("d_date_sk")), on="ss_sold_date_sk") \
+        .select("ss_sales_price", yr=m.Year(d), wk=m.WeekOfYear(d),
+                dow=m.DayOfWeek(d), dname=m.DayName(d),
+                left=m.DateDiff(m.LastDay(d), d),
+                nxt_month=m.AddMonths(d, lit(1)),
+                sunday=m.NextDay(d, "SU"),
+                month=m.DateFormat(m.TruncDate(d, "MONTH"), "yyyy-MM"),
+                price=m.Cast(c("ss_sales_price"), T.DOUBLE),
+                bucket=m.BitwiseAnd(m.ShiftRight(c("ss_item_sk"), lit(10)),
+                                    lit(7)),
+                mix=m.BitwiseXor(c("ss_item_sk"), c("ss_store_sk"))) \
+        .group_by("yr", "wk", "dow", "dname").agg(
+            n=m.Count(lit(1)), total=m.Sum(c("ss_sales_price")),
+            days_left=m.Sum(c("left")), last_next=m.Max(c("nxt_month")),
+            first_sunday=m.Min(c("sunday")), month=m.Max(c("month")),
+            avg_price=m.Average(c("price")), buckets=m.Sum(c("bucket")),
+            mix=m.Max(c("mix"))) \
+        .select("yr", "wk", "dow", "dname", "n", "total", "days_left",
+                "last_next", "first_sunday", "month", "avg_price",
+                "buckets", "mix", r2=m.Round(c("avg_price"), 2),
+                root=m.Sqrt(c("avg_price")), lg=m.Log10(c("avg_price")),
+                fl=m.Floor(c("avg_price")), ce=m.Ceil(c("avg_price"))) \
+        .sort("yr", "wk", "dow")
+
+    def with_ts(dates):
+        secs = m.Cast(m.UnixDate(c("d_date")), T.LONG) * lit(86_400) + \
+            m.Cast(c("ss_sold_time_sk"), T.LONG)
+        return sales.join(dates.select(
+            "d_date", ss_sold_date_sk=c("d_date_sk")),
+            on="ss_sold_date_sk").select(
+            "ss_store_sk", ts=m.TimestampSeconds(secs))
+
+    ts = c("ts")
+    q96 = with_ts(read("date_dim", ["d_date_sk", "d_date"])).filter(
+        (m.Hour(ts) == lit(DT_HOUR[0])) & (m.Minute(ts) >= lit(DT_HOUR[1]))) \
+        .group_by("ss_store_sk").agg(n=m.Count(lit(1))).sort("ss_store_sk")
+
+    month = read("date_dim", ["d_date_sk", "d_date", "d_year", "d_moy"]) \
+        .filter((c("d_year") == lit(DT_MONTH[0]))
+                & (c("d_moy") == lit(DT_MONTH[1])))
+    same = m.UnixTimestamp(m.DateFormat(ts, DT_TS_PATTERN),
+                           DT_TS_PATTERN) == m.UnixTimestampFromTs(ts)
+    hourly = with_ts(month).select(
+        hour=m.TruncTimestamp("HOUR", ts),
+        same=m.CaseWhen([(same, lit(1))], lit(0))) \
+        .group_by("hour").agg(n=m.Count(lit(1)), same=m.Sum(c("same"))) \
+        .select("hour", "n", "same",
+                label=m.DateFormat(c("hour"), "yyyy-MM-dd HH:mm"),
+                text=m.Cast(c("hour"), T.STRING)) \
+        .sort("hour")
+
+    parse = read("store_sales_text", ["ss_store_sk", "price_text"]) \
+        .select("ss_store_sk", price=m.Cast(c("price_text"),
+                                            T.DecimalType(*MONEY))) \
+        .group_by("ss_store_sk").agg(total=m.Sum(c("price")),
+                                     n=m.Count(c("price"))) \
+        .sort("ss_store_sk")
+    return {"calendar": cal, "q96": q96, "hourly": hourly, "parse": parse}
+
+
+def _date_attrs(days: np.ndarray) -> dict:
+    """Python's calendar of each day number (the oracle's, independent of
+    the engine's arithmetic)."""
+    import calendar
+    import datetime
+    epoch = datetime.date(1970, 1, 1)
+    out = {k: [] for k in ("yr", "wk", "dow", "dname", "left", "nxt_month",
+                           "sunday", "month")}
+    for day in days.tolist():
+        t = epoch + datetime.timedelta(days=day)
+        iso = t.isocalendar()
+        last = calendar.monthrange(t.year, t.month)[1]
+        ny, nm = (t.year + 1, 1) if t.month == 12 else (t.year, t.month + 1)
+        nxt = datetime.date(ny, nm, min(t.day, calendar.monthrange(ny,
+                                                                 nm)[1]))
+        ahead = (6 - t.weekday()) % 7 or 7  # the next Sunday, not today
+        out["yr"].append(t.year)
+        out["wk"].append(iso[1])
+        out["dow"].append(t.isoweekday() % 7 + 1)  # 1 = Sunday
+        out["dname"].append(t.strftime("%a"))
+        out["left"].append(last - t.day)
+        out["nxt_month"].append((nxt - epoch).days)
+        out["sunday"].append(day + ahead)
+        out["month"].append(f"{t.year:04d}-{t.month:02d}")
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def datetime_oracle(pa, t: dict, text=None, text_bad=None) -> dict:
+    """numpy/Python answers to datetime_queries over agg_tables (and the
+    text table's first rows with their malformed mask): columns in the
+    queries' order, decimals as unscaled ints, dates as day numbers,
+    timestamps as microseconds."""
+    ss, dd = t["store_sales"], t["date_dim"]
+    dsk = dd.column("d_date_sk").to_numpy()
+    dday = dd.column("d_date").cast(pa.int32()).to_numpy().astype(np.int64)
+    sdate = ss.column("ss_sold_date_sk").to_numpy() - dsk[0]
+    used = np.unique(sdate)
+    attrs = _date_attrs(dday[used])
+    pos = np.zeros(len(dsk), np.int64)
+    pos[used] = np.arange(len(used))
+    at = pos[sdate]
+    cents, valid = unscaled(ss.column("ss_sales_price"))
+    item = ss.column("ss_item_sk").to_numpy()
+    store = ss.column("ss_store_sk").to_numpy()
+    tod = ss.column("ss_sold_time_sk").to_numpy().astype(np.int64)
+    out = {}
+    # the calendar report
+    yr, wk, dow = (attrs[k][at] for k in ("yr", "wk", "dow"))
+    key = (yr * 54 + wk) * 8 + dow
+    groups, gid = np.unique(key, return_inverse=True)
+    g = len(groups)
+
+    def per_group(op, vals, init):
+        acc = np.full(g, init, vals.dtype)
+        op.at(acc, gid, vals)
+        return acc
+
+    first = np.zeros(g, np.int64)
+    first[gid[::-1]] = np.arange(len(gid))[::-1]
+    n_valid = np.bincount(gid[valid], minlength=g)
+    has = n_valid > 0
+    tot = np.zeros(g, np.int64)
+    np.add.at(tot, gid[valid], cents[valid])
+    psum = np.bincount(gid[valid], weights=cents[valid] / 100.0,
+                       minlength=g)
+    avg = psum / np.maximum(n_valid, 1)
+    mon = attrs["month"]
+    mon_ix = np.searchsorted(np.unique(mon), mon)
+    out["calendar"] = {
+        "yr": (groups // (54 * 8)).tolist(),
+        "wk": (groups // 8 % 54).tolist(), "dow": (groups % 8).tolist(),
+        "dname": attrs["dname"][at][first].tolist(),
+        "n": np.bincount(gid, minlength=g).tolist(),
+        "total": [int(v) if h else None for v, h in zip(tot, has)],
+        "days_left": per_group(np.add, attrs["left"][at], 0).tolist(),
+        "last_next": per_group(np.maximum, attrs["nxt_month"][at],
+                               -2 ** 62).tolist(),
+        "first_sunday": per_group(np.minimum, attrs["sunday"][at],
+                                  2 ** 62).tolist(),
+        "month": np.unique(mon)[per_group(np.maximum, mon_ix[at],
+                                          -1)].tolist(),
+        "avg_price": [v if h else None for v, h in zip(avg, has)],
+        "buckets": per_group(np.add, (item >> 10) & 7, 0).tolist(),
+        "mix": per_group(np.maximum, item ^ store, -2 ** 62).tolist()}
+    # q96 and the hourly report, on the sale's UTC second
+    secs = dday[sdate] * 86_400 + tod
+    half = (secs // 3600 % 24 == DT_HOUR[0]) & \
+        (secs // 60 % 60 >= DT_HOUR[1])
+    stores, counts = np.unique(store[half], return_counts=True)
+    out["q96"] = {"ss_store_sk": stores.tolist(), "n": counts.tolist()}
+    lo = int((np.datetime64(f"{DT_MONTH[0]}-{DT_MONTH[1]:02d}")
+              .astype("datetime64[s]")).astype(np.int64))
+    hi = int(((np.datetime64(f"{DT_MONTH[0]}-{DT_MONTH[1]:02d}") + 1)
+              .astype("datetime64[s]")).astype(np.int64))
+    inside = (secs >= lo) & (secs < hi)
+    hours, hcount = np.unique(secs[inside] // 3600 * 3600,
+                              return_counts=True)
+    stamps = hours.astype("datetime64[s]")
+    out["hourly"] = {
+        "hour": (hours * 10 ** 6).tolist(), "n": hcount.tolist(),
+        "same": hcount.tolist(),
+        "label": [str(v)[:16].replace("T", " ") for v in stamps],
+        "text": [str(v).replace("T", " ") for v in stamps]}
+    # the price text as decimal(7,2) by store: the well-formed rows
+    if text is not None:
+        rows = text.num_rows
+        fine = valid[:rows] & ~text_bad
+        tstore = text.column("ss_store_sk").to_numpy()
+        ks, kid = np.unique(tstore, return_inverse=True)
+        tsum = np.zeros(len(ks), np.int64)
+        np.add.at(tsum, kid[fine], cents[:rows][fine])
+        n_ok = np.bincount(kid[fine], minlength=len(ks))
+        out["parse"] = {"ss_store_sk": ks.tolist(),
+                        "total": [int(v) if k else None
+                                  for v, k in zip(tsum, n_ok)],
+                        "n": n_ok.tolist()}
+        out["parse_malformed"] = int(text_bad.sum())
+    out["calendar_groups"] = g
+    return out
+
+
+def datetime_data(pa, tables: dict, ext: dict, text_rows=EXT_TEXT_ROWS
+                  ) -> dict:
+    """The phase's oracle over agg_tables and strings_ext's text file
+    (`ext`, strings_ext_data's result); the files are theirs."""
+    import pyarrow.parquet as pq
+    text = pq.read_table(ext["paths"]["store_sales_text"],
+                         columns=["ss_store_sk"])
+    return {"oracle": datetime_oracle(pa, tables, text, ext["text_bad"]),
+            "paths": ext["paths"]}
+
+
+DT_DOUBLES = ("avg_price", "r2", "root", "lg", "fl", "ce")
+
+
+def check_datetime(pa, name: str, out, want: dict) -> None:
+    """Raise unless a datetime query's result equals the oracle: every
+    column exact (dates as day numbers, timestamps as microseconds,
+    decimals as unscaled ints) but the average, rtol 1e-12 (f64 sums in
+    another order), and the functions of it, held to numpy's of the
+    engine's own average: round (the JAX HALF_UP formula), floor, ceil and
+    sqrt exactly, log10 within 4 ULP."""
+    n = len(next(iter(want.values())))
+    if out.num_rows != n:
+        raise AssertionError(f"datetime {name}: {out.num_rows} rows, the "
+                             f"oracle {n}")
+    for col, w in want.items():
+        arr = out.column(col)
+        if pa.types.is_date(arr.type):
+            arr = arr.cast(pa.int32())
+        elif pa.types.is_timestamp(arr.type):
+            arr = arr.cast(pa.int64())
+        if pa.types.is_decimal(arr.type):
+            got = unscaled(arr)[0].tolist()
+            got = [v if ok else None
+                   for v, ok in zip(got, np.asarray(arr.is_valid()))]
+        else:
+            got = arr.to_pylist()
+        if col == "avg_price":
+            ok = all((a is None) == (b is None) for a, b in zip(got, w)) \
+                and np.allclose([a for a in got if a is not None],
+                                [b for b in w if b is not None],
+                                rtol=1e-12, atol=0)
+        else:
+            ok = got == w
+        if not ok:
+            raise AssertionError(f"datetime {name}: column {col} differs "
+                                 "from the oracle")
+    if name == "calendar":
+        a = np.array([np.nan if v is None else v
+                      for v in out.column("avg_price").to_pylist()])
+        exact = {"r2": np.sign(a) * np.floor(np.abs(a) * 100 + 0.5) / 100,
+                 "root": np.sqrt(a), "fl": np.floor(a), "ce": np.ceil(a)}
+        for col, w in exact.items():
+            got = np.array(out.column(col).to_pylist(), dtype=np.float64)
+            if not np.array_equal(got, w, equal_nan=True):
+                raise AssertionError(f"datetime calendar: {col} differs "
+                                     "from numpy's")
+        lg = np.array(out.column("lg").to_pylist(), dtype=np.float64)
+        w = np.log10(a)
+        if not np.all((np.abs(lg - w) <= 4 * np.spacing(np.abs(w)))
+                      | (np.isnan(lg) & np.isnan(w))):
+            raise AssertionError("datetime calendar: log10 past 4 ULP")
+
+
+DT_EXACT = ("Sqrt", "Signum", "Rint", "ToDegrees", "ToRadians", "Floor",
+            "Ceil", "Round", "BRound")
+DT_ULPS = 4  # the transcendentals against numpy (glibc)
+
+
+def math_on_card(torch, dev, n: int = 1 << 16, seed: int = 89) -> dict:
+    """Every math function of slice 16 on the card against numpy on the
+    same doubles (NaN, the infinities, both zeros, subnormals, the domain
+    edges, and normal values over many magnitudes): sqrt, signum, rint,
+    degrees, radians, floor, ceil, round and bround exact, the rest
+    within DT_ULPS; the bitwise ops and shifts exact against numpy's
+    int64. Returns each function's largest error in ULPs; raises past the
+    bounds."""
+    import math
+
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.base import BoundReference, \
+        EvalContext, Vec
+    rng = np.random.default_rng(seed)
+    special = [math.nan, math.inf, -math.inf, 0.0, -0.0, 1.0, -1.0, 0.5,
+               -0.5, 2.5, 5e-324, -2.2e-308, 1e300, 9.3e18, -1e19]
+    x = rng.uniform(-1, 1, n) * 10.0 ** rng.integers(-30, 30, n)
+    x[:len(special)] = special
+    y = rng.permutation(x)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    ctx = EvalContext(ones)
+    vecs = [Vec(T.DOUBLE, torch.from_numpy(v).to(dev), ones)
+            for v in (x, y)]
+    a, b = BoundReference(0, T.DOUBLE), BoundReference(1, T.DOUBLE)
+    with np.errstate(all="ignore"):
+        ref = {"Sqrt": np.sqrt(x), "Exp": np.exp(x),
+               "Log": np.where(x > 0, np.log(x), np.nan),
+               "Log10": np.where(x > 0, np.log10(x), np.nan),
+               "Log2": np.where(x > 0, np.log2(x), np.nan),
+               "Sin": np.sin(x), "Cos": np.cos(x), "Tan": np.tan(x),
+               "Asin": np.arcsin(x), "Acos": np.arccos(x),
+               "Atan": np.arctan(x), "Sinh": np.sinh(x), "Cosh": np.cosh(x),
+               "Tanh": np.tanh(x), "Cbrt": np.cbrt(x),
+               "ToDegrees": np.degrees(x), "ToRadians": np.radians(x),
+               "Signum": np.sign(x), "Expm1": np.expm1(x),
+               "Log1p": np.where(x > -1, np.log1p(x), np.nan),
+               "Rint": np.rint(x), "Cot": 1.0 / np.tan(x),
+               "Pow": np.power(x, y), "Atan2": np.arctan2(x, y),
+               "Hypot": np.hypot(x, y),
+               "Logarithm": np.where((x > 0) & (x != 1) & (y > 0),
+                                     np.log(y) / np.log(x), np.nan),
+               "Round": np.sign(x) * np.floor(np.abs(x) * 100 + 0.5) / 100,
+               "BRound": np.round(x * 100) / 100}
+    errs = {}
+    for name, want in ref.items():
+        args = (a, b) if name in ("Pow", "Atan2", "Hypot", "Logarithm") \
+            else (a,)
+        e = getattr(E, name)(*args, 2) if name in ("Round", "BRound") \
+            else getattr(E, name)(*args)
+        out = e.eval(ctx, vecs)
+        got = np.where(out.validity.cpu().numpy(),
+                       out.data.cpu().numpy(), np.nan)
+        same = (got == want) | (np.isnan(got) & np.isnan(want))
+        with np.errstate(all="ignore"):
+            ulp = np.abs(got - want) / np.spacing(np.abs(want))
+        worst = float(np.max(np.where(same, 0.0, ulp)))
+        errs[name] = worst
+        if worst > (0 if name in DT_EXACT else DT_ULPS):
+            raise AssertionError(f"{name} on the card is {worst} ULP from "
+                                 "numpy")
+    java = np.where(np.isnan(x), 0, np.clip(x, -2.0 ** 63, 2.0 ** 63))
+    for name, fn in (("Floor", np.floor), ("Ceil", np.ceil)):
+        out = getattr(E, name)(a).eval(ctx, vecs).data.cpu().numpy()
+        with np.errstate(invalid="ignore"):
+            want = np.where(fn(java) >= 2.0 ** 63, 2 ** 63 - 1,
+                            fn(java).astype(np.int64))
+        errs[name] = 0.0 if np.array_equal(out, want) else math.inf
+        if errs[name]:
+            raise AssertionError(f"{name} on the card is not Java's (long)")
+    k = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    s = rng.integers(-70, 140, n).astype(np.int32)
+    lv = [Vec(T.LONG, torch.from_numpy(k).to(dev), ones),
+          Vec(T.INT, torch.from_numpy(s).to(dev), ones)]
+    la, lb = BoundReference(0, T.LONG), BoundReference(1, T.INT)
+    amt = (s & 63).astype(np.uint64)
+    bits = {"ShiftLeft": (k.astype(np.uint64) << amt).view(np.int64),
+            "ShiftRight": k >> amt.astype(np.int64),
+            "ShiftRightUnsigned": (k.view(np.uint64) >> amt).view(np.int64),
+            "BitwiseXor": k ^ s, "BitwiseAnd": k & s, "BitwiseOr": k | s}
+    for name, want in bits.items():
+        out = getattr(E, name)(la, lb).eval(ctx, lv).data.cpu().numpy()
+        errs[name] = 0.0 if np.array_equal(out, want) else math.inf
+        if errs[name]:
+            raise AssertionError(f"{name} on the card differs from numpy")
+    return errs
+
+
+def datetime_phases(torch, pa, mesh_conf: dict, counters, data: dict,
+                    conf=None, device=None, c_per_batch=DT_C_PER_BATCH,
+                    rounds=DT_ROUNDS):
+    """Phase datetime over agg_tables' files and the text file (`data`:
+    datetime_data), dynamic pruning off, fusion on:
+      1. the calendar report, 2. q96 on timestamps, 3. the hourly report
+         (its cast to STRING on the host between device stages) and 4. the
+         price text parsed as decimal(7,2) (the cast on the host), on one
+         device and under the distributed plan, exact against
+         datetime_oracle; under ANSI the parse raises
+         [CAST_INVALID_INPUT];
+      5. the device times of the calendar report's date parts and of
+         date_format over one 1,048,576-row batch, beside their byte
+         bounds.
+    Every collect launches A 2 a fused join (explain tree) a merged probe
+    batch and C `c_per_batch` a batch under the distributed plan. Prints
+    one line a query and plan (the checked collect and `rounds` warm ones)
+    and one for the expressions; returns the launches of each plan's run
+    (one collect of each query)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    from spark_rapids_tpu_torch.expr.base import BoundReference, \
+        EvalContext, Vec
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **DT_CONF)
+    paths, want = data["paths"], data["oracle"]
+    rate = H100_BYTES_PER_S
+    m = datetime_namespace()
+    t_phase = time.monotonic()
+
+    def batches_of(name):
+        rgs = pq.ParquetFile(paths[name]).metadata.num_row_groups
+        return -(-rgs // CHUNKS_PER_DISPATCH)
+
+    probe = {"calendar": batches_of("store_sales"),
+             "q96": batches_of("store_sales"),
+             "hourly": batches_of("store_sales"),
+             "parse": batches_of("store_sales_text")}
+    hosted = {"hourly": ["! CpuProjectExec <- cast timestamp -> string is "
+                         "not supported on TPU"],
+              "parse": ["! CpuProjectExec <- cast string -> decimal(7,2) "
+                        "is not supported on TPU"]}
+
+    def launched():
+        return {k.__name__: k.launches for k in counters}
+
+    def collect(q):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launched()
+
+    launches = {}
+    for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+        sess = TpuSession(dict(conf, **extra), dev)
+        qs = datetime_queries(sess, m, paths)
+        run = {}
+        for n in ("calendar", "q96", "hourly", "parse"):
+            shape = qs[n].explain()
+            out, wall, run[n] = collect(qs[n])
+            check_datetime(pa, n, out, want[n])
+            a = 2 * fused_joins(shape) * probe[n]
+            c = c_per_batch[n] * probe[n] if plan == "distributed" else 0
+            if (run[n]["murmur3_rows"], run[n]["segment_sum_i64"]) != (a, c):
+                raise AssertionError(f"datetime {n} ({plan}) launched "
+                                     f"{run[n]}, not A {a} and C {c}")
+            bangs = fallback_lines(sess, qs[n], dev)
+            if bangs != hosted.get(n, []):
+                raise AssertionError(f"datetime {n} ({plan}): {bangs}")
+            # the parse is host-bound (4-5 s a collect): its checked
+            # collect only
+            warm = [collect(qs[n])[1]
+                    for _ in range(0 if n == "parse" else rounds)]
+            emit({"phase": "datetime", "query": n, "plan": plan,
+                  "rows": out.num_rows, "collect_s": wall,
+                  "warm_collect_s": warm, "launches": run[n],
+                  "fused_joins": fused_joins(shape),
+                  "probe_batches": probe[n], "host_nodes": bangs,
+                  "exchanges": shape.count("TpuShuffleExchangeExec")})
+        launches["datetime" if plan == "one_device" else
+                 "datetime_distributed"] = {
+            k: sum(r[k] for r in run.values()) for k in run["calendar"]}
+        asess = TpuSession(dict(conf, **extra, **ANSI_CONF), dev)
+        try:
+            datetime_queries(asess, m, paths)["parse"].collect()
+        except AnsiViolation as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"datetime parse ({plan}) did not raise "
+                                 "under ANSI")
+        if message != ("[CAST_INVALID_INPUT] value cannot be cast to "
+                       "decimal(7,2)"):
+            raise AssertionError(f"datetime ANSI: {message!r}")
+        emit({"phase": "datetime", "query": "parse_ansi", "plan": plan,
+              "raised": message})
+    # device times over one row group of sold dates, beside byte bounds
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    first = pq.ParquetFile(paths["date_dim"]).read(columns=["d_date"])
+    dates = np.asarray(first.column("d_date").cast(pa.int32()))
+    sold = pa.table({"d": pa.array(np.resize(dates, ARROW_BATCH_ROWS),
+                                   pa.date32())})
+    day = Vec.from_column(batch_from_arrow(sold, dev).columns[0])
+    ctx = EvalContext(torch.ones(day.validity.shape[0], dtype=torch.bool,
+                                 device=dev))
+    ref = BoundReference(0, T.DATE)
+    exprs = {"year": m.Year(ref), "weekofyear": m.WeekOfYear(ref),
+             "dayofweek": m.DayOfWeek(ref), "dayname": m.DayName(ref),
+             "date_format": m.DateFormat(m.TruncDate(ref, "MONTH"),
+                                         "yyyy-MM")}
+
+    def nbytes(*ts):
+        return sum(x.numel() * x.element_size() for x in ts)
+
+    times = {}
+    for name, e in exprs.items():
+        res = e.eval(ctx, [day])
+        moved = nbytes(day.data, day.validity, res.data, res.validity) + (
+            0 if res.lengths is None else nbytes(res.lengths))
+        times[name] = {"ms": time_ms(torch, lambda e=e: e.eval(ctx, [day]),
+                                     rounds=5, calls=5),
+                       "bound_ms": moved / rate * 1e3,
+                       "rows": int(day.data.shape[0])}
+    ulps = math_on_card(torch, dev)
+    emit({"phase": "datetime", "check": "expressions", "device_ms": times,
+          "math_ulps_against_numpy": ulps,
+          "calendar_groups": want["calendar_groups"],
+          "parse_malformed": want["parse_malformed"],
           "seconds": time.monotonic() - t_phase})
     return launches
 
@@ -5766,6 +6307,7 @@ def run_phases(torch, ready: dict) -> int:
                                    aggs=agg_data)
     strings_in = agg_data["strings"]
     strings_ext_in = agg_data["strings_ext"]
+    datetime_in = agg_data["datetime"]
     del agg_data
 
     # ---- memory: at the session's budget no phase above spilled; the
@@ -5805,6 +6347,12 @@ def run_phases(torch, ready: dict) -> int:
     # plans
     ext_launches = strings_ext_phases(torch, pa, mesh_conf, kernels3,
                                       strings_ext_in)
+
+    # ---- datetime: a calendar report, q96 on timestamps, an hourly report
+    # with a TIMESTAMP -> STRING cast on the host and the price text parsed
+    # as decimal(7,2) on the host (under ANSI it raises), both plans
+    dt_launches = datetime_phases(torch, pa, mesh_conf, kernels3,
+                                  datetime_in)
 
     # ---- 10. A and C on the inputs their paths gave them, bit for bit
     # against their twins and timed there: A on the first fused probe's keys
@@ -5871,7 +6419,8 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in memory_launches.items()},
                     **{p: n[name] for p, n in cpu_launches.items()},
                     **{p: n[name] for p, n in strings_launches.items()},
-                    **{p: n[name] for p, n in ext_launches.items()})
+                    **{p: n[name] for p, n in ext_launches.items()},
+                    **{p: n[name] for p, n in dt_launches.items()})
         keys = ("rows", "ms", "plain_ms", "bound_ms", "library_ms",
                 "max_abs_err")
         return {p: dict({"launches": n},

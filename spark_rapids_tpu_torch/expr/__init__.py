@@ -22,6 +22,23 @@ from .strings_ext import (StringRepeat, StringLPad,  # noqa: F401
                           FindInSet)
 from .strings_more import (Overlay, Levenshtein, SoundEx,  # noqa: F401
                            FormatNumber, Empty2Null, Conv)
+from .datetime_ import (Year, Month, DayOfMonth, Quarter,  # noqa: F401
+                        DayOfWeek, WeekDay, DayOfYear, WeekOfYear, Hour,
+                        Minute, Second, DateAdd, DateSub, DateDiff,
+                        UnixTimestampFromTs, LastDay, AddMonths,
+                        MonthsBetween, TruncDate, NextDay, DayName,
+                        MonthName, TimestampSeconds, TimestampMillis,
+                        TimestampMicros, DateFromUnixDate, UnixDate,
+                        MakeDate, TruncTimestamp, DateFormat, FromUnixTime,
+                        ToUnixTimestamp, UnixTimestamp)
+from .math_ import (Sqrt, Exp, Log, Log10, Log2, Sin, Cos,  # noqa: F401
+                    Tan, Asin, Acos, Atan, Sinh, Cosh, Tanh, Cbrt,
+                    ToDegrees, ToRadians, Signum, Expm1, Log1p, Rint, Cot,
+                    Pow, Atan2, Hypot, Logarithm, Floor, Ceil, Round,
+                    BRound)
+from .bitwise import (BitwiseAnd, BitwiseOr, BitwiseXor,  # noqa: F401
+                      BitwiseNot, ShiftLeft, ShiftRight,
+                      ShiftRightUnsigned)
 from .aggregates import (AggregateFunction, Sum, Count, Min,  # noqa: F401
                          Max, Average, First, Last, CountDistinct,
                          VariancePop, VarianceSamp, StddevPop, StddevSamp,

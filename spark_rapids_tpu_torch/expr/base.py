@@ -22,8 +22,8 @@ from ..columnar.padding import width_bucket
 __all__ = ["Vec", "EvalContext", "ansi_raise", "Expression",
            "LeafExpression", "Literal", "AttributeReference",
            "BoundReference", "Alias", "bind_references", "output_name",
-           "and_validity", "require_flat_strings", "pad_common_width",
-           "pad_width"]
+           "and_validity", "ieee_div", "require_flat_strings",
+           "pad_common_width", "pad_width"]
 
 
 @dataclasses.dataclass
@@ -137,6 +137,13 @@ def ansi_raise(ctx: EvalContext, flag: torch.Tensor, message: str,
     if masked:
         flag = flag & ctx.row_mask
     ctx.errors.append((flag.any(), message))
+
+
+def ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, as Java divides: torch's CUDA kernel multiplies
+    by the reciprocal of a Python-number divisor, a ULP off in some rows,
+    so the divisor goes in as a tensor on x's device."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
 def and_validity(*vs) -> Optional[torch.Tensor]:

@@ -35,8 +35,8 @@ rest (DATE -> numeric, numeric -> DATE, TIMESTAMP -> numeric other than
 LONG, BOOLEAN/FLOAT/DOUBLE/DECIMAL -> TIMESTAMP) give the JAX CPU engine's
 values through the paths below; their Spark rule waits for confirmation
 (ROADMAP.md Queue C). STRING -> DECIMAL/TIMESTAMP and DECIMAL/TIMESTAMP
--> STRING are refused at plan time (`host_supported`): the JAX CPU engine
-computes another value than Spark there, or fails (Queue C).
+-> STRING follow Spark's rule in expr/textcasts.py, where the JAX CPU
+engine computes another value or fails.
 
 ANSI mode (`ctx.ansi`) raises where the non-ANSI cast clamps, wraps or
 makes null: float -> integral out of range or NaN and integral narrowing
@@ -107,14 +107,22 @@ def device_supported(src: T.DataType, dst: T.DataType) -> bool:
 _CARRIED = _NUMERIC + (T.DecimalType, T.DateType, T.TimestampType)
 
 
+def _text_cast(src: T.DataType, dst: T.DataType) -> bool:
+    """STRING -> DECIMAL/TIMESTAMP and DECIMAL/TIMESTAMP -> STRING
+    (expr/textcasts.py)."""
+    timeish = (T.DecimalType, T.TimestampType)
+    return (isinstance(src, T.StringType) and isinstance(dst, timeish)) or \
+        (isinstance(src, timeish) and isinstance(dst, T.StringType))
+
+
 def host_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The casts this engine computes: the device ones, and on the host
-    every other pair of the carried types but strings, and FLOAT/DOUBLE
-    -> STRING. STRING -> DECIMAL/TIMESTAMP and DECIMAL/TIMESTAMP ->
-    STRING are not among them (ROADMAP.md Queue C)."""
+    every other pair of the carried types, FLOAT/DOUBLE -> STRING and the
+    four casts between STRING and DECIMAL/TIMESTAMP."""
     return device_supported(src, dst) or (
         isinstance(src, _CARRIED) and isinstance(dst, _CARRIED)) or (
-        T.is_floating(src) and isinstance(dst, T.StringType))
+        T.is_floating(src) and isinstance(dst, T.StringType)) or \
+        _text_cast(src, dst)
 
 
 def ansi_supported(src: T.DataType, dst: T.DataType) -> bool:
@@ -187,6 +195,15 @@ class Cast(Expression):
             if T.is_integral(src) and isinstance(dst, T.TimestampType):
                 return Vec(dst, c.data.to(torch.int64) * 1_000_000,
                            c.validity)
+            if _text_cast(src, dst):
+                from . import textcasts as TC
+                if isinstance(dst, T.DecimalType):
+                    return TC.string_to_decimal(ctx, c, dst)
+                if isinstance(dst, T.TimestampType):
+                    return TC.string_to_timestamp(ctx, c)
+                if isinstance(src, T.DecimalType):
+                    return TC.decimal_to_string(c)
+                return TC.timestamp_to_string(c)
         if isinstance(dst, T.StringType):
             return _to_string(c)
         if isinstance(src, T.StringType):
@@ -499,17 +516,22 @@ def _byte_at(chars: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.gather(chars, 1, pos[:, None])[:, 0]
 
 
+def _trimmed(chars: torch.Tensor, lengths: torch.Tensor):
+    """(first, last, any): the token between the bytes <= 0x20 at either
+    end of each row (Java's String.trim)."""
+    w = chars.shape[1]
+    content = (_cols(w, chars.device) < lengths[:, None]) & (chars > 0x20)
+    first = content.to(torch.uint8).argmax(dim=1).to(torch.int64)
+    last = w - 1 - content.flip(1).to(torch.uint8).argmax(dim=1) \
+        .to(torch.int64)
+    return first, last, content.any(dim=1)
+
+
 def _from_string(c: Vec, dst: T.DataType) -> Vec:
     """JAX `_from_string`: trim ASCII whitespace (bytes <= 0x20), then
     parse by the target type."""
-    chars, lengths = c.data, c.lengths
-    w = chars.shape[1]
-    j = _cols(w, chars.device)
-    in_row = j < lengths[:, None]
-    content = in_row & (chars > 0x20)
-    any_c = content.any(dim=1)
-    first = content.to(torch.uint8).argmax(dim=1)
-    last = w - 1 - content.flip(1).to(torch.uint8).argmax(dim=1)
+    first, last, any_c = _trimmed(c.data, c.lengths)
+    j = _cols(c.data.shape[1], c.data.device)
     if isinstance(dst, T.BooleanType):
         return _parse_bool(c, first, last, any_c)
     if isinstance(dst, T.DateType):

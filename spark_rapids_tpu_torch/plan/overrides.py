@@ -44,6 +44,9 @@ from ..expr import conditional as C
 from ..expr import nullexprs as NE
 from ..expr import predicates as P
 from ..expr import aggregates as AG
+from ..expr import bitwise as BW
+from ..expr import datetime_ as DT
+from ..expr import math_ as MA
 from ..expr import regex as RX
 from ..expr import strings as ES
 from ..expr import strings_ext as ESX
@@ -79,7 +82,13 @@ _SUPPORTED_EXPRS = (Literal, BoundReference, AttributeReference, Alias,
                     ESX.Left, ESX.Right, ESX.StringSpace, ESX.BitLength,
                     ESX.OctetLength, ESX.FindInSet, ESM.Overlay,
                     ESM.Levenshtein, ESM.SoundEx, ESM.Empty2Null,
-                    ESM.FormatNumber, ESM.Conv)
+                    ESM.FormatNumber, ESM.Conv, MA.UnaryMath, MA.Pow,
+                    MA.Atan2, MA.Hypot, MA.Logarithm, MA.Floor, MA.Ceil,
+                    MA.Round, MA.BRound, BW.BitwiseAnd, BW.BitwiseOr,
+                    BW.BitwiseXor, BW.BitwiseNot, BW.ShiftLeft,
+                    BW.ShiftRight, BW.ShiftRightUnsigned) + tuple(
+    getattr(DT, _n) for _n in DT.__all__
+    if isinstance(getattr(DT, _n), type))
 _ARITH_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                 T.FloatType, T.DoubleType, T.DecimalType)
 _COMPARISONS = (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
@@ -151,11 +160,58 @@ def _check_expr(e: Expression) -> None:
                 any(is_dec128(c.data_type) for c in node.children):
             _unsupported(f"{type(node).__name__} over a decimal of more "
                          "than 18 digits")
+        _check_argument_types(node)
         if isinstance(node, P.In):
             if is_dec128(node.children[0].data_type):
                 # the JAX In broadcasts one value a row against the limbs
                 _unsupported("In over a decimal of more than 18 digits")
             _check_in_items(node)
+
+
+_DATE = (T.DateType,)
+_DATE_TS = (T.DateType, T.TimestampType)
+_TS = (T.TimestampType,)
+_INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
+_PLAIN_NUM = _INTEGRAL + (T.FloatType, T.DoubleType)
+# the operand types each datetime, math and bitwise class computes. The
+# JAX classes read a DATE's day count, a TIMESTAMP's microseconds or a
+# number as it is, with no analyzer to cast them, so another type (a
+# decimal's unscaled value, a timestamp read as days) would be another
+# value: the port refuses it (ROADMAP.md "Port-only refusals")
+_ARG_TYPES = (
+    (DT.DateAdd, (_DATE, _INTEGRAL)), (DT.AddMonths, (_DATE, _INTEGRAL)),
+    (DT.DateDiff, (_DATE, _DATE)), (DT.MonthsBetween, (_DATE_TS, _DATE_TS)),
+    (DT.MakeDate, (_INTEGRAL,) * 3), (DT.Hour, (_TS,)), (DT.Minute, (_TS,)),
+    (DT.Second, (_TS,)), (DT.UnixTimestampFromTs, (_TS,)),
+    (DT.TruncTimestamp, (_TS,)), (DT.DateFormat, (_DATE_TS,)),
+    (DT.FromUnixTime, (_INTEGRAL,)), (DT.ToUnixTimestamp, ((T.StringType,),)),
+    (DT.TimestampSeconds, (_INTEGRAL,)), (DT.TimestampMillis, (_INTEGRAL,)),
+    (DT.TimestampMicros, (_INTEGRAL,)), (DT.DateFromUnixDate, (_INTEGRAL,)),
+    (DT.Year, (_DATE_TS,)), (DT.Month, (_DATE_TS,)),
+    (DT.DayOfMonth, (_DATE_TS,)), (DT.Quarter, (_DATE_TS,)),
+    (DT.DayOfWeek, (_DATE_TS,)), (DT.WeekDay, (_DATE_TS,)),
+    (DT.DayOfYear, (_DATE_TS,)), (DT.WeekOfYear, (_DATE_TS,)),
+    (DT.LastDay, (_DATE,)), (DT.TruncDate, (_DATE,)), (DT.NextDay, (_DATE,)),
+    (DT.DayName, (_DATE,)), (DT.MonthName, (_DATE,)), (DT.UnixDate, (_DATE,)),
+    (MA.UnaryMath, (_PLAIN_NUM,)), (MA.Pow, (_PLAIN_NUM,) * 2),
+    (MA.Atan2, (_PLAIN_NUM,) * 2), (MA.Hypot, (_PLAIN_NUM,) * 2),
+    (MA.Logarithm, (_PLAIN_NUM,) * 2), (MA.Floor, (_PLAIN_NUM,)),
+    (MA.Ceil, (_PLAIN_NUM,)), (MA.Round, (_PLAIN_NUM,)),
+    (MA.BRound, (_PLAIN_NUM,)), (BW.BitwiseAnd, (_INTEGRAL,) * 2),
+    (BW.BitwiseOr, (_INTEGRAL,) * 2), (BW.BitwiseXor, (_INTEGRAL,) * 2),
+    (BW.BitwiseNot, (_INTEGRAL,)), (BW.ShiftLeft, (_INTEGRAL,) * 2),
+    (BW.ShiftRight, (_INTEGRAL,) * 2),
+    (BW.ShiftRightUnsigned, (_INTEGRAL,) * 2))
+
+
+def _check_argument_types(node: Expression) -> None:
+    for cls, kinds in _ARG_TYPES:
+        if isinstance(node, cls):
+            types = [c.data_type for c in node.children]
+            if not all(isinstance(t, k) for t, k in zip(types, kinds)):
+                _unsupported(f"{type(node).__name__} over " + ", ".join(
+                    t.simple_string() for t in types))
+            return
 
 
 def _check_in_items(node: "P.In") -> None:
@@ -450,6 +506,41 @@ expr_rule(ESX.InitCap, _str, incompat=True,
 expr_rule(ESM.FormatNumber, _str,
           doc="Enable format_number; |values| at int64 scale or beyond "
               "return null (19+ digit JVM DecimalFormat not reproduced).")
+
+# math, bitwise and datetime (JAX plan/overrides.py:123-131, :147-150,
+# :343-353, :440-455): the transcendentals may differ from the JVM in ULPs
+for _c in (MA.Sqrt, MA.Exp, MA.Log, MA.Log10, MA.Log2, MA.Pow, MA.Signum,
+           MA.Sin, MA.Cos, MA.Tan, MA.Asin, MA.Acos, MA.Atan, MA.Sinh,
+           MA.Cosh, MA.Tanh, MA.Cbrt, MA.ToDegrees, MA.ToRadians, MA.Atan2,
+           MA.Hypot, MA.Logarithm, MA.Expm1, MA.Log1p, MA.Rint, MA.Cot):
+    expr_rule(_c, _dbl, incompat=True,
+              doc="Transcendental results may differ from the JVM in ULPs.")
+for _c in (MA.Floor, MA.Ceil, MA.Round, MA.BRound):
+    expr_rule(_c, _num)
+for _c in (BW.BitwiseAnd, BW.BitwiseOr, BW.BitwiseXor, BW.BitwiseNot,
+           BW.ShiftLeft, BW.ShiftRight, BW.ShiftRightUnsigned):
+    expr_rule(_c, TypeSig.integral())
+_date = TypeSig((T.DateType,))
+_ts = TypeSig((T.TimestampType,))
+_long = TypeSig((T.LongType,))
+for _c in (DT.Year, DT.Month, DT.DayOfMonth, DT.Quarter, DT.DayOfWeek,
+           DT.WeekDay, DT.DayOfYear, DT.Hour, DT.Minute, DT.Second,
+           DT.DateDiff, DT.WeekOfYear, DT.UnixDate):
+    expr_rule(_c, _int)
+for _c in (DT.DateAdd, DT.DateSub, DT.LastDay, DT.AddMonths, DT.TruncDate,
+           DT.NextDay, DT.DateFromUnixDate, DT.MakeDate):
+    expr_rule(_c, _date)
+for _c in (DT.TimestampSeconds, DT.TimestampMillis, DT.TimestampMicros,
+           DT.TruncTimestamp):
+    expr_rule(_c, _ts)
+for _c in (DT.UnixTimestampFromTs, DT.ToUnixTimestamp, DT.UnixTimestamp):
+    expr_rule(_c, _long)
+expr_rule(DT.MonthsBetween, _dbl)
+for _c in (DT.DayName, DT.MonthName, DT.FromUnixTime):
+    expr_rule(_c, _str)
+expr_rule(DT.DateFormat, _str,
+          doc="Enable date_format (fixed-width yyyy/MM/dd/HH/mm/ss "
+              "patterns; UTC).")
 
 
 def _exprs_project(m: PlanMeta):

@@ -703,17 +703,24 @@ def test_ansi_and_plain_fuse_alike():
 
 
 def test_ansi_string_cast_refused_at_plan_time():
-    """The string casts the port refuses (ROADMAP.md Queue C); the others
-    run under ANSI (tests/test_torch_string_casts.py)."""
-    t = pa.table({"s": pa.array(["12", "x"]), "k": L(1, 2)})
+    """STRING -> TIMESTAMP and DECIMAL -> STRING, refused until slice 16,
+    run on the host engine with the JAX tag under both confs: a string
+    that is no timestamp is null, and under ANSI raises; a decimal writes
+    its plain digits (tests/test_torch_timestamp_casts.py)."""
+    t = pa.table({"s": pa.array(["2001-03-11", "x"]), "k": L(1, 2)})
     for conf in (ANSI, BASE):
         sess = TpuSession(conf, device="cpu")
-        for q in (sess.from_arrow(t).select(x=PE.Cast(PE.col("s"),
-                                                      T.TIMESTAMP)),
-                  sess.from_arrow(t).select(x=PE.Cast(PE.Cast(
-                      PE.col("k"), T.DecimalType(7, 0)), T.STRING))):
-            with pytest.raises(NotImplementedError):
-                q.explain()
+        ts = sess.from_arrow(t).select(x=PE.Cast(PE.col("s"), T.TIMESTAMP))
+        text = sess.from_arrow(t).select(x=PE.Cast(PE.Cast(
+            PE.col("k"), T.DecimalType(7, 0)), T.STRING))
+        assert "CpuProjectExec" in ts.explain()
+        assert text.collect().column("x").to_pylist() == ["1", "2"]
+        if conf is ANSI:
+            with pytest.raises(AnsiViolation, match="CAST_INVALID_INPUT"):
+                ts.collect()
+        else:
+            assert ts.collect().column("x").cast(pa.int64()).to_pylist() \
+                == [984268800000000, None]
 
 
 def test_ansi_date_cast_refused_as_in_jax():

@@ -36,7 +36,8 @@ from spark_rapids_tpu_torch.errors import DeviceUnavailableError
 from spark_rapids_tpu_torch.exec import aggregate, basic, broadcast, \
     coalesce, joins
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.expr import Cast, Count, Max, Min, Sum, col, lit
+from spark_rapids_tpu_torch.expr import (Cast, Count, Max, Min, Round, Sum,
+                                         col, lit)
 from spark_rapids_tpu_torch.plan import fusion
 from spark_rapids_tpu_torch.plan.nodes import AggExpr
 from spark_rapids_tpu_torch.plugin import TpuSession
@@ -363,8 +364,8 @@ class TestBoundaries:
                 4, dtype=np.float64)})), on="k")
         elif case == "sum_of_boolean":
             df = df.group_by("k").agg(s=Sum(col("b")))
-        elif case == "ansi":  # ANSI runs; a timestamp cast to a string
-            # stays refused (the JAX CPU engine has no such cast)
-            df = df.select(x=Cast(Cast(col("k"), T.TIMESTAMP), T.STRING))
+        elif case == "ansi":  # ANSI runs; a decimal Round stays refused
+            # (the JAX Round keeps the decimal's type and digits)
+            df = df.select(x=Round(Cast(col("k"), T.DecimalType(7, 0)), 0))
         with pytest.raises(NotImplementedError):
             df.collect()

@@ -2,12 +2,13 @@
 oracle) run on the CPU at a small size, and its oracle held against the
 JAX engine.
 
-On the card the phase runs TPC-DS q21 (its date window as literal dates
-cast from strings), a formatted store report (concat_ws, lpad of keys
-cast to STRING, initcap, translate, replace, soundex, format_number, an
-average cast to STRING on the host engine) and a parse of store_sales
-staged as text, on one device and distributed, each exact against
-strings_ext_oracle with exact launch counts of kernels A and C; under
+On the card the phase runs TPC-DS q21 (its date window a date cast from
+a string literal, -/+ 30 days by DateSub/DateAdd), a formatted store
+report (concat_ws, lpad of keys cast to STRING, initcap, translate,
+replace, soundex, format_number, an average cast to STRING on the host
+engine) and a parse of store_sales staged as text, on one device and
+distributed, each exact against strings_ext_oracle with exact launch
+counts of kernels A and C; under
 ANSI the text parse raises and its twin over the well-formed rows is
 exact. Here the kernel wrappers take their plain twins and a stand-in
 counts each call; 16 weeks of inventory in row groups of 16,384 make 3
@@ -117,7 +118,8 @@ def _jax_namespace():
     m = SimpleNamespace(**{n: getattr(JE, n) for n in (
         "col", "lit", "Cast", "CaseWhen", "Sum", "Count", "Average",
         "Concat", "ConcatWs", "StringLPad", "InitCap", "StringTranslate",
-        "StringReplace", "SoundEx", "FormatNumber", "Like")})
+        "StringReplace", "SoundEx", "FormatNumber", "Like", "DateAdd",
+        "DateSub")})
     m.T = JT
     return m
 

@@ -15,8 +15,9 @@ parse (`expr/floatparse.py`) against the JAX package on the CPU.
     reason: it equals JAX `_java_double_str` where that follows Java's
     `Double.toString`, and an oracle of Java's rule where it does not
     (ROADMAP.md "Known differences");
-  * the casts the port refuses raise at plan time; the ANSI messages and
-    the explain tags equal the JAX engine's.
+  * the four casts between STRING and DECIMAL/TIMESTAMP run on the host
+    engine by Spark's rule (`test_c5_casts_follow_spark`); the ANSI
+    messages and the explain tags equal the JAX engine's.
 Every comparison is exact."""
 
 import decimal
@@ -388,22 +389,44 @@ def test_explain_tags_match_jax(case):
                                  "date_to_string_ansi")), jl
 
 
-@pytest.mark.parametrize("src,to", [("s", "decimal(7,2)"),
-                                    ("s", "timestamp"),
-                                    ("dec", "string"), ("ts", "string")])
-def test_refused_casts_raise_at_plan_time(src, to):
-    """The JAX CPU engine reads '12.34' as null and ' 1234 ' as 12.34 in
-    decimal(7,2), and '2001-03-11' as null and '1234' as 1234 µs in a
-    timestamp; it fails on a decimal or timestamp to STRING: the port
-    refuses all four (ROADMAP.md Queue C)."""
-    t = pa.table({"s": ["12.34", " 1234 "],
-                  "dec": pa.array([decimal.Decimal("0.01")] * 2,
+C5 = {  # case: (column, target, the port's values by Spark's rule)
+    "string_to_decimal": ("s", "decimal(7,2)",
+                          [decimal.Decimal("12.34"),
+                           decimal.Decimal("1234.00")]),
+    "string_to_timestamp": ("t", "timestamp", [984268800000000,
+                                               -23225875200000000]),
+    "decimal_to_string": ("dec", "string", ["0.01", "12.30"]),
+    "timestamp_to_string": ("ts", "string", ["1970-01-01 00:00:00",
+                                             "1969-12-31 23:59:59.5"]),
+}
+
+
+@pytest.mark.parametrize("case", list(C5))
+def test_c5_casts_follow_spark(case):
+    """The four casts the JAX device rule refuses run on the port's host
+    engine with the JAX tag's reason, by Spark's rule: '12.34' and ' 1234 '
+    are 12.34 and 1234.00 in decimal(7,2) (the JAX CPU engine: null and
+    12.34); '2001-03-11' is its midnight and '1234' the year 1234 (JAX:
+    null and 1234 us); a decimal keeps its scale and a timestamp drops its
+    fraction's trailing zeros as text (JAX: a TypeError). The full
+    grammars are tests/test_torch_timestamp_casts.py's."""
+    src, to, want = C5[case]
+    t = pa.table({"s": ["12.34", " 1234 "], "t": ["2001-03-11", "1234"],
+                  "dec": pa.array([decimal.Decimal("0.01"),
+                                   decimal.Decimal("12.30")],
                                   pa.decimal128(9, 2)),
-                  "ts": pa.array([0, 1], pa.timestamp("us", tz="UTC"))})
+                  "ts": pa.array([0, -500_000],
+                                 pa.timestamp("us", tz="UTC"))})
+    jl, pl = _bang(BASE, lambda sess, m, tp, tb: sess.from_arrow(tb).select(
+        o=m.Cast(m.col(src), tp.parse_type(to))), t)
+    assert pl == jl and len(pl) == 1, (jl, pl)
     q = TpuSession(BASE, device="cpu").from_arrow(t).select(
         o=PE.Cast(PE.col(src), T.parse_type(to)))
-    with pytest.raises(NotImplementedError, match="cast from"):
-        q.explain()
+    for got in (q.collect(), q.collect_cpu()):
+        col = got.column("o")
+        if to == "timestamp":
+            col = col.cast(pa.int64())
+        assert col.to_pylist() == want
 
 
 @pytest.mark.parametrize("to", ["INT", "DOUBLE", "BOOLEAN", "DATE"])
