@@ -20,7 +20,7 @@ parquet files, and last the star reports over TPC-DS's own column types
 (every money column decimal(7,2), written as FIXED_LEN_BYTE_ARRAY) from
 parquet on one device and distributed, exact against an int64 oracle, and
 over the same files the reports in TPC-DS's ORDER BY ... LIMIT 100 (top-k;
-Q36 ranked by a window), q51's running window over the 16.76 M
+Q36 with its ROLLUP, ranked by a window), q51's running window over the 16.76 M
 per-(item, date) quantities, and their out-of-core sort under the
 distributed plan, and last the joins of TPC-DS q97 (a full outer join whose
 8.39 M-row build side takes the sub-partition join), q10 (existence joins),
@@ -42,7 +42,11 @@ the card, and then the strings: TPC-DS q23's frequent items, a text report
 and LIKE/RLIKE over item's descriptions, the long-string layout, and last
 the rest of the string functions and the casts from and to STRING (TPC-DS
 q21 with its date window cast from string literals, a formatted store
-report, and a parse of sales staged as text, under ANSI too); it checks
+report, and a parse of sales staged as text, under ANSI too), and the plan
+nodes and planner passes of slice 17 (TPC-DS q28 with its predicates
+pushed into the parquet decode, an aggregate-only report pushed whole, a
+year's window of sales sorted by date pruned by the footer statistics, a
+sample, a range and the cost-based optimizer's placements); it checks
 each against numpy oracles, holds kernels A and C to their exact launch
 counts there, and holds them against their twins on the inputs those paths
 hand them (a merged batch of 4 row groups). Each phase prints one JSON
@@ -1171,7 +1175,8 @@ def star_decimal_tables(pa, n_sales: int, n_dates: int, n_items: int,
     return dict(t, store_sales=ss, item=item)
 
 
-def star_decimal_queries(sess, m, paths: dict, **sales_options) -> dict:
+def star_decimal_queries(sess, m, paths: dict, rollup: bool = False,
+                         **sales_options) -> dict:
     """Q3, Q7 and Q36 over star_decimal_tables' parquet files, as
     DataFrames of `sess` with the port's constructors `m`
     (star_namespace): Q3 sums
@@ -1180,7 +1185,8 @@ def star_decimal_queries(sess, m, paths: dict, **sales_options) -> dict:
     sums (a double), buckets by a CASE on the sales price against
     decimal literals, and takes MIN and MAX of a decimal difference.
     paths["store_sales"] is a path or a list of them, read with
-    `sales_options` (`filters=`)."""
+    `sales_options` (`filters=`). With `rollup`, Q36 is its input before
+    the grouping (rollup_q36 groups it)."""
     from decimal import Decimal
     c = m.col
     sales = paths["store_sales"]
@@ -1213,7 +1219,10 @@ def star_decimal_queries(sess, m, paths: dict, **sales_options) -> dict:
                     [(price > m.lit(Decimal("150.00")), m.lit("lux")),
                      (price > m.lit(Decimal("50.00")), m.lit("mid"))],
                     m.lit("base")),
-                margin=price - c("i_current_price")) \
+                margin=price - c("i_current_price"))
+    if rollup:
+        return {"q3": q3, "q7": q7, "q36": q36}
+    q36 = q36 \
         .group_by("cat", "bucket") \
         .agg(profit=m.Sum(c("ss_net_profit")),
              sales=m.Sum(c("ss_ext_sales_price")), hi=m.Max(c("margin")),
@@ -1540,8 +1549,15 @@ ORDERED_KEYS = {
     "q3": (("d_year", True, True), ("sum_agg", False, False),
            ("i_brand", True, True)),
     "q7": (("i_category", True, True),),
-    "q36": (("cat", True, True), ("rank_within_parent", True, True),
+    "q36": (("lochierarchy", False, False), ("parent", True, True),
+            ("rank_within_parent", True, True), ("cat", True, True),
             ("bucket", True, True))}
+# Q36's rollup(cat, bucket) levels: (grouping id, the columns it nulls)
+ROLLUP_LEVELS = ((0, ()), (1, ("bucket",)), (3, ("cat", "bucket")))
+# C a merged batch in the ordered reports: the decimal star's, but Q36's
+# partial aggregate sits above its Expand, where fusion ends the chain, so
+# it runs unfused and launches no C
+ORDERED_C_PER_BATCH = dict(STAR_DECIMAL_C_PER_BATCH, q36=0)
 # the per-(item, date) quantities sorted out of core under the distributed
 # plan
 OOC_KEYS = (("qty", False, False), ("ss_item_sk", True, True),
@@ -1549,27 +1565,71 @@ OOC_KEYS = (("qty", False, False), ("ss_item_sk", True, True),
 
 
 def ordered_namespace() -> SimpleNamespace:
-    """star_namespace with the window constructors."""
+    """star_namespace with the window and bitwise constructors, the STRING
+    type, and `Expand(df, projections, names)`, a DataFrame over the
+    port's Expand node (the frontend has no rollup: a ROLLUP is an Expand
+    below the aggregate)."""
     from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.frontend import DataFrame
+    from spark_rapids_tpu_torch.plan.nodes import CpuExpandExec
     m = star_namespace()
-    for n in ("Rank", "RowNumber", "Lag", "WindowAggregate", "RowFrame"):
+    for n in ("Rank", "RowNumber", "Lag", "WindowAggregate", "RowFrame",
+              "ShiftRight", "BitwiseAnd"):
         setattr(m, n, getattr(E, n))
+    m.string = T.STRING
+    m.Expand = lambda df, projections, names: DataFrame(
+        df.session, CpuExpandExec(projections, names, df.plan))
     return m
 
 
+def rollup_q36(m, base):
+    """TPC-DS Q36's ROLLUP over star_decimal_queries' Q36 input `base`:
+    rollup(cat, bucket) as an Expand with the grouping id g (0, 1, 3), the
+    sums by (cat, bucket, g), grouping(x) as shiftright(g, k) & 1,
+    lochierarchy = grouping(cat) + grouping(bucket), and rank() over
+    (partition by lochierarchy, case when grouping(bucket) = 0 then cat
+    end order by gross margin), that partition's second key kept as
+    `parent` (it is also TPC-DS's `case when lochierarchy = 0 then cat
+    end` of the ORDER BY)."""
+    c, lit = m.col, m.lit
+    cols = ("ss_net_profit", "ss_ext_sales_price", "margin", "cat",
+            "bucket")
+    projections = [[lit(None, m.string) if n in nulled else c(n)
+                    for n in cols] + [lit(g)]
+                   for g, nulled in ROLLUP_LEVELS]
+    g = c("g")
+
+    def grouping(k):
+        return m.BitwiseAnd(m.ShiftRight(g, lit(k)), lit(1))
+
+    return m.Expand(base, projections, cols + ("g",)) \
+        .group_by("cat", "bucket", "g") \
+        .agg(profit=m.Sum(c("ss_net_profit")),
+             sales=m.Sum(c("ss_ext_sales_price")), hi=m.Max(c("margin")),
+             lo=m.Min(c("margin")), n=m.Count(lit(1))) \
+        .select("cat", "bucket", "profit", "sales", "hi", "lo", "n",
+                gross_margin=c("profit") / c("sales"),
+                lochierarchy=grouping(1) + grouping(0),
+                parent=m.CaseWhen([(grouping(0) == lit(0), c("cat"))],
+                                  lit(None, m.string))) \
+        .window(partition_by=["lochierarchy", "parent"],
+                order_by=[(c("gross_margin"), True, True)],
+                rank_within_parent=m.Rank())
+
+
 def ordered_queries(sess, m, paths: dict) -> dict:
-    """star_decimal_queries' Q3, Q7 and Q36 in TPC-DS's ORDER BY ... LIMIT
-    100 (Q36 ranked within its category by gross margin, without its
-    ROLLUP), the running window of q51 (a cumulative sum of the quantity
-    per item over dates, its row number and the previous day's quantity)
-    and the per-(item, date) quantities sorted by quantity."""
+    """star_decimal_queries' Q3 and Q7 in TPC-DS's ORDER BY ... LIMIT 100,
+    Q36 in its true form (rollup_q36, ordered by lochierarchy desc, parent,
+    rank_within_parent, then cat and bucket to break ties, LIMIT 100), the
+    running window of q51 (a cumulative sum of the quantity per item over
+    dates, its row number and the previous day's quantity) and the
+    per-(item, date) quantities sorted by quantity."""
     c = m.col
-    q = star_decimal_queries(sess, m, paths)
+    q = star_decimal_queries(sess, m, paths, rollup=True)
     out = {n: q[n].sort(*ORDERED_KEYS[n]).limit(ORDERED_LIMIT)
            for n in ("q3", "q7")}
-    out["q36"] = q["q36"].window(
-        partition_by=["cat"], order_by=[(c("gross_margin"), True, True)],
-        rank_within_parent=m.Rank()).sort(*ORDERED_KEYS["q36"]) \
+    out["q36"] = rollup_q36(m, q["q36"]).sort(*ORDERED_KEYS["q36"]) \
         .limit(ORDERED_LIMIT)
     per_day = sess.read_parquet(
         paths["store_sales"],
@@ -1595,19 +1655,50 @@ def _sort_key(values, ascending: bool, nulls_first: bool):
     return key if ascending else -key
 
 
+def rollup_oracle(q36: dict) -> dict:
+    """star_decimal_oracle's Q36 rows rolled up over (cat, bucket): the
+    rows themselves (lochierarchy 0), one per category and one in all
+    (sums and counts added, hi the max and lo the min of the non-null
+    ones), each with its gross margin, lochierarchy, parent (the category
+    at lochierarchy 0, else null) and rank within (lochierarchy, parent)
+    by gross margin, nulls first."""
+    def merged(rows):
+        his = [r["hi"] for r in rows if r["hi"] is not None]
+        los = [r["lo"] for r in rows if r["lo"] is not None]
+        return {"profit": sum(r["profit"] for r in rows),
+                "sales": sum(r["sales"] for r in rows),
+                "hi": max(his) if his else None,
+                "lo": min(los) if los else None,
+                "n": sum(r["n"] for r in rows)}
+
+    base = [dict(zip(q36, vals)) for vals in zip(*q36.values())]
+    out = [dict(r, lochierarchy=0, parent=r["cat"]) for r in base]
+    for cat in sorted({r["cat"] for r in base}):
+        out.append(dict(merged([r for r in base if r["cat"] == cat]),
+                        cat=cat, bucket=None, lochierarchy=1, parent=None))
+    out.append(dict(merged(base), cat=None, bucket=None, lochierarchy=2,
+                    parent=None))
+    for r in out:
+        p, s_ = r["profit"], r["sales"]
+        r["gross_margin"] = None if s_ in (None, 0) else \
+            float(np.float64(p) / np.float64(s_))
+    for r in out:
+        g = r["gross_margin"]
+        r["rank_within_parent"] = 1 + sum(
+            1 for h in out if (h["lochierarchy"], h["parent"]) ==
+            (r["lochierarchy"], r["parent"]) and g is not None and (
+                h["gross_margin"] is None or h["gross_margin"] < g))
+    return {k: [r[k] for r in out] for k in out[0]}
+
+
 def ordered_oracle(want: dict) -> dict:
-    """The ordered reports' rows: star_decimal_oracle's rows (Q36's with
-    its rank within its category by gross margin, nulls first) lexsorted
-    on each report's keys, the first 100."""
+    """The ordered reports' rows: star_decimal_oracle's Q3 and Q7 rows and
+    Q36's rolled up (rollup_oracle), lexsorted on each report's keys, the
+    first 100."""
     out = {}
     for name in ("q3", "q7", "q36"):
-        cols = dict(want[name])
-        if name == "q36":
-            gm, cat = cols["gross_margin"], cols["cat"]
-            cols["rank_within_parent"] = [
-                1 + sum(1 for h, c2 in zip(gm, cat) if c2 == c and (
-                    (g is not None and (h is None or h < g))))
-                for g, c in zip(gm, cat)]
+        cols = rollup_oracle(want[name]) if name == "q36" else \
+            dict(want[name])
         keys = [_sort_key(cols[k], a, nf) for k, a, nf in ORDERED_KEYS[name]]
         order = np.lexsort(keys[::-1])[:ORDERED_LIMIT]
         out[name] = {k: [v[i] for i in order] for k, v in cols.items()}
@@ -1670,9 +1761,10 @@ def ordered_phases(torch, pa, mesh_conf: dict, counters,
     (`mesh_conf`), and the out-of-core sort under the distributed plan.
     Each result is held against its oracle row for row; A and C launch as
     on the decimal star reports (A twice per fused join per merged batch,
-    C STAR_DECIMAL_C_PER_BATCH a merged batch, distributed only) and not
-    at all in the running window and the sort, whose aggregate over a bare
-    scan fuses nothing. Each plan's checked, counted run comes first and
+    C ORDERED_C_PER_BATCH a merged batch, distributed only: none in Q36,
+    whose partial aggregate sits above its rollup's Expand) and not at all
+    in the running window and the sort, whose aggregate over a bare scan
+    fuses nothing. Each plan's checked, counted run comes first and
     warms its queries up for the timed collects. Returns the launch counts
     of each plan's run (one collect of each query) and the arguments of A's first call in a
     one-device ordered Q7 collect and of C's first in a distributed
@@ -1728,7 +1820,7 @@ def ordered_phases(torch, pa, mesh_conf: dict, counters,
             del outs
             want_a = sum(2 * fused_joins(shapes[n]) * batches
                          for n in ("q3", "q7", "q36"))
-            want_c = sum(STAR_DECIMAL_C_PER_BATCH[n] * batches
+            want_c = sum(ORDERED_C_PER_BATCH[n] * batches
                          for n in ("q3", "q7", "q36")) \
                 if plan == "distributed" else 0
             if run["murmur3_rows"] != want_a or \
@@ -1810,6 +1902,7 @@ CD_ATTRS = (("cd_gender", ("M", "F")),
             ("cd_dep_employed_count", tuple(range(7))),
             ("cd_dep_college_count", tuple(range(7))))
 FIRST_DATE_SK = 2_415_022  # date_dim's d_date_sk of 1900-01-02
+N_STORES = 102  # TPC-DS store at SF10
 SOLD_DATE_SK = (2_450_816, 2_452_642)  # the sales' five years
 Q10_COUNTIES = ("Rush County", "Toole County", "Jefferson County",
                 "Dona Ana County", "La Porte County")
@@ -1866,7 +1959,9 @@ def join_tables(pa, sizes=JOIN_SIZES, seed: int = 31) -> dict:
     (q10's five among them), customer_demographics as dsdgen's cross
     product (cut to its first rows below full size), and the three sales
     tables, sold dates uniform over 1998-01-02 .. 2003-01-02 and
-    customers and items uniform, their money columns decimal(7,2)."""
+    customers and items uniform, their money columns decimal(7,2); store
+    sales also carry ss_store_sk (uniform over 102 stores) and items
+    i_category (TPC-DS's ten), from a second generator."""
     if sizes["customer_demographics"] > int(np.prod(
             [len(v) for _, v in CD_ATTRS])):
         raise ValueError("customer_demographics has 1,920,800 rows at most")
@@ -1935,6 +2030,15 @@ def join_tables(pa, sizes=JOIN_SIZES, seed: int = 31) -> dict:
     for p, name in (("ss", "store_sales"), ("cs", "catalog_sales"),
                     ("ws", "web_sales")):
         t[name] = t.pop(f"{p}_table")
+    # the plan_nodes phase's store and category, from a generator of their
+    # own, so every column above keeps its values
+    extra = np.random.default_rng(seed + 1)
+    t["store_sales"] = t["store_sales"].append_column(
+        "ss_store_sk", pa.array(extra.integers(
+            1, N_STORES + 1, sizes["store_sales"])))
+    t["item"] = t["item"].append_column("i_category", pa.array(
+        np.array(STAR_CATEGORIES)[extra.integers(
+            0, len(STAR_CATEGORIES), n_item)]))
     return t
 
 
@@ -2248,7 +2352,8 @@ JOINS_LAUNCHES = {
 
 def join_data(pa, d: str, sizes=JOIN_SIZES) -> dict:
     """join_tables, their oracle and their parquet files in directory d,
-    with the seconds each took."""
+    with the seconds each took, and the plan_nodes phase's input
+    (plan_nodes_data)."""
     import pyarrow.parquet as pq
     t0 = time.monotonic()
     tables = join_tables(pa, sizes)
@@ -2256,9 +2361,11 @@ def join_data(pa, d: str, sizes=JOIN_SIZES) -> dict:
     want = join_oracle(pa, tables)
     t2 = time.monotonic()
     paths = write_parquet(pq, tables, d, tag="_joins")
+    t3 = time.monotonic()
     return {"tables": tables, "oracle": want, "paths": paths,
-            "tables_s": t1 - t0, "oracle_s": t2 - t1,
-            "write_s": time.monotonic() - t2}
+            "plan_nodes": plan_nodes_data(pa, tables, d),
+            "tables_s": t1 - t0, "oracle_s": t2 - t1, "write_s": t3 - t2,
+            "plan_nodes_s": time.monotonic() - t3}
 
 
 def joins_phases(torch, pa, mesh_conf: dict, counters, sizes=JOIN_SIZES,
@@ -3986,6 +4093,375 @@ def memory_phases(torch, pa, mesh_conf: dict, counters, dec: dict,
     emit(line)
     lines.append(line)
     return lines, launches
+
+
+# ---- plan_nodes (slice 17): the plan nodes and planner passes of slice 17
+# over the joins' store_sales, date_dim and item of the same run, and the
+# first 4,194,304 sales rewritten sorted by sold date (the way Spark users
+# cluster a fact table) in row groups of 262,144: q28 with its bucket
+# predicates pushed into the parquet decode beside its unpushed twin, an
+# aggregate-only report pushed whole, a year's window of the sorted file
+# pruned by its footer, a sample, a range, and the cost-based optimizer
+PLAN_SORTED_ROWS = 4 * (1 << 20)
+PLAN_SORTED_GROUP = 1 << 18
+PLAN_SORTED_COLS = ("ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+                    "ss_quantity", "ss_ext_sales_price")
+PLAN_CONF = {"spark.rapids.sql.dynamicFilePruning.enabled": False,
+             "spark.rapids.tpu.fusion.enabled": True}
+PUSHDOWN = {"spark.rapids.tpu.scan.pushdown.enabled": True}
+OPTIMIZER = {"spark.rapids.sql.optimizer.enabled": True}
+# the JAX optimizer test's high transition cost: the whole plan stays on
+# the host
+OPT_HIGH = dict(OPTIMIZER,
+                **{"spark.rapids.sql.optimizer.transitionCost": 1e6})
+EXPLAIN_NOT_ON_GPU = {"spark.rapids.sql.explain": "NOT_ON_GPU"}
+PLAN_QTY = (1, 20)  # the aggregate-only report: ss_quantity between
+PLAN_YEAR = 2000  # the date window's year
+PLAN_SAMPLE = (0.01, 17)  # fraction, seed
+PLAN_RANGE = (16_777_216, 1024)  # range(0, n) by id % m
+PLAN_ROUNDS = 1
+# each query's rows compare in this key order; "q28" and "agg_report" are
+# one row
+PLAN_KEYS = {"date_window": ("i_category", "d_moy"),
+             "sample": ("ss_store_sk",), "range": ("k",)}
+# the optimizer's placement at its default costs (Q7: every node on the
+# card) and at OPT_HIGH (the engine query: every node on the host), as the
+# port's and the JAX planner place them from the footers' row counts; the
+# `!` lines of each plan's explain, node names only
+OPT_MARKS = {"opt_q7": (),
+             "opt_engine": ("CpuHashAggregateExec", "CpuHashJoinExec",
+                            "CpuFilterExec", "CpuScanExec", "CpuScanExec")}
+# C a batch of each distributed fused partial aggregate, as the CPU run
+# with counting stand-ins gives them: the date window's decimal sum (2:
+# the sum and its count of values) and its count; the range's LONG sum
+# (2) and count, fused with the projection of id % m above the range;
+# decimal star Q7's. The sample's partial aggregate sits above the
+# Sample, which ends fusion's chain, and q28's and the report's
+# aggregates are global: none of them launches C
+PLAN_C_PER_BATCH = {"date_window": 3, "date_window_pushed": 3, "range": 3,
+                    "opt_q7": STAR_DECIMAL_C_PER_BATCH["q7"]}
+_U64 = (1 << 64) - 1
+
+
+def sample_mask_np(n: int, offset: int, fraction: float, seed: int):
+    """The port's sample_mask in numpy uint64 (its own copy: the script
+    imports no engine code for its oracles): splitmix64 of the row ordinal
+    xor the premixed seed, the top 53 bits as a uniform in [0, 1), kept
+    below `fraction`."""
+    seed_mix = ((seed & _U64) * 0x9E3779B97F4A7C15) & _U64
+    z = np.arange(n, dtype=np.uint64) + np.uint64(offset)
+    z = (z ^ np.uint64(seed_mix)) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(11)).astype(np.float64) * (2.0 ** -53) < fraction
+
+
+def plan_nodes_data(pa, tables: dict, d: str) -> dict:
+    """The plan_nodes phase's sorted file in directory d and its oracles
+    over join_tables' tables: the aggregate-only report and the sample
+    over store_sales, and the date window over the sorted file."""
+    import pyarrow.parquet as pq
+    ss, dd, item = (tables[n] for n in ("store_sales", "date_dim", "item"))
+    head = ss.slice(0, PLAN_SORTED_ROWS).select(list(PLAN_SORTED_COLS))
+    head = head.take(np.argsort(head.column("ss_sold_date_sk").to_numpy(),
+                                kind="stable"))
+    sorted_path = os.path.join(d, "store_sales_by_date.parquet")
+    pq.write_table(head, sorted_path, row_group_size=PLAN_SORTED_GROUP)
+    date_sk = dd.column("d_date_sk").to_numpy()
+    in_year = dd.column("d_year").to_numpy() == PLAN_YEAR
+    window = (int(date_sk[in_year].min()), int(date_sk[in_year].max()))
+    # the date window: year PLAN_YEAR of the sorted sales, by category and
+    # month
+    date = head.column("ss_sold_date_sk").to_numpy()
+    k = (date >= window[0]) & (date <= window[1])
+    moy = dd.column("d_moy").to_numpy()[date[k] - date_sk[0]]
+    cats = _strings(item.column("i_category"))[
+        head.column("ss_item_sk").to_numpy()[k] - 1]
+    ext, _ = unscaled(head.column("ss_ext_sales_price"))
+    ones = np.ones(int(k.sum()), bool)
+    oracle = {"date_window": _grouped_exact(
+        {"i_category": _codes(cats), "d_moy": _codes(moy)},
+        {"sales": ("isum", ext[k], ones), "n": ("count", ext[k], ones)})}
+    qty = ss.column("ss_quantity").to_numpy().astype(np.int64)
+    sold = ss.column("ss_sold_date_sk").to_numpy()
+    k = (qty >= PLAN_QTY[0]) & (qty <= PLAN_QTY[1])
+    oracle["agg_report"] = {"n": [int(k.sum())], "lo": [int(sold[k].min())],
+                            "hi": [int(sold[k].max())],
+                            "qty": [int(qty[k].sum())]}
+    keep = sample_mask_np(ss.num_rows, 0, *PLAN_SAMPLE)
+    ones = np.ones(int(keep.sum()), bool)
+    oracle["sample"] = _grouped_exact(
+        {"ss_store_sk": _codes(ss.column("ss_store_sk").to_numpy()[keep])},
+        {"qty": ("isum", qty[keep], ones), "n": ("count", qty[keep], ones)})
+    return {"sorted": sorted_path, "window": window, "oracle": oracle,
+            "sampled_rows": int(keep.sum())}
+
+
+def range_oracle() -> dict:
+    """range(0, n) by id % m: each group holds n / m ids, k + m * j."""
+    n, m = PLAN_RANGE
+    per = n // m
+    k = np.arange(m, dtype=np.int64)
+    return {"k": k.tolist(), "s": (k * per + m * per * (per - 1) // 2)
+            .tolist(), "n": [per] * m}
+
+
+def plan_namespace() -> SimpleNamespace:
+    """join_namespace with Min, Max, the DataFrame of a session's range
+    and of a sample."""
+    from spark_rapids_tpu_torch import expr as E
+    m = join_namespace()
+    m.Min, m.Max = E.Min, E.Max
+    return m
+
+
+def plan_node_queries(sess, m, paths: dict, sorted_path: str,
+                      window: tuple) -> dict:
+    """The phase's queries as DataFrames of `sess`, written through the
+    namespace `m` (plan_namespace for the port): q28 (join_queries'),
+    the aggregate-only report over store_sales (count(*), min and max of
+    ss_sold_date_sk and sum(ss_quantity) where ss_quantity between
+    PLAN_QTY), the date window (the sorted file's sales between the first
+    and last d_date_sk of PLAN_YEAR, joined to date_dim and item, summed
+    and counted by i_category and d_moy), the sample
+    (store_sales.sample(*PLAN_SAMPLE), quantity summed and rows counted by
+    store) and the range (range(0, n) by id % m, summed and counted)."""
+    c, lit = m.col, m.lit
+    q28 = join_queries(sess, m, paths)["q28"]
+    qty = c("ss_quantity")
+    agg_report = sess.read_parquet(
+        paths["store_sales"], columns=["ss_sold_date_sk", "ss_quantity"]) \
+        .filter((qty >= lit(PLAN_QTY[0])) & (qty <= lit(PLAN_QTY[1]))) \
+        .agg(n=m.Count(), lo=m.Min(c("ss_sold_date_sk")),
+             hi=m.Max(c("ss_sold_date_sk")), qty=m.Sum(qty))
+    date = c("ss_sold_date_sk")
+    sales = sess.read_parquet(
+        sorted_path, columns=["ss_sold_date_sk", "ss_item_sk",
+                              "ss_ext_sales_price"]) \
+        .filter((date >= lit(window[0])) & (date <= lit(window[1])))
+    dates = sess.read_parquet(
+        paths["date_dim"], columns=["d_date_sk", "d_year", "d_moy"]) \
+        .filter(c("d_year") == lit(PLAN_YEAR)) \
+        .select("d_moy", ss_sold_date_sk=c("d_date_sk"))
+    items = sess.read_parquet(paths["item"],
+                              columns=["i_item_sk", "i_category"]) \
+        .select("i_category", ss_item_sk=c("i_item_sk"))
+    date_window = sales.join(dates, on="ss_sold_date_sk") \
+        .join(items, on="ss_item_sk").group_by("i_category", "d_moy") \
+        .agg(sales=m.Sum(c("ss_ext_sales_price")), n=m.Count(lit(1)))
+    sample = sess.read_parquet(paths["store_sales"],
+                               columns=["ss_store_sk", "ss_quantity"]) \
+        .sample(*PLAN_SAMPLE).group_by("ss_store_sk") \
+        .agg(qty=m.Sum(qty), n=m.Count(lit(1)))
+    n, mod = PLAN_RANGE
+    rng = sess.range(0, n).select("id", k=c("id") % lit(mod)) \
+        .group_by("k").agg(s=m.Sum(c("id")), n=m.Count(lit(1)))
+    return {"q28": q28, "agg_report": agg_report, "date_window": date_window,
+            "sample": sample, "range": rng}
+
+
+def check_plan_query(pa, name: str, out, want: dict) -> None:
+    """Raise unless `out` equals the oracle row for row in PLAN_KEYS order:
+    decimals (decimal(17,2) sums) as unscaled ints, the rest exactly."""
+    if name in PLAN_KEYS:
+        out = out.sort_by([(k, "ascending") for k in PLAN_KEYS[name]])
+    n = len(next(iter(want.values())))
+    if out.num_rows != n:
+        raise AssertionError(f"{name}: {out.num_rows} rows, oracle {n}")
+    for col, exp in want.items():
+        c = out.column(col)
+        if pa.types.is_decimal(c.type):
+            if c.type != pa.decimal128(17, 2):
+                raise AssertionError(f"{name}: column {col} is {c.type}")
+            vals, valid = unscaled(c)
+            got = [int(v) if ok else None for v, ok in zip(vals, valid)]
+        else:
+            got = c.to_pylist()
+        if got != exp:
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+
+
+def pruned_from_footer(pq, path: str, column: str, lo: int, hi: int) -> int:
+    """The row groups whose footer min/max of `column` lie wholly outside
+    [lo, hi]: those a pushed lo <= column <= hi skips."""
+    meta = pq.ParquetFile(path).metadata
+    ci = meta.schema.names.index(column)
+    out = 0
+    for rg in range(meta.num_row_groups):
+        st = meta.row_group(rg).column(ci).statistics
+        out += st.max < lo or st.min > hi
+    return out
+
+
+def _bang_lines(lines) -> tuple:
+    """The node names of an explain log's `!` lines."""
+    return tuple(ln.strip()[2:].split(" <- ")[0] for ln in lines
+                 if ln.lstrip().startswith("!"))
+
+
+def plan_nodes_phases(torch, pa, mesh_conf: dict, counters, data: dict,
+                      joins: dict, dec: dict, fact, dim, conf=None,
+                      device=None, rounds=PLAN_ROUNDS) -> dict:
+    """Phase plan_nodes: each query on one device and under the
+    distributed plan (`mesh_conf`), fusion on and dynamic pruning off
+    (PLAN_CONF): q28 pushed (PUSHDOWN) beside its unpushed twin, and the
+    date window pushed and unpushed, with the scan counters (rows pruned,
+    bytes materialised, row groups pruned: those predicted from the
+    footer); the aggregate-only report pushed (no row data
+    materialised); the sample; the range; and the optimizer (OPTIMIZER)
+    on decimal star Q7 (`dec`'s files) at its default costs and on the
+    engine query over the first 4,194,304 rows of `fact` at OPT_HIGH,
+    their explain logs' `!` lines held to OPT_MARKS. q28's distributed
+    plan is its one-device plan (global aggregates and nested-loop joins:
+    the distribution pass has nothing to split), held so and not run
+    again. Every result is exact against its oracle; A launches twice per
+    fused join per merged batch and C PLAN_C_PER_BATCH a batch of a
+    distributed fused partial aggregate, nowhere else. Each query's
+    checked, counted collect comes first and warms it up for `rounds`
+    timed collects. Returns the launch counts of each plan's run (one
+    collect of each query)."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.plugin import TpuSession, resolve_device
+    from spark_rapids_tpu_torch.utils.metrics import TaskMetrics
+    dev = resolve_device(device)
+    conf = dict(conf or {}, **PLAN_CONF)
+    t_phase = time.monotonic()
+    m = plan_namespace()
+    window = data["window"]
+    want = dict(data["oracle"], q28=joins["oracle"]["q28"],
+                range=range_oracle())
+    rgs = pq.ParquetFile(data["sorted"]).metadata.num_row_groups
+    pruned = pruned_from_footer(pq, data["sorted"], "ss_sold_date_sk",
+                                *window)
+    store_batches = -(-pq.ParquetFile(joins["paths"]["store_sales"])
+                      .metadata.num_row_groups // CHUNKS_PER_DISPATCH)
+    dec_batches = -(-pq.ParquetFile(dec["paths"]["store_sales"])
+                    .metadata.num_row_groups // CHUNKS_PER_DISPATCH)
+    head = fact.slice(0, FILES_SALES_ROWS)
+    want_engine = query_oracle(head, dim)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        tm = TaskMetrics.get()
+        return out, {k.__name__: k.launches for k in counters}, {
+            "rows_pruned": tm.scan_rows_pruned,
+            "bytes_materialized": tm.scan_bytes_materialized,
+            "rowgroups_pruned": tm.scan_rowgroups_pruned}
+
+    def check(name, out):
+        if name == "opt_q7":
+            check_star_decimal(pa, "q7", out, dec["oracle"]["q7"])
+        elif name == "opt_engine":
+            check_query(out, want_engine, "opt_engine")
+        elif name.startswith("q28"):
+            check_join_query(pa, "q28", out, want["q28"])
+        else:
+            check_plan_query(pa, name.replace("_pushed", ""), out,
+                             want[name.replace("_pushed", "")])
+
+    launches, record = {}, {}
+    for plan, extra in (("one_device", {}), ("distributed", mesh_conf)):
+        def session(*more):
+            return TpuSession(dict(conf, **extra, **{
+                k: v for e in more for k, v in e.items()}), dev)
+        plain = plan_node_queries(session(), m, joins["paths"],
+                                  data["sorted"], window)
+        pushed = plan_node_queries(session(PUSHDOWN), m, joins["paths"],
+                                   data["sorted"], window)
+        qs = {"date_window": plain["date_window"],
+              "date_window_pushed": pushed["date_window"],
+              "agg_report_pushed": pushed["agg_report"],
+              "sample": plain["sample"], "range": plain["range"]}
+        if plan == "one_device":
+            qs = dict(q28=plain["q28"], q28_pushed=pushed["q28"], **qs)
+        else:
+            for n, q in (("q28", plain["q28"]), ("q28_pushed",
+                                                  pushed["q28"])):
+                if q.explain() != record["one_device"]["queries"][n][
+                        "plan"]:
+                    raise AssertionError(f"{n}'s distributed plan is not "
+                                         "its one-device plan")
+        opt = {"opt_q7": session(OPTIMIZER, EXPLAIN_NOT_ON_GPU),
+               "opt_engine": session(OPT_HIGH, EXPLAIN_NOT_ON_GPU)}
+        qs["opt_q7"] = star_decimal_queries(opt["opt_q7"], star_namespace(),
+                                            dec["paths"])["q7"]
+        qs["opt_engine"] = main_query(opt["opt_engine"], head, dim)
+        per_query, run = {}, {}
+        for n, q in qs.items():
+            shape = q.explain()
+            bangs = None
+            if n in opt:
+                bangs = _bang_lines(opt[n]._last_explain.splitlines())
+                if bangs != OPT_MARKS[n]:
+                    raise AssertionError(f"{n} ({plan}): the optimizer "
+                                         f"placed {bangs}, not "
+                                         f"{OPT_MARKS[n]}")
+            batches = {
+                "date_window": -(-rgs // CHUNKS_PER_DISPATCH),
+                "date_window_pushed": -(-(rgs - pruned)
+                                        // CHUNKS_PER_DISPATCH),
+                "opt_q7": dec_batches,
+                "range": -(-PLAN_RANGE[0] // ARROW_BATCH_ROWS)}.get(
+                    n, store_batches)
+            want_a = 2 * fused_joins(shape) * batches
+            want_c = 0
+            if plan == "distributed" and "PartialAgg[" in shape:
+                want_c = batches * PLAN_C_PER_BATCH[n]
+            walls, seen, scans = [], set(), []
+            for i in range(1 + rounds):
+                t0 = time.perf_counter()
+                out, c, scan = counted(q.collect)
+                if i:
+                    walls.append(time.perf_counter() - t0)
+                check(n, out)
+                del out
+                seen.add(tuple(sorted(c.items())))
+                scans.append(scan)
+                if (c["murmur3_rows"], c["segment_sum_i64"],
+                        c["segment_sum_f64"]) != (want_a, want_c, 0):
+                    raise AssertionError(f"{n} ({plan}) launched {c}, not "
+                                         f"A {want_a} and C {want_c}")
+            if n.endswith("_pushed") and n != "agg_report_pushed" and \
+                    scans[0]["rows_pruned"] == 0:
+                raise AssertionError(f"{n} ({plan}) pruned no row: {scans}")
+            if n == "agg_report_pushed" and \
+                    scans[0]["bytes_materialized"] != 0:
+                raise AssertionError(f"{n} materialised rows: {scans}")
+            if n == "date_window_pushed" and \
+                    scans[0]["rowgroups_pruned"] != pruned:
+                raise AssertionError(f"{n} ({plan}) pruned "
+                                     f"{scans[0]['rowgroups_pruned']} row "
+                                     f"groups, the footer {pruned}")
+            run[n] = dict(seen.pop())
+            per_query[n] = {"warm_collect_s": spread(walls),
+                            "launches_per_collect": run[n],
+                            "fused_joins": fused_joins(shape),
+                            "scan": scans[0], "plan": shape}
+            if bangs is not None:
+                per_query[n]["bang_lines"] = list(bangs)
+        path = "plan_nodes" if plan == "one_device" else \
+            "plan_nodes_distributed"
+        launches[path] = {k: sum(r[k] for r in run.values())
+                          for k in run["range"]}
+        record[plan] = {"queries": per_query,
+                        "launches_per_path_run": launches[path]}
+    for rec in record.values():
+        for q in rec["queries"].values():
+            q["plan"] = q["plan"].splitlines()[0]
+    emit({"phase": "plan_nodes", "sorted_file": {
+              "rows": PLAN_SORTED_ROWS, "row_groups": rgs,
+              "window": list(window), "rowgroups_pruned_predicted": pruned},
+          "sampled_rows": data["sampled_rows"],
+          "exact": "every column against the numpy oracles, decimals as "
+          "unscaled ints", "seconds": time.monotonic() - t_phase, **record})
+    return launches
 
 
 # ---- cpu_engine: the host engine and per-operator fallback, over the
@@ -6325,6 +6801,13 @@ def run_phases(torch, ready: dict) -> int:
     _, memory_launches = memory_phases(torch, pa, mesh_conf, kernels3,
                                        dec=dec_files, joins=join_data,
                                        fact=fact, dim=dim)
+    # ---- plan_nodes: q28 with its predicates pushed into the parquet
+    # decode beside its unpushed twin, an aggregate-only report pushed
+    # whole, a year's window of the date-sorted sales pruned by the
+    # footer, a sample, a range and the cost-based optimizer, both plans
+    plan_launches = plan_nodes_phases(torch, pa, mesh_conf, kernels3,
+                                      join_data["plan_nodes"], join_data,
+                                      dec_files, fact, dim)
     del join_data
 
     # ---- cpu_engine: decimal star Q7 with every parquet scan on the host,
@@ -6417,6 +6900,7 @@ def run_phases(torch, ready: dict) -> int:
                     **{p: n[name] for p, n in files_launches.items()},
                     **{p: n[name] for p, n in ansi_launches.items()},
                     **{p: n[name] for p, n in memory_launches.items()},
+                    **{p: n[name] for p, n in plan_launches.items()},
                     **{p: n[name] for p, n in cpu_launches.items()},
                     **{p: n[name] for p, n in strings_launches.items()},
                     **{p: n[name] for p, n in ext_launches.items()},

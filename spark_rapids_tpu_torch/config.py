@@ -14,7 +14,7 @@ import re
 from typing import Any, Dict, Optional, Sequence
 
 __all__ = ["ConfEntry", "TpuConf", "register", "get_default_conf",
-           "parse_bytes"]
+           "parse_bytes", "UNPORTED_SWITCHES"]
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -88,8 +88,35 @@ register("spark.rapids.sql.incompatibleOps.enabled", "bool", True,
          "Allow ops marked incompat (minor semantic differences) on the "
          "device.")
 register("spark.rapids.sql.optimizer.enabled", "bool", False,
-         "Cost-based optimizer (the JAX package's plan/cbo.py): not in "
-         "spark_rapids_tpu_torch yet, so true raises at plan time.")
+         "Cost-based optimizer (plan/cbo.py): may keep device-capable plan "
+         "sections on the host engine where the transitions would cost "
+         "more than the device saves; the node shows `!` and the reason in "
+         "explain.")
+register("spark.rapids.sql.optimizer.cpuExecCost", "double", 1.0,
+         "Relative per-row host operator cost.")
+register("spark.rapids.sql.optimizer.gpuExecCost", "double", 0.3,
+         "Relative per-row device operator cost.")
+register("spark.rapids.sql.optimizer.transitionCost", "double", 10.0,
+         "Relative per-row cost of a host <-> device transition.")
+register("spark.rapids.tpu.scan.pushdown.enabled", "bool", False,
+         "Scan pushdown (plan/scan_pushdown.py): fold supported filter "
+         "predicates, pure column projections and global "
+         "count/min/max/sum aggregates into the file scan. The device "
+         "parquet decode tests each pushed leaf once per dictionary value "
+         "and materialises only the surviving rows of the projected "
+         "columns (an aggregate-only scan none); every other decode path "
+         "applies the same spec exactly to its decoded batch.")
+register("spark.rapids.tpu.scan.pushdown.aggregate.enabled", "bool", True,
+         "Allow pushing global count/min/max/sum aggregates into the scan "
+         "as partials merged by a rewritten aggregate (integral sums; "
+         "integral, boolean, date and timestamp min/max; any count); off "
+         "under ANSI. Ignored unless spark.rapids.tpu.scan.pushdown.enabled "
+         "is on.")
+register("spark.rapids.tpu.scan.pushdown.rowgroup.enabled", "bool", True,
+         "Skip parquet row groups whose footer min/max/null counts prove "
+         "that no row can pass the pushed predicate, before any page is "
+         "read. Ignored unless spark.rapids.tpu.scan.pushdown.enabled is "
+         "on.")
 register("spark.rapids.sql.explain", "string", "NONE",
          "Explain output for the plan rewrite: NONE, NOT_ON_GPU (only "
          "fallback reasons), ALL.", check_values=("NONE", "NOT_ON_GPU", "ALL"))
@@ -242,6 +269,29 @@ register("spark.rapids.tpu.mesh.hbmPerChip", "bytes", 0,
          "Per-chip memory sub-budgets of the sharded plan (mesh/): not in "
          "spark_rapids_tpu_torch yet, so a value above 0 raises at plan "
          "time.")
+# the switches of JAX modules the port does not have, with the JAX
+# defaults: a non-default value raises at plan time (plan/overrides.py
+# _UNPORTED_KEYS)
+UNPORTED_SWITCHES = (
+    ("spark.rapids.sql.adaptive.enabled", "adaptive re-planning"),
+    ("spark.rapids.tpu.stats.enabled", "runtime query statistics"),
+    ("spark.rapids.tpu.stats.feedback.enabled",
+     "optimizer feedback from the statistics history"),
+    ("spark.rapids.tpu.rescache.enabled", "the result cache"),
+    ("spark.rapids.tpu.telemetry.enabled", "live telemetry"),
+    ("spark.rapids.tpu.live.enabled", "live query introspection"),
+    ("spark.rapids.tpu.compile.warmup.enabled", "compile warmup"),
+    ("spark.rapids.tpu.compile.tuner.enabled",
+     "the adaptive bucket tuner"),
+    ("spark.rapids.tpu.fleet.supervisor.enabled",
+     "the fleet supervisor"),
+    ("spark.rapids.tpu.metrics.profile.enabled", "the query profile"),
+    ("spark.rapids.tpu.metrics.spans.kernel.enabled",
+     "per-kernel profile spans"))
+for _key, _what in UNPORTED_SWITCHES:
+    register(_key, "bool", False,
+             f"{_what[0].upper()}{_what[1:]} (the JAX package's): not in "
+             "spark_rapids_tpu_torch yet, so true raises at plan time.")
 register("spark.rapids.sql.regexp.enabled", "bool", True,
          "Enable regular-expression offload via the transpiler (falls "
          "back per-pattern).")

@@ -1,8 +1,10 @@
-"""Scan, project, filter, union and limit execs
+"""Scan, range, project, filter, expand, union, limit and sample execs
 (`spark_rapids_tpu/exec/basic.py`). Project and filter return each batch
 with the ANSI errors of its expressions; run alone, they read those once
 a batch (exec/base.py `check_errors`), and in a fused stage the stage
-reads them (exec/fused.py)."""
+reads them (exec/fused.py). Expand reads its projections' errors once an
+input batch. Fusion ends its chains at Expand and Sample (plan/fusion.py
+takes neither as a member)."""
 
 from __future__ import annotations
 
@@ -10,14 +12,16 @@ from typing import Sequence
 
 import torch
 
+from .. import types as T
 from ..columnar.batch import ColumnarBatch, Schema, batch_from_arrow
-from ..expr.base import Expression, bind_references, output_name
-from ..ops.rowops import compact_vecs
+from ..columnar.padding import row_bucket
+from ..expr.base import Expression, Vec, bind_references, output_name
+from ..ops.rowops import compact_vecs, sample_mask
 from .base import (TpuExec, UnaryTpuExec, batch_vecs, check_errors,
                    device_ctx, vecs_to_batch)
 
-__all__ = ["TpuScanExec", "TpuProjectExec", "TpuFilterExec", "TpuUnionExec",
-           "TpuLimitExec"]
+__all__ = ["TpuScanExec", "TpuRangeExec", "TpuProjectExec", "TpuFilterExec",
+           "TpuExpandExec", "TpuUnionExec", "TpuLimitExec", "TpuSampleExec"]
 
 
 class TpuScanExec(TpuExec):
@@ -48,6 +52,40 @@ class TpuScanExec(TpuExec):
 
     def _arg_string(self):
         return f"[{self.table.num_rows} rows, {self.device}]"
+
+
+class TpuRangeExec(TpuExec):
+    """The LONG column `id` from `start` towards `end` by `step` (either
+    sign): batches of at most batchSizeRows rows, each at its row bucket,
+    and one empty batch for an empty range (JAX `TpuRangeExec`)."""
+
+    def __init__(self, start: int, end: int, step: int, device: torch.device,
+                 conf=None, batch_rows: int = None):
+        super().__init__([], conf, device)
+        self.start, self.end, self.step = start, end, step
+        self._schema = Schema(("id",), (T.LONG,))
+        self.batch_rows = batch_rows or self.conf.batch_size_rows
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def do_execute(self):
+        total = max(0, -(-(self.end - self.start) // self.step))
+        done = 0
+        while True:
+            count = min(self.batch_rows, total - done)
+            cap = row_bucket(count)
+            data = torch.arange(cap, dtype=torch.int64, device=self.device) \
+                * self.step + (self.start + done * self.step)
+            yield vecs_to_batch(self._schema, [Vec(T.LONG, data, torch.ones(
+                cap, dtype=torch.bool, device=self.device))], count)
+            done += count
+            if done >= total:
+                return
+
+    def _arg_string(self):
+        return f"[{self.start}, {self.end}, {self.step}]"
 
 
 class TpuProjectExec(UnaryTpuExec):
@@ -106,6 +144,44 @@ class TpuFilterExec(UnaryTpuExec):
         return f"[{self.condition!r}]"
 
 
+class TpuExpandExec(UnaryTpuExec):
+    """Several projections of each input row (the building block of
+    ROLLUP and CUBE): one output batch per projection per input batch, at
+    the input's capacity. The projections share one evaluation context,
+    whose ANSI errors are read once per input batch before any of its
+    outputs leaves (JAX `TpuExpandExec`)."""
+
+    def __init__(self, projections, names, child: TpuExec, conf=None):
+        super().__init__([child], conf)
+        self.projections = [list(p) for p in projections]
+        self._bound = [[bind_references(e, child.output) for e in p]
+                       for p in self.projections]
+        self._schema = Schema(tuple(names),
+                              tuple(e.data_type for e in self._bound[0]))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def expand(self, batch: ColumnarBatch):
+        """(one batch per projection, their ANSI errors)."""
+        ctx = device_ctx(batch, self.conf.is_ansi)
+        vecs = batch_vecs(batch)
+        return [vecs_to_batch(self._schema, [e.eval(ctx, vecs) for e in p],
+                              batch.num_rows)
+                for p in self._bound], ctx.errors
+
+    def do_execute(self):
+        for b in self.child.execute():
+            outs, errors = self.expand(b)
+            check_errors(errors)
+            yield from outs
+
+    def _arg_string(self):
+        return f"[{len(self.projections)} projections, " \
+            f"{list(self._schema.names)}]"
+
+
 class TpuUnionExec(TpuExec):
     """Every child's batches, child after child."""
 
@@ -151,3 +227,28 @@ class TpuLimitExec(UnaryTpuExec):
 
     def _arg_string(self):
         return f"[{self.limit}]"
+
+
+class TpuSampleExec(UnaryTpuExec):
+    """Bernoulli sample without replacement (JAX `TpuSampleExec`): row i
+    of the stream is kept by `sample_mask` of its global ordinal, which
+    rides across batches as a device scalar, so no batch is read back."""
+
+    def __init__(self, fraction: float, seed: int, child: TpuExec, conf=None):
+        super().__init__([child], conf)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    def do_execute(self):
+        offset = None
+        for b in self.child.execute():
+            if offset is None:
+                offset = torch.zeros((), dtype=torch.int64, device=b.device)
+            keep = sample_mask(b.capacity, offset, self.fraction, self.seed,
+                               b.device) & b.row_mask()
+            offset = offset + b.num_rows.to(torch.int64)
+            out_vecs, n = compact_vecs(batch_vecs(b), keep)
+            yield vecs_to_batch(b.schema, out_vecs, n)
+
+    def _arg_string(self):
+        return f"[fraction={self.fraction}, seed={self.seed}]"

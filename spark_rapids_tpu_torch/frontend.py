@@ -1,6 +1,6 @@
 """DataFrame frontend (`spark_rapids_tpu/frontend.py`: select, filter,
-join, cross_join, group_by, agg, sort/order_by, limit, union, window,
-collect, collect_cpu). It builds plan nodes; the session rewrites and runs them."""
+join, cross_join, group_by, agg, sort/order_by, sample, limit, union,
+window, collect, collect_cpu). It builds plan nodes; the session rewrites and runs them."""
 
 from __future__ import annotations
 
@@ -88,6 +88,12 @@ class DataFrame:
         return DataFrame(self.session, N.CpuSortExec(specs, self.plan))
 
     order_by = sort
+
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        """Bernoulli sample without replacement; both engines keep the
+        same rows for a seed."""
+        return DataFrame(self.session,
+                         N.CpuSampleExec(fraction, seed, self.plan))
 
     def limit(self, n: int, offset: int = 0) -> "DataFrame":
         return DataFrame(self.session, N.CpuLimitExec(n, self.plan, offset))

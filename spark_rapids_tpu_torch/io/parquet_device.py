@@ -1828,3 +1828,463 @@ def device_decode_file(pf, path: str, schema, device: torch.device,
                         raise
                     out = host_fallback(rg)
                 yield out
+
+
+# -- scan pushdown: compute on the compressed data ----------------------------
+# The pushed spec (plan/scan_pushdown.py) inside the packed multi-chunk
+# decode (JAX `_pushdown_select_program` and `_pushdown_gather_program`,
+# written over this module's own ship order): the select step tests each
+# pushed leaf once per DICTIONARY VALUE and maps the verdict over the
+# expanded indices, and tests PLAIN streams value by value, so the row mask
+# needs no decoded column; pushed count/min/max/sum reduce over the mask.
+# The gather step then decodes only the projected columns and keeps only
+# the surviving rows, at the survivors' row bucket; a string column's byte
+# gather reads the survivors' spans straight out of the shipped buffer.
+# Leaves evaluate with the port's own expression classes over a batch of
+# the column's values, so comparison, promotion, decimal, NaN and IN
+# semantics are the unpushed filter's.
+
+
+def _colsig_array_count(colsig) -> int:
+    """How many shipped arrays one column takes, in ship order (the
+    reads of `_decode_col` and `_decode_string_col`)."""
+    if colsig[0] == "string":
+        (_, has_def, has_dict, _dc, segs, has_plain, _pn, _w) = colsig
+        return 5 * has_def + (2 + 5 * sum(hr for _, _, hr in segs)) \
+            * has_dict + 2 * has_plain + 1
+    (_k, _p, _post, _flen, has_def, has_dict, _dc, segs, has_plain,
+     _dt) = colsig
+    return 5 * has_def + has_dict + 5 * sum(hr for _, _, hr in segs) + \
+        has_plain
+
+
+def _col_arrays(colsigs, metas, names, packed, cap: int, nrows: int):
+    """{column: _ChunkColumn} of one chunk."""
+    arrays = [_unpack(packed, m) for m in metas]
+    out, off = {}, 0
+    for name, cs in zip(names, colsigs):
+        cnt = _colsig_array_count(cs)
+        out[name] = _ChunkColumn(cs, arrays[off:off + cnt],
+                                 metas[off:off + cnt], cap, nrows)
+        off += cnt
+    # the count mirrors the ship order: a drift must fail here, not test
+    # a predicate over shifted arrays
+    assert off == len(arrays), (off, len(arrays))
+    return out
+
+
+def _engine_values(colsig, arr: torch.Tensor) -> torch.Tensor:
+    """A dense stream of raw shipped values (a dictionary or a PLAIN run)
+    as the engine type's values: `_decode_col`'s conversions."""
+    (kind, _p, post, flen, _hd, _hdict, _dc, _s, _hp, dt_name) = colsig
+    dt = T.parse_type(dt_name)
+    if kind == "flba":
+        return _engine_data(_flba_values(arr, post, flen), dt)
+    return _engine_data(arr, dt, post)
+
+
+def _eval_leaf(expr, dt, data, lengths=None) -> torch.Tensor:
+    """One pushed leaf over a dense, all-valid value stream: bool[n] of
+    the values it holds for."""
+    from ..expr.base import EvalContext, Vec
+    ones = torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
+    res = expr.eval(EvalContext(ones), [Vec(dt, data, ones, lengths)])
+    return res.data & res.validity
+
+
+class _ChunkColumn:
+    """One chunk's column of a pushdown dispatch: its shipped arrays, read
+    once into the compressed form (`pieces`) for the select step and
+    again for the gather or the aggregates."""
+
+    __slots__ = ("colsig", "arrays", "metas", "cap", "nrows", "_pieces",
+                 "_rank")
+
+    def __init__(self, colsig, arrays, metas, cap: int, nrows: int):
+        self.colsig, self.arrays, self.metas = colsig, arrays, metas
+        self.cap, self.nrows = cap, nrows
+        self._pieces = self._rank = None
+
+    def pieces(self, device, width: int = 0):
+        """(defined, [(values, lengths or None, expanded indices or
+        None)]): the dictionary's values (its indices beside them) and
+        then the PLAIN run's, each in the engine type; strings as whole
+        values at `width` bytes (the packed path takes a string column
+        only within the head width)."""
+        if self._pieces is None:
+            self._pieces = _value_pieces(self.colsig, self.cap, self.nrows,
+                                         self.arrays, device, width)
+        return self._pieces
+
+    def rank(self, device) -> torch.Tensor:
+        """Each row's value ordinal, cumsum(defined) - 1 clamped."""
+        if self._rank is None:
+            defined = self.pieces(device)[0]
+            self._rank = (torch.cumsum(defined.to(torch.int32), 0) - 1
+                          ).clamp(0, self.cap - 1)
+        return self._rank
+
+
+def _value_pieces(colsig, cap: int, nrows: int, arrays, device,
+                  width: int):
+    it = iter(arrays)
+    if colsig[0] == "string":
+        (_, has_def, has_dict, dict_count, segs, has_plain, plain_ndef,
+         _w) = colsig
+    else:
+        (_k, _p, _post, _flen, has_def, has_dict, dict_count, segs,
+         has_plain, _dt) = colsig
+    defined = _defined(it, has_def, cap, nrows, device)
+    pieces = []
+    if colsig[0] == "string":
+        ones = torch.ones(max(dict_count, plain_ndef), dtype=torch.bool,
+                          device=device)
+        if has_dict:
+            dst, dln = next(it), next(it)
+            idx = _read_idx(it, segs, device)
+        if has_plain:
+            pst, pln = next(it), next(it)
+        blob = next(it)
+        if has_dict and idx is not None:
+            pieces.append(_string_matrix_tail(
+                blob, dst, dln, ones[:dict_count], width) +
+                (idx.clamp(0, dict_count - 1),))
+        if has_plain:
+            pieces.append(_string_matrix_tail(
+                blob, pst, pln, ones[:plain_ndef], width) + (None,))
+        return defined, pieces
+    dict_raw = next(it) if has_dict else None
+    idx = _read_idx(it, segs, device)
+    if dict_raw is not None and idx is not None:
+        pieces.append((_engine_values(colsig, dict_raw), None,
+                       idx.clamp(0, max(dict_count - 1, 0))))
+    if has_plain:
+        pieces.append((_engine_values(colsig, next(it)), None, None))
+    return defined, pieces
+
+
+def _leaf_rows(cols, dt, leaves, device, width: int):
+    """{leaf: [bool[cap] per chunk]}: each leaf of one column (`cols`, its
+    _ChunkColumn in each chunk) evaluated once over the values of every
+    chunk's dictionary and PLAIN run, concatenated, then mapped to rows
+    (a dictionary's verdict by its expanded indices; each value to its
+    row by null rank; false on null rows)."""
+    per_chunk = [c.pieces(device, width) for c in cols]
+    pieces = [p for _, ps in per_chunk for p in ps]
+    if not pieces:
+        return {li: [d & False for d, _ in per_chunk] for li, _ in leaves}
+    sizes = [p[0].shape[0] for p in pieces]
+    values = _cat([p[0] for p in pieces], None)
+    lengths = None if pieces[0][1] is None else \
+        _cat([p[1] for p in pieces], None)
+    out = {}
+    for li, expr in leaves:
+        verdicts = iter(torch.split(_eval_leaf(expr, dt, values, lengths),
+                                    sizes))
+        rows = []
+        for c, (defined, ps) in zip(cols, per_chunk):
+            dense = [v if idx is None else v[idx]
+                     for (_, _, idx), v in zip(ps, verdicts)]
+            dense = _cat(dense, torch.zeros(0, dtype=torch.bool,
+                                            device=device))
+            rows.append(_pad_rows(dense, c.cap)[c.rank(device)] & defined)
+        out[li] = rows
+    return out
+
+
+def _string_spans(colsig, cap: int, nrows: int, arrays, device):
+    """A string column's per-row (start, length) spans into its blob and
+    its defined mask, without the byte gather."""
+    (_, has_def, has_dict, dict_count, segs, has_plain, _pn, _w) = colsig
+    it = iter(arrays)
+    defined = _defined(it, has_def, cap, nrows, device)
+    st_parts, ln_parts = [], []
+    if has_dict:
+        dst, dln = next(it), next(it)
+        idx = _read_idx(it, segs, device)
+        if idx is not None:
+            idx = idx.clamp(0, max(dict_count - 1, 0))
+            st_parts.append(dst[idx])
+            ln_parts.append(dln[idx])
+    if has_plain:
+        st_parts.append(next(it))
+        ln_parts.append(next(it))
+    starts = _cat(st_parts, torch.zeros(0, dtype=torch.int64, device=device))
+    lens = _cat(ln_parts, torch.zeros(0, dtype=torch.int32, device=device))
+    st_row, _ = _scatter_values(_pad_rows(starts, cap), defined)
+    ln_row, _ = _scatter_values(_pad_rows(lens, cap), defined)
+    return st_row, ln_row, defined
+
+
+def _comb_tree(tree, leaf_rows, defined_by):
+    op = tree[0]
+    if op == "and":
+        return _comb_tree(tree[1], leaf_rows, defined_by) & \
+            _comb_tree(tree[2], leaf_rows, defined_by)
+    if op == "or":
+        return _comb_tree(tree[1], leaf_rows, defined_by) | \
+            _comb_tree(tree[2], leaf_rows, defined_by)
+    if op == "leaf":
+        return leaf_rows[tree[1]]
+    if op == "isnull":  # the caller ands the live rows in
+        return ~defined_by[tree[1]]
+    return defined_by[tree[1]]
+
+
+def _null_test_cols(tree, out: set) -> set:
+    if tree is not None and tree[0] in ("and", "or"):
+        _null_test_cols(tree[1], out)
+        _null_test_cols(tree[2], out)
+    elif tree is not None and tree[0] in ("isnull", "notnull"):
+        out.add(tree[1])
+    return out
+
+
+def _merge_index(nrows, caps, cap_total: int, rows: torch.Tensor):
+    """Global rows -> their positions in the chunks' concatenated arrays
+    (the rank gather of `_fused_multi_decode`)."""
+    device = rows.device
+    cum = torch.tensor(np.cumsum(nrows), dtype=torch.int64, device=device)
+    chunk_base = torch.tensor(np.concatenate(([0], np.cumsum(caps)[:-1])),
+                              dtype=torch.int64, device=device)
+    c_of = torch.searchsorted(cum, rows, right=True).clamp_(0, len(caps) - 1)
+    base = torch.where(c_of > 0, cum[(c_of - 1).clamp(min=0)], 0)
+    return chunk_base[c_of] + (rows - base)
+
+
+def _pushdown_select(chunk_cols, dev, dt_by_name, device):
+    """Per chunk: the rows that pass (bool[cap]) and, for the pushed
+    aggregates, {column: (data or None, validity)} (a column only
+    counted needs its defined mask)."""
+    leaves_by_col = {}
+    for li, (cname, expr) in enumerate(dev.leaves):
+        leaves_by_col.setdefault(cname, []).append((li, expr))
+    defined_by = [{} for _ in chunk_cols]
+    leaf_rows = [{} for _ in chunk_cols]
+    for name in sorted(set(leaves_by_col) | _null_test_cols(dev.tree,
+                                                            set())):
+        cols = [chunk[name] for chunk in chunk_cols]
+        width = max(c.colsig[-1] for c in cols) \
+            if cols[0].colsig[0] == "string" else 0
+        for c_i, c in enumerate(cols):
+            defined_by[c_i][name] = c.pieces(device, width)[0]
+        for li, rows in _leaf_rows(cols, dt_by_name[name],
+                                   leaves_by_col.get(name, ()), device,
+                                   width).items():
+            for c_i, r in enumerate(rows):
+                leaf_rows[c_i][li] = r
+    keeps, chunk_vals = [], []
+    for c_i, chunk in enumerate(chunk_cols):
+        c0 = next(iter(chunk.values()))
+        keep = torch.arange(c0.cap, device=device) < c0.nrows
+        if dev.tree is not None:
+            keep = keep & _comb_tree(dev.tree, leaf_rows[c_i],
+                                     defined_by[c_i])
+        keeps.append(keep)
+        vals = {}
+        for name in {a.column for a in dev.aggs if a.op != "count"}:
+            v, pos, d = _value_index(chunk[name], device)
+            vals[name] = (v[pos], d)
+        for name in {a.column for a in dev.aggs if a.op == "count"}:
+            if name is None or name in vals:
+                continue
+            d = defined_by[c_i].get(name)
+            if d is None:
+                c = chunk[name]
+                d = _defined(iter(c.arrays), c.colsig[1]
+                             if c.colsig[0] == "string" else c.colsig[4],
+                             c.cap, c.nrows, device)
+            vals[name] = (None, d)
+        chunk_vals.append(vals)
+    return keeps, chunk_vals
+
+
+def _pushdown_aggregate(dev, keeps, chunk_vals, device):
+    """The pushed aggregates' one-row partial batch over every chunk."""
+    from ..plan.scan_pushdown import reduce_partial
+    values = []
+    for a in dev.aggs:
+        parts = []
+        for keep, vals in zip(keeps, chunk_vals):
+            if a.column is None:
+                parts.append(reduce_partial("count", None, keep))
+                continue
+            data, validity = vals[a.column]
+            parts.append(reduce_partial(a.op, data, keep & validity))
+        val, valid = parts[0]
+        for v, ok in parts[1:]:
+            val = torch.minimum(val, v) if a.op == "min" else \
+                torch.maximum(val, v) if a.op == "max" else val + v
+            valid = valid | ok
+        values.append((val, valid))
+    return dev.applier.partials(values, device)
+
+
+def _value_index(col: _ChunkColumn, device):
+    """A fixed-width column of one chunk as (values, pos, defined): row
+    r's value is values[pos[r]] where defined[r]. The values are the
+    dictionary's and then the PLAIN run's, already in the engine type
+    (`_ChunkColumn.pieces`), so the conversion runs over the dictionary
+    and a row costs one gather."""
+    defined, pieces = col.pieces(device)
+    if not pieces:  # nothing defined in the chunk
+        dt = T.parse_type(col.colsig[-1])
+        shape = (1, 2) if T.is_dec128(dt) else (1,)
+        return (torch.zeros(shape, dtype=torch_dtype(dt), device=device),
+                torch.zeros(col.cap, dtype=torch.int64, device=device),
+                defined)
+    rank = col.rank(device).to(torch.int64)
+    vals, _, idx = pieces[0]
+    if idx is None:  # PLAIN values only
+        pos = rank
+    else:
+        n_idx = idx.shape[0]
+        pos = torch.where(rank < n_idx, idx[rank.clamp(max=n_idx - 1)],
+                          vals.shape[0] + rank - n_idx)
+    return _cat([p[0] for p in pieces], None), pos, defined
+
+
+def _pushdown_gather(chunk_cols, caps, nrows, cap_total: int, keep_g,
+                     kept: int, dev, dt_by_name, packed, device):
+    """The surviving rows of the projected columns, at the survivors' row
+    bucket: a fixed-width column gathers the survivors' values out of its
+    chunks' dictionary and PLAIN values (`_value_index`); a string column
+    gathers only the survivors' bytes."""
+    out_cap = row_bucket(max(kept, 1))
+    sel = torch.sort((~keep_g).to(torch.int8), stable=True).indices[:out_cap]
+    live = torch.arange(out_cap, device=device) < kept
+    src = _merge_index(nrows, caps, cap_total, sel)
+    merged = {}
+    for name in sorted({s for _, s in dev.columns}):
+        per = [cols[name] for cols in chunk_cols]
+        if dt_by_name[name] == T.STRING:
+            sts, lns, defs = [], [], []
+            for c in per:
+                st, ln, d = _string_spans(c.colsig, c.cap, c.nrows,
+                                          c.arrays, device)
+                sts.append(st + c.metas[-1][2])  # the blob's packed offset
+                lns.append(ln)
+                defs.append(d)
+            st, ln, d = torch.cat(sts), torch.cat(lns), torch.cat(defs)
+            g = src.clamp(0, st.shape[0] - 1)
+            valid = d[g] & live
+            width = max(c.colsig[-1] for c in per)
+            mat, lengths = _string_matrix_tail(packed, st[g], ln[g], valid,
+                                               width)
+            merged[name] = (mat, valid, lengths)
+            continue
+        vals, poss, defs, base = [], [], [], 0
+        for c in per:
+            v, pos, d = _value_index(c, device)
+            vals.append(v)
+            poss.append(pos + base)
+            defs.append(d)
+            base += v.shape[0]
+        pos, d = torch.cat(poss), torch.cat(defs)
+        g = src.clamp(0, pos.shape[0] - 1)
+        merged[name] = (torch.cat(vals)[pos[g]], d[g] & live, None)
+    cols = tuple(Column(dt, *merged[s])
+                 for (_, s), dt in zip(dev.columns, dev.out_schema.types))
+    return ColumnarBatch(dev.out_schema, cols, torch.tensor(
+        kept, dtype=torch.int32, device=device))
+
+
+def decode_row_groups_pushdown(pf, f, rgs, schema, device: torch.device,
+                               host_cols, dev, head: Optional[int] = None):
+    """Decode a dispatch group of row groups under a pushed spec (`dev`, a
+    plan.scan_pushdown.DevicePushdown) -> [(batch, output rows, input
+    rows, rows kept, bytes materialised)]. With no host column and every
+    chunk on the packed path, the group ships in one copy, the predicate
+    runs on the compressed form and only survivors (or the aggregate
+    partials, no row data) are built; otherwise the group decodes whole
+    and the applier takes each batch (`_pushdown_degrade`). A malformed
+    group raises DeviceDecodeUnsupported for the caller's net."""
+    hw = head_width() if head is None else head
+    chunks, total = _read_chunks(pf, f, rgs, schema, host_cols)
+    names = [n for n in schema.names if n not in host_cols]
+    tried = not host_cols and bool(names) and total > 0
+    sig = _group_signatures(chunks, names, hw) if tried else None
+    if sig is None:
+        return _pushdown_degrade(pf, schema, chunks, total, device,
+                                 host_cols, dev, hw, sig_declined=tried)
+    groups_sig, caps, packed = sig
+    packed_dev = torch.from_numpy(packed).to(device)
+    COUNTERS.add(h2d_copies=1, h2d_bytes=int(packed.nbytes),
+                 fused_dispatches=1, scan_chunks=len(chunks))
+    nrows = [n for _, _, n in chunks]
+    dt_by_name = dict(zip(schema.names, schema.types))
+    chunk_cols = [_col_arrays(cs, metas, names, packed_dev, cap, n)
+                  for (cs, metas), cap, n in zip(groups_sig, caps, nrows)]
+    keeps, chunk_vals = _pushdown_select(chunk_cols, dev, dt_by_name,
+                                         device)
+    if dev.aggs:
+        batch = _pushdown_aggregate(dev, keeps, chunk_vals, device)
+        kept = int(sum(k.sum(dtype=torch.int64) for k in keeps))
+        return [(batch, 1, total, kept, 0)]
+    cap_total = row_bucket(total)
+    j = torch.arange(cap_total, dtype=torch.int64, device=device)
+    keep_cat = keeps[0] if len(keeps) == 1 else torch.cat(keeps)
+    src = _merge_index(nrows, caps, cap_total, j)
+    keep_g = keep_cat[src.clamp(0, keep_cat.shape[0] - 1)] & (j < total)
+    kept = int(keep_g.sum())
+    batch = _pushdown_gather(chunk_cols, caps, nrows, cap_total, keep_g,
+                             kept, dev, dt_by_name, packed_dev, device)
+    return [(batch, kept, total, kept, int(batch.device_memory_size()))]
+
+
+def _pushdown_degrade(pf, schema, chunks, total: int, device, host_cols,
+                      dev, hw: int, sig_declined: bool = False):
+    """The group decoded whole (packed or row group by row group, from the
+    same host work) and each batch through the exact applier.
+    `sig_declined`: the packed path already declined, so go row group by
+    row group at once."""
+    inner = _per_rg_batches(pf, schema, chunks, device, host_cols, hw) \
+        if sig_declined else \
+        _decode_chunks_fused(pf, schema, chunks, total, device, host_cols,
+                             hw)
+    outs = []
+    for b, nrows in inner:
+        in_bytes = int(b.device_memory_size())
+        ob, kept = dev.applier.apply(b)
+        outs.append((ob, 1 if dev.aggs else kept, nrows, kept, in_bytes))
+    return outs
+
+
+def device_decode_pushdown(pf, path: str, schema, device: torch.device, dev,
+                           chunks_per_dispatch: int = 1, rgs=None,
+                           host_cols=(), host_fallback=None,
+                           head: Optional[int] = None) -> Iterator:
+    """`device_decode_file` under a pushed spec: yield (batch, output
+    rows, input rows, rows kept, bytes materialised) per dispatch group,
+    each group through `decode_row_groups_pushdown`; a group that fails
+    decodes row group by row group (a declined one by `host_fallback`)
+    and each batch goes through the applier."""
+    net = DeviceDecodeUnsupported if host_fallback is None \
+        else FALLBACK_ERRORS
+    group = max(int(chunks_per_dispatch), 1)
+    rgs = list(range(pf.metadata.num_row_groups) if rgs is None else rgs)
+    with open(path, "rb") as f:
+        for i in range(0, len(rgs), group):
+            chunk_rgs = rgs[i:i + group]
+            try:
+                with COUNTERS.staged():
+                    outs = decode_row_groups_pushdown(
+                        pf, f, chunk_rgs, schema, device, host_cols, dev,
+                        head)
+            except net:
+                pass  # row group by row group below
+            else:
+                yield from outs
+                continue
+            for rg in chunk_rgs:
+                try:
+                    with COUNTERS.staged():
+                        b, nrows = decode_row_group(pf, f, rg, schema,
+                                                    device, host_cols, head)
+                except net:
+                    if host_fallback is None:
+                        raise
+                    b, nrows = host_fallback(rg)
+                in_bytes = int(b.device_memory_size())
+                ob, kept = dev.applier.apply(b)
+                yield ob, (1 if dev.aggs else kept), nrows, kept, in_bytes

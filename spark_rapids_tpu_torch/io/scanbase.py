@@ -1,7 +1,7 @@
 """File-scan plan node and device scan exec
 (`spark_rapids_tpu/io/scanbase.py`: `CpuFileScanExec`'s footer side and host
-decode, and `TpuFileScanExec`'s parquet paths, without pushdown, the result
-cache, mesh shards or spans).
+decode, and `TpuFileScanExec`'s parquet paths with their pushdown, without
+the result cache, mesh shards or spans).
 
 The plan node reads only footers: the schema, the exact row count and the
 per-column min/max the planner's estimates use. The exec decodes each file
@@ -16,7 +16,19 @@ device decode declines, as the JAX scan does:
     pyarrow, and if no file of the scan has one, the whole scan goes
     through the multi-file reader strategies (io/multifile.py).
 `filters=` and `spark.rapids.sql.format.parquet.deviceDecode.enabled=false`
-send the scan to the host decode. The fallback net is the JAX one,
+send the scan to the host decode.
+
+Under scan pushdown (plan/scan_pushdown.py) the scan carries a pushed
+spec (`pushed`) and outputs its schema: the device decode runs the spec
+on the compressed form (`parquet_device.device_decode_pushdown`), after
+the footer statistics prune row groups (`_pushdown_prune_rgs`), and every
+batch decoded another way (pyarrow's host decode of a file, a declined
+row group, the reader strategies, `filters=`) goes through the exact
+applier (`_apply_pushdown`). An aggregate-pushed scan that decodes
+nothing emits the empty input's partials (`_agg_partial_guard`). Its
+counts are `rows_pruned`, `bytes_materialized` and `rowgroups_pruned`
+(the JAX rowsPruned, bytesMaterialized, rowgroupsPruned) and the
+TaskMetrics `scan_*` fields. The fallback net is the JAX one,
 `parquet_device.FALLBACK_ERRORS`: a malformed or unsupported stream and
 I/O errors. Anything else, a failed CUDA launch among them, ends the
 query. Every host decode is counted in `parquet_device.COUNTERS`.
@@ -175,6 +187,10 @@ def schema_from_arrow(schema) -> Schema:
 class TpuFileScanExec(TpuExec):
     """Device exec over a file scan (the reference's GpuFileSourceScanExec)."""
 
+    # the pushed spec, set by plan/scan_pushdown.install_pushdown; a class
+    # attribute, so a scan without pushdown carries no state of it
+    pushed = None
+
     def __init__(self, plan: CpuFileScanExec, conf: TpuConf,
                  device: torch.device):
         super().__init__([], conf, device)
@@ -188,6 +204,8 @@ class TpuFileScanExec(TpuExec):
 
     @property
     def output(self) -> Schema:
+        if self.pushed is not None:
+            return self._pushed_schema
         return self.cpu_scan.output
 
     @property
@@ -195,7 +213,69 @@ class TpuFileScanExec(TpuExec):
         return f"TpuFileScanExec({self.cpu_scan.format_name})"
 
     def _arg_string(self):
-        return f"[{len(self.cpu_scan.paths)} files, {self.device}]"
+        pushed = "" if self.pushed is None else f", pushed={self.pushed!r}"
+        return f"[{len(self.cpu_scan.paths)} files, {self.device}{pushed}]"
+
+    # -- scan pushdown (plan/scan_pushdown.py) -----------------------------
+    def _pushdown_applier(self):
+        if self._pd_applier is None:
+            from ..plan.scan_pushdown import PushdownApplier
+            self._pd_applier = PushdownApplier(self.cpu_scan.output,
+                                               self.pushed, self.conf)
+        return self._pd_applier
+
+    def _device_pushdown(self):
+        if self._pd_device is None:
+            from ..plan.scan_pushdown import DevicePushdown
+            self._pd_device = DevicePushdown(self.pushed,
+                                             self.cpu_scan.output,
+                                             self._pushdown_applier())
+        return self._pd_device
+
+    def _pd_record(self, in_rows: int, kept: int, bytes_mat: int) -> None:
+        """One decoded unit: the rows the pushed predicate dropped and the
+        row-data bytes the decode materialised on the device."""
+        from ..utils.metrics import TaskMetrics
+        tm = TaskMetrics.get()
+        pruned = max(in_rows - kept, 0)
+        self.rows_pruned += pruned
+        self.bytes_materialized += bytes_mat
+        tm.scan_rows_pruned += pruned
+        tm.scan_bytes_materialized += bytes_mat
+
+    def _apply_pushdown(self, batch, in_rows: int):
+        """A fully decoded batch through the exact applier, counted."""
+        bytes_mat = int(batch.device_memory_size())
+        out, kept = self._pushdown_applier().apply(batch)
+        self._pd_record(in_rows, kept, bytes_mat)
+        return out
+
+    def _agg_partial_guard(self, it):
+        """An aggregate-pushed scan emits at least one partial row, so the
+        merge sees the unpushed plan's answer over no rows."""
+        any_out = False
+        for b in it:
+            any_out = True
+            yield b
+        if not any_out:
+            yield self._pushdown_applier().empty_partials(self.device)
+
+    def _pushdown_prune_rgs(self, meta, rgs):
+        """The row groups left after the footer statistics prune those no
+        row of which can pass the pushed predicate."""
+        from ..plan.scan_pushdown import KEY_ROWGROUP, prune_row_groups
+        if self.pushed is None or self.pushed.predicate is None or \
+                not rgs or not self.conf.get(KEY_ROWGROUP):
+            return rgs
+        from ..utils.metrics import TaskMetrics
+        from .dynamic_pruning import schema_col_index
+        dead = prune_row_groups(meta, schema_col_index(meta),
+                                self.cpu_scan.output, self.pushed.predicate)
+        kept = [rg for rg in rgs if rg not in dead]
+        n = len(rgs) - len(kept)
+        self.rowgroups_pruned += n
+        TaskMetrics.get().scan_rowgroups_pruned += n
+        return kept
 
     def _effective_paths(self):
         """The file list after the ready dynamic filters."""
@@ -207,11 +287,20 @@ class TpuFileScanExec(TpuExec):
 
     def do_execute(self) -> Iterator:
         fmt = self.cpu_scan.format_name
-        yield from maybe_prefetch(self._decode_batches(), self.conf,
-                                  name=f"scan-{fmt}")
+        inner = self._decode_batches()
+        if self.pushed is not None and self.pushed.aggs:
+            inner = self._agg_partial_guard(inner)
+        yield from maybe_prefetch(inner, self.conf, name=f"scan-{fmt}")
 
     def _upload(self, t):
         return batch_from_arrow(t, self.device, conf=self.conf)
+
+    def _host_batch(self, t):
+        """The scan's batch of a table pyarrow decoded: uploaded, and
+        through the applier under pushdown."""
+        b = self._upload(t)
+        return b if self.pushed is None else \
+            self._apply_pushdown(b, t.num_rows)
 
     def _decode_batches(self):
         if not self.cpu_scan.options.get("filters") and self.conf.get(
@@ -220,13 +309,13 @@ class TpuFileScanExec(TpuExec):
             return
         for t in self.cpu_scan.host_tables(self._effective_paths(),
                                            self.conf):
-            yield self._upload(t)
+            yield self._host_batch(t)
 
     def _host_file_batches(self, path: str):
         """One file decoded by pyarrow, in batchSizeRows slices."""
         scan = self.cpu_scan
         for t in FileBatchIterator([path], scan.decode_file, self.conf):
-            yield self._upload(scan._postprocess(t))
+            yield self._host_batch(scan._postprocess(t))
 
     def _parquet_batches(self):
         """Device decode, one dispatch group of row groups at a time, with
@@ -235,7 +324,8 @@ class TpuFileScanExec(TpuExec):
         cached; each file is opened once, for its decode."""
         import pyarrow.parquet as pq
         from .dynamic_pruning import row_group_filter, schema_col_index
-        from .parquet_device import COUNTERS, device_decode_file
+        from .parquet_device import (COUNTERS, device_decode_file,
+                                     device_decode_pushdown)
         scan = self.cpu_scan
         names = list(scan.output.names)
         paths = self._effective_paths()
@@ -246,8 +336,9 @@ class TpuFileScanExec(TpuExec):
         if not supported:
             # nothing can be decoded on the device: the reader strategies
             for t in scan.host_tables(paths, self.conf):
-                yield self._upload(t)
+                yield self._host_batch(t)
             return
+        dev = None if self.pushed is None else self._device_pushdown()
         group = 1
         if self.conf.get("spark.rapids.tpu.pipeline.enabled"):
             group = max(self.conf.get(
@@ -271,10 +362,18 @@ class TpuFileScanExec(TpuExec):
                     if self.dynamic_filters else None
                 rgs = [rg for rg in range(meta.num_row_groups)
                        if keep is None or rg in keep]
-                for b, _ in device_decode_file(
-                        pf, path, scan.output, self.device, group, rgs,
-                        host_cols[path], host_fallback,
-                        head_width(self.conf)):
+                if dev is None:
+                    for b, _ in device_decode_file(
+                            pf, path, scan.output, self.device, group, rgs,
+                            host_cols[path], host_fallback,
+                            head_width(self.conf)):
+                        yield b
+                    continue
+                for b, _, in_rows, kept, bytes_mat in device_decode_pushdown(
+                        pf, path, scan.output, self.device, dev, group,
+                        self._pushdown_prune_rgs(meta, rgs), host_cols[path],
+                        host_fallback, head_width(self.conf)):
+                    self._pd_record(in_rows, kept, bytes_mat)
                     yield b
             finally:
                 pf.close()

@@ -234,3 +234,39 @@ def _scatter_extreme(op: str, work: torch.Tensor, idx: torch.Tensor,
                      device=work.device)
     return out.scatter_reduce_(0, idx, torch.where(valid, work, fill),
                                "amin" if op == "min" else "amax")[:cap]
+
+
+_U64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
+
+
+def _s64(v: int) -> int:
+    """An unsigned 64-bit constant as the int64 with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _lsr(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch shifts arithmetically)."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def sample_mask(n: int, row_offset, fraction: float, seed: int,
+                device) -> torch.Tensor:
+    """Bernoulli sample mask over the global row ordinals row_offset + i
+    (JAX `ops/rowops.py` `sample_mask`): splitmix64 of the ordinal xor the
+    premixed seed, its top 53 bits as a uniform in [0, 1), kept below
+    `fraction`. torch has no uint64 arithmetic on CUDA, so the bits ride
+    int64, whose multiplication and addition wrap mod 2^64 as uint64's do;
+    the seed premix stays in Python ints. `row_offset` is an int or an
+    int64 device scalar (no host read). The same bits as the JAX mask, so
+    both engines keep the same rows for a seed."""
+    idx = torch.arange(n, dtype=torch.int64, device=device) + row_offset
+    seed_mix = ((seed & _U64) * _GOLDEN) & _U64
+    z = (idx ^ _s64(seed_mix)) + _s64(_GOLDEN)
+    z = (z ^ _lsr(z, 30)) * _s64(_MIX1)
+    z = (z ^ _lsr(z, 27)) * _s64(_MIX2)
+    z = z ^ _lsr(z, 31)
+    u = _lsr(z, 11).to(torch.float64) * (2.0 ** -53)
+    return u < fraction

@@ -15,8 +15,10 @@ batch-shape-compatible operators:
 and replaces each chain of at least `fusion.minOps` members with one
 `exec/fused.py TpuFusedStageExec`. Everything else breaks the chain:
 complete and final aggregates merge across the whole batch stream,
-exchanges move rows between positions, and a join carrying dynamic-pruning
-filters fills them from its build before its probe scan starts.
+exchanges move rows between positions, Expand and Sample end it as in the
+JAX pass (a partial aggregate above either runs unfused), and a join
+carrying dynamic-pruning filters fills them from its build before its
+probe scan starts.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Logical-physical plan nodes the DataFrame frontend builds
-(`spark_rapids_tpu/plan/nodes.py`: scan, project, filter, hash aggregate,
-hash join, sort, limit, union, window, and the hash partition spec of the
-distributed plan's exchanges).
+(`spark_rapids_tpu/plan/nodes.py`: scan, range, project, filter, expand,
+hash aggregate, hash join, sort, limit, sample, union, window, and the
+hash partition spec of the distributed plan's exchanges).
 
 The planner (plan/overrides.py) turns each node into its device exec, or
 leaves it a host node. A host node's `execute_cpu()` yields host batches:
@@ -21,9 +21,10 @@ from ..columnar.batch import Schema, join_output_schema
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Expression, bind_references, output_name
 
-__all__ = ["PhysicalPlan", "CpuScanExec", "CpuProjectExec", "CpuFilterExec",
-           "AggExpr", "CpuHashAggregateExec", "CpuHashJoinExec",
-           "CpuSortExec", "CpuLimitExec", "CpuUnionExec", "CpuWindowExec",
+__all__ = ["PhysicalPlan", "CpuScanExec", "CpuRangeExec", "CpuProjectExec",
+           "CpuFilterExec", "CpuExpandExec", "AggExpr",
+           "CpuHashAggregateExec", "CpuHashJoinExec", "CpuSortExec",
+           "CpuLimitExec", "CpuSampleExec", "CpuUnionExec", "CpuWindowExec",
            "HashPartitionSpec"]
 
 
@@ -84,6 +85,30 @@ class CpuScanExec(PhysicalPlan):
         return TpuScanExec(self.table, HOST, host_conf())
 
 
+class CpuRangeExec(PhysicalPlan):
+    """The LONG column `id`: start, start + step, ... short of end."""
+
+    def __init__(self, start: int, end: int, step: int = 1):
+        super().__init__([])
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self._schema = Schema(("id",), (T.LONG,))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return f"[{self.start}, {self.end}, {self.step}]"
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import HOST, host_conf
+        from ..exec.basic import TpuRangeExec
+        return TpuRangeExec(self.start, self.end, self.step, HOST,
+                            host_conf())
+
+
 class CpuProjectExec(PhysicalPlan):
     def __init__(self, exprs: Sequence[Expression], child: PhysicalPlan):
         super().__init__([child])
@@ -124,6 +149,35 @@ class CpuFilterExec(PhysicalPlan):
         from ..exec.basic import TpuFilterExec
         return TpuFilterExec(self.condition, *self._host_inputs(),
                              host_conf())
+
+
+class CpuExpandExec(PhysicalPlan):
+    """Several projections of each input row (ROLLUP, CUBE and grouping
+    sets build on it); every projection gives the columns `names`, of the
+    first projection's types."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: PhysicalPlan):
+        super().__init__([child])
+        self.projections = [list(p) for p in projections]
+        self.names = tuple(names)
+        self._bound = [[bind_references(e, child.output) for e in p]
+                       for p in self.projections]
+        self._schema = Schema(self.names,
+                              tuple(e.data_type for e in self._bound[0]))
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def _arg_string(self):
+        return f"[{[[repr(e) for e in p] for p in self.projections]}]"
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuExpandExec
+        return TpuExpandExec(self.projections, self.names,
+                             *self._host_inputs(), host_conf())
 
 
 @dataclasses.dataclass
@@ -250,6 +304,32 @@ class CpuLimitExec(PhysicalPlan):
         from ..exec.basic import TpuLimitExec
         return TpuLimitExec(self.limit, *self._host_inputs(), self.offset,
                             host_conf())
+
+
+class CpuSampleExec(PhysicalPlan):
+    """Bernoulli sample without replacement: a splitmix64 hash of each
+    row's global ordinal decides it (ops/rowops.py `sample_mask`), so both
+    engines keep the same rows for a seed."""
+
+    def __init__(self, fraction: float, seed: int, child: PhysicalPlan):
+        super().__init__([child])
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction must be in [0, 1]: {fraction}")
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def _arg_string(self):
+        return f"[fraction={self.fraction}, seed={self.seed}]"
+
+    def _host_exec(self):
+        from ..cpu.hostbatch import host_conf
+        from ..exec.basic import TpuSampleExec
+        return TpuSampleExec(self.fraction, self.seed, *self._host_inputs(),
+                             host_conf())
 
 
 class CpuUnionExec(PhysicalPlan):

@@ -16,9 +16,14 @@ Two phases, as in the JAX package (`_tag_tree` -> `_convert_tagged`):
     execs on the CPU (cpu/hostbatch.py), with `TpuFromCpuExec` and
     `CpuFromTpuExec` (exec/transitions.py) at each boundary.
 
-Then, only when the root is a device exec, the distribution pass
-(exec/requirements.py) and fusion (plan/fusion.py, which walks into both
-bridges) rewrite the device plan, in the JAX order.
+Between the two, with `spark.rapids.sql.optimizer.enabled`, the cost-based
+optimizer (plan/cbo.py) may keep device-capable nodes on the host; the
+broadcast choice reads its row estimates. After conversion, scan pushdown
+(plan/scan_pushdown.py) folds filters, projections and global aggregates
+into the parquet scans of every device subtree; then, only when the root
+is a device exec, the distribution pass (exec/requirements.py) and fusion
+(plan/fusion.py, which walks into both bridges) rewrite the device plan,
+in the JAX order.
 
 What the JAX engine runs but no exec of the port computes, on either
 device, is not a tag: it raises NotImplementedError while the tree is
@@ -37,7 +42,7 @@ import torch
 
 from .. import types as T
 from ..columnar.column import check_supported
-from ..config import TpuConf, register
+from ..config import UNPORTED_SWITCHES, TpuConf, register
 from ..expr import arithmetic as A
 from ..expr import cast as CA
 from ..expr import conditional as C
@@ -59,6 +64,7 @@ from ..expr import windowexprs as WX
 from ..io.parquet import CpuParquetScanExec
 from ..io.scanbase import CpuFileScanExec, TpuFileScanExec
 from . import nodes as N
+from .cbo import estimate_pass, estimated_bytes, optimize
 from .meta import ExprMeta, PlanMeta
 from .typesig import TypeSig
 
@@ -252,88 +258,6 @@ def _check_arithmetic(node: Expression) -> None:
             isinstance(node, A.Divide) and any(map(is_dec128, types))):
         _unsupported(f"{type(node).__name__} over " + ", ".join(
             t.simple_string() for t in types))
-
-
-def _selectivity(cond, stats: dict) -> float:
-    """Predicate selectivity from footer column min/max, uniform between
-    them as Spark's FilterEstimation assumes; 0.5 when it cannot be known
-    (`plan/cbo.py` `_selectivity`)."""
-    def attr_lit(e):
-        a, b = e.children
-        if isinstance(a, AttributeReference) and isinstance(b, Literal):
-            return a, b.value, False
-        if isinstance(b, AttributeReference) and isinstance(a, Literal):
-            return b, a.value, True
-        return None
-
-    if isinstance(cond, P.And):
-        return _selectivity(cond.children[0], stats) * \
-            _selectivity(cond.children[1], stats)
-    if isinstance(cond, P.Or):
-        s1 = _selectivity(cond.children[0], stats)
-        s2 = _selectivity(cond.children[1], stats)
-        return s1 + s2 - s1 * s2
-    if isinstance(cond, P.Not):
-        return 1.0 - _selectivity(cond.children[0], stats)
-    if isinstance(cond, (P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-                         P.GreaterThanOrEqual, P.EqualTo)):
-        al = attr_lit(cond)
-        if al is None:
-            return 0.5
-        attr, v, flipped = al
-        rng = stats.get(attr.col_name)
-        try:
-            if rng is None:
-                return 0.5
-            mn, mx = float(rng[0]), float(rng[1])
-            v = float(v)
-        except (TypeError, ValueError):
-            return 0.5
-        if isinstance(cond, P.EqualTo):
-            return 0.05 if mn <= v <= mx else 0.0
-        frac_below = 1.0 if v >= mx else 0.0 if v <= mn else \
-            (v - mn) / (mx - mn)
-        less = isinstance(cond, (P.LessThan, P.LessThanOrEqual))
-        if flipped:  # lit OP attr reverses the direction
-            less = not less
-        return frac_below if less else 1.0 - frac_below
-    return 0.5
-
-
-def _estimated_rows(plan: N.PhysicalPlan) -> float:
-    """Heuristic output cardinality (`plan/cbo.py` `_estimate_from` without
-    the runtime-statistics feedback): exact at in-memory and file scans
-    (the footer row count), a filter straight over a file scan by its
-    footer statistics, else the fixed factors."""
-    kids = [_estimated_rows(c) for c in plan.children]
-    if isinstance(plan, N.CpuScanExec):
-        return float(plan.table.num_rows)
-    if isinstance(plan, CpuFileScanExec):
-        return float(plan.footer_row_count())
-    if isinstance(plan, N.CpuFilterExec):
-        child = plan.children[0]
-        if isinstance(child, CpuFileScanExec):
-            sel = _selectivity(plan.condition, child.column_stats())
-            return kids[0] * max(min(sel, 1.0), 0.0)
-        return kids[0] * 0.5
-    if isinstance(plan, N.CpuLimitExec):
-        return float(min(plan.limit, kids[0]))
-    if isinstance(plan, N.CpuUnionExec):
-        return float(sum(kids))
-    if isinstance(plan, N.CpuHashAggregateExec):
-        return max(kids[0] / 8.0, 1.0) if plan.group_exprs else 1.0
-    if isinstance(plan, N.CpuHashJoinExec):
-        return float(max(kids))
-    return kids[0]
-
-
-def _estimated_bytes(plan: N.PhysicalPlan) -> float:
-    """Cardinality x row width: data bytes + one validity byte a column,
-    and 20 bytes for a column without a fixed width (a string), as the JAX
-    package counts."""
-    width = sum(20 if dt.np_dtype is None else dt.np_dtype.itemsize + 1
-                for dt in plan.output.types)
-    return _estimated_rows(plan) * max(width, 1)
 
 
 # ----------------------------------------------------------------------------
@@ -580,6 +504,12 @@ def _exprs_window(m: PlanMeta):
         m.add_expr(f)
 
 
+def _exprs_expand(m: PlanMeta):
+    for p in m.plan._bound:
+        for e in p:
+            m.add_expr(e)
+
+
 def _c_scan(ov, plan, children):
     from ..exec.basic import TpuScanExec
     return TpuScanExec(plan.table, ov.device, ov.conf)
@@ -617,7 +547,7 @@ def _c_join(ov, plan, children):
     conf = ov.conf
     threshold = conf.get("spark.rapids.sql.autoBroadcastJoinThreshold")
     small_build = (threshold >= 0 and plan.join_type in _BROADCASTABLE
-                   and _estimated_bytes(plan.children[1]) <= threshold)
+                   and estimated_bytes(plan.children[1]) <= threshold)
     if not plan.left_keys:
         build = TpuBroadcastExchangeExec(children[1], conf) \
             if small_build else children[1]
@@ -662,6 +592,21 @@ def _c_union(ov, plan, children):
     return TpuUnionExec(children, ov.conf)
 
 
+def _c_range(ov, plan, children):
+    from ..exec.basic import TpuRangeExec
+    return TpuRangeExec(plan.start, plan.end, plan.step, ov.device, ov.conf)
+
+
+def _c_sample(ov, plan, children):
+    from ..exec.basic import TpuSampleExec
+    return TpuSampleExec(plan.fraction, plan.seed, children[0], ov.conf)
+
+
+def _c_expand(ov, plan, children):
+    from ..exec.basic import TpuExpandExec
+    return TpuExpandExec(plan.projections, plan.names, children[0], ov.conf)
+
+
 def _c_window(ov, plan, children):
     from ..exec.window import TpuWindowExec
     return TpuWindowExec(plan.window_exprs, plan.partition_spec,
@@ -680,7 +625,10 @@ exec_rule(N.CpuHashJoinExec, _nested38, _c_join, _exprs_join)
 exec_rule(N.CpuSortExec, TypeSig.orderable(decimal_max=38), _c_sort,
           _exprs_sort)
 exec_rule(N.CpuLimitExec, _nested38, _c_limit)
+exec_rule(N.CpuSampleExec, _nested38, _c_sample)
 exec_rule(N.CpuUnionExec, _nested38, _c_union)
+exec_rule(N.CpuRangeExec, _basic, _c_range)
+exec_rule(N.CpuExpandExec, _basic, _c_expand, _exprs_expand)
 exec_rule(N.CpuWindowExec, _basic38, _c_window, _exprs_window)
 
 
@@ -705,7 +653,12 @@ class Overrides:
             if (v.strip() if isinstance(v, str) else v):
                 _unsupported(f"{key}={v} ({what})")
         meta = self._tag_tree(plan)
-        result = self._convert_tagged(plan, meta)
+        # one memo of row estimates spans the optimizer and the convert
+        # walk's broadcast choices
+        with estimate_pass():
+            if self.conf.get("spark.rapids.sql.optimizer.enabled"):
+                optimize(meta, self.conf)
+            result = self._convert_tagged(plan, meta)
         explain = self.conf.explain
         if explain != "NONE":
             lines = meta.explain_lines()
@@ -714,6 +667,10 @@ class Overrides:
                 self.explain_log.extend(lines)
         if self.conf.get("spark.rapids.sql.mode") == "explainOnly":
             return plan
+        # scan pushdown folds filter/project/aggregate chains into the file
+        # scans under them, on every device subtree (off: one conf read)
+        from .scan_pushdown import apply_scan_pushdown
+        result = apply_scan_pushdown(result, self.conf)
         if isinstance(result, TpuExec):
             # the distribution pass first (partial -> key-exchange ->
             # final, zipped joins), then fusion, which takes the partial
@@ -770,12 +727,11 @@ class Overrides:
 
 # conf keys of modules the port does not have: each raises at plan time
 _UNPORTED_KEYS = (
-    ("spark.rapids.sql.optimizer.enabled", "the cost-based optimizer"),
     ("spark.rapids.tpu.mesh.enabled", "the sharded plan"),
     ("spark.rapids.tpu.sched.enabled", "the query scheduler"),
     ("spark.rapids.tpu.sched.tenant.quotas", "tenant memory sub-quotas"),
     ("spark.rapids.tpu.mesh.hbmPerChip", "per-chip memory ledgers"),
-)
+) + UNPORTED_SWITCHES
 
 
 def _check_node(plan: N.PhysicalPlan) -> None:
@@ -813,8 +769,28 @@ def _check_node(plan: N.PhysicalPlan) -> None:
             _unsupported("a union of children with different column types")
     elif isinstance(plan, N.CpuWindowExec):
         _check_window(plan)
-    elif not isinstance(plan, N.CpuLimitExec):
+    elif isinstance(plan, N.CpuExpandExec):
+        _check_expand(plan)
+    elif not isinstance(plan, (N.CpuLimitExec, N.CpuSampleExec,
+                               N.CpuRangeExec)):
         _unsupported(f"plan node {plan.name}")
+
+
+def _check_expand(plan: N.CpuExpandExec) -> None:
+    """Every projection's expressions are the port's, and each projection
+    gives the node's columns at the first one's types (a batch holds one
+    type a column: a null in a rollup level is a typed null literal)."""
+    types = plan.output.types
+    for p in plan._bound:
+        if len(p) != len(plan.names):
+            _unsupported(f"an Expand projection of {len(p)} columns for "
+                         f"{len(plan.names)} names")
+        for e, t in zip(p, types):
+            _check_expr(e)
+            if e.data_type != t:
+                _unsupported(f"an Expand column of types "
+                             f"{t.simple_string()} and "
+                             f"{e.data_type.simple_string()}")
 
 
 def _check_join(plan: N.CpuHashJoinExec) -> None:

@@ -1,4 +1,4 @@
-"""Session (`spark_rapids_tpu/plugin.py`: TpuSession.from_arrow,
+"""Session (`spark_rapids_tpu/plugin.py`: TpuSession.from_arrow, range,
 read_parquet and execute_plan, without the result cache, statistics, live view, scheduler
 or telemetry hooks).
 
@@ -64,6 +64,15 @@ class TpuSession:
         from .frontend import DataFrame
         from .plan.nodes import CpuScanExec
         return DataFrame(self, CpuScanExec(table, label))
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1):
+        """A DataFrame of the LONG column `id`: range(end) or range(start,
+        end[, step])."""
+        from .frontend import DataFrame
+        from .plan.nodes import CpuRangeExec
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, CpuRangeExec(start, end, step))
 
     def read_parquet(self, *paths, **options):
         """A DataFrame over parquet files, decoded on the session's device

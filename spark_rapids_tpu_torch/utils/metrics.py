@@ -3,8 +3,8 @@
 layer, the prefetch and the host engine write: spill and read-spill time,
 admission wait, OOM retries and their backoffs, the prefetch counts, the
 host plan nodes run, the rows, bytes and seconds moved each way by the
-host <-> device transitions (exec/transitions.py), and the stage reruns on
-the host after `CpuFallbackRequired`.
+host <-> device transitions (exec/transitions.py), the stage reruns on
+the host after `CpuFallbackRequired`, and the scan pushdown's counts.
 
 One instance per thread (`TaskMetrics.get()`); a prefetch producer adopts
 its consumer's instance, so its counts land in the consumer's task.
@@ -51,6 +51,12 @@ class TaskMetrics:
         self.to_host_copies: list = []
         # plans rerun on the host after CpuFallbackRequired (plugin.py)
         self.cpu_fallback_reruns = 0
+        # scan pushdown (io/scanbase.py): rows the pushed predicate
+        # dropped, row-data bytes the decode materialised, row groups the
+        # footer statistics pruned
+        self.scan_rows_pruned = 0
+        self.scan_bytes_materialized = 0
+        self.scan_rowgroups_pruned = 0
 
     def copy_seconds(self) -> tuple:
         """(to device, to host): the seconds the card's stream spent on

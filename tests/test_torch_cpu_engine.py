@@ -461,10 +461,34 @@ def test_conf_keys_of_the_port_rules_only():
                 "spark.rapids.sql.expression.Md5",
                 "spark.rapids.sql.expression.CollectList"):
         assert key not in _REGISTRY
-    with pytest.raises(NotImplementedError, match="optimizer"):
-        Overrides(TpuConf({"spark.rapids.sql.optimizer.enabled": True}),
+    with pytest.raises(NotImplementedError, match="adaptive"):
+        Overrides(TpuConf({"spark.rapids.sql.adaptive.enabled": True}),
                   "cpu").apply(_query("scan", TpuSession(
                       device="cpu"), PE).plan)
+
+
+@pytest.mark.parametrize("key", [
+    "spark.rapids.sql.adaptive.enabled", "spark.rapids.tpu.stats.enabled",
+    "spark.rapids.tpu.stats.feedback.enabled",
+    "spark.rapids.tpu.rescache.enabled", "spark.rapids.tpu.telemetry.enabled",
+    "spark.rapids.tpu.live.enabled", "spark.rapids.tpu.compile.warmup.enabled",
+    "spark.rapids.tpu.compile.tuner.enabled",
+    "spark.rapids.tpu.fleet.supervisor.enabled",
+    "spark.rapids.tpu.metrics.profile.enabled",
+    "spark.rapids.tpu.metrics.spans.kernel.enabled"])
+def test_conf_keys_of_unported_modules_raise(key):
+    """Each switch of a JAX module the port lacks is registered with the
+    JAX default (off: the plan runs) and raises at plan time when on, as
+    the JAX engine would run the module; the JAX registry holds the same
+    default."""
+    assert key in _REGISTRY and _REGISTRY[key].default is False
+    assert JaxConf().get(key) is False
+    sess = TpuSession(device="cpu")
+    Overrides(TpuConf({key: False}), "cpu").apply(
+        _query("scan", sess, PE).plan)
+    with pytest.raises(NotImplementedError, match=key):
+        Overrides(TpuConf({key: "true"}), "cpu").apply(
+            _query("scan", sess, PE).plan)
 
 
 def _names(tree: str):

@@ -5,8 +5,10 @@ On the card the phase holds the ordered Q3, Q7 and Q36 (ORDER BY ...
 LIMIT 100, Q36 ranked within its category), the running window and the
 out-of-core sort row for row against numpy oracles, and demands exact
 launch counts: kernel A twice per fused join per merged batch, kernel C
-STAR_DECIMAL_C_PER_BATCH times a merged batch of the distributed plan's
-fused partial aggregate, and neither in the running window or the sort.
+ORDERED_C_PER_BATCH times a merged batch of the distributed plan's fused
+partial aggregate (none in Q36, whose rollup's Expand ends the chain
+below its partial aggregate), and neither in the running window or the
+sort.
 Here, as in tests/test_torch_smoke_decimal.py, the kernel wrappers take
 their plain twins and a stand-in counts each call; files hold row groups
 of 256 rows (2,000 sales: 2 merged batches), and batchSizeRows is 256, so
@@ -62,14 +64,15 @@ def ordered_run():
 
 def test_launches_per_ordered_path(ordered_run):
     """As on the decimal star reports: A 2 per fused join per batch (Q3
-    and Q7 one each), C only distributed, (2 + 8 + 7) a batch; nothing
+    and Q7 one each), C only distributed, (2 + 8) a batch: Q36's partial
+    aggregate sits above its rollup's Expand and runs unfused; nothing
     from the running window and the sort."""
     launches = ordered_run[0]
     assert launches["ordered_reports"] == {
         "murmur3_rows": 8, "segment_sum_f64": 0, "segment_sum_i64": 0}
     assert launches["ordered_reports_distributed"] == {
         "murmur3_rows": 8, "segment_sum_f64": 0,
-        "segment_sum_i64": 2 * (2 + 8 + 7)}
+        "segment_sum_i64": 2 * (2 + 8)}
 
 
 def test_kernels_on_the_ordered_paths(ordered_run):
@@ -87,9 +90,10 @@ def small():
 
 
 def test_ordered_oracle_orders_and_ranks(small):
-    """The oracle's rows follow each report's TPC-DS order, and Q36's rank
-    is the count of its category's smaller margins plus one (nulls
-    first)."""
+    """The oracle's rows follow each report's TPC-DS order; Q36 holds its
+    rollup's three levels (the (cat, bucket) rows, one per category, one
+    in all), and its rank is the count of smaller margins in its
+    (lochierarchy, parent) partition plus one (nulls first)."""
     _, want = small
     got = cs.ordered_oracle(want)
     q3 = list(zip(got["q3"]["d_year"], got["q3"]["sum_agg"],
@@ -98,15 +102,28 @@ def test_ordered_oracle_orders_and_ranks(small):
     assert q3 == sorted(q3, key=lambda r: (r[0], -r[1], r[2]))
     cats = got["q7"]["i_category"]
     assert cats[0] is None and cats[1:] == sorted(cats[1:])
-    q36 = got["q36"]
-    for c, g, r in zip(q36["cat"], q36["gross_margin"],
-                       q36["rank_within_parent"]):
-        peers = [h for c2, h in zip(want["q36"]["cat"],
-                                    want["q36"]["gross_margin"]) if c2 == c]
+    q36, rolled = got["q36"], cs.rollup_oracle(want["q36"])
+    cats = set(want["q36"]["cat"])
+    assert [rolled["lochierarchy"].count(k) for k in (0, 1, 2)] == \
+        [len(want["q36"]["cat"]), len(cats), 1]
+    assert rolled["profit"][-1] == sum(want["q36"]["profit"])
+    for p, lv, g, r in zip(q36["parent"], q36["lochierarchy"],
+                           q36["gross_margin"], q36["rank_within_parent"]):
+        peers = [h for p2, l2, h in zip(rolled["parent"],
+                                        rolled["lochierarchy"],
+                                        rolled["gross_margin"])
+                 if (p2, l2) == (p, lv)]
         assert r == 1 + sum(1 for h in peers if g is not None
                             and (h is None or h < g))
-    keys = list(zip(q36["cat"], q36["rank_within_parent"], q36["bucket"]))
-    assert keys == sorted(keys)
+
+    def nulls_first(v):
+        return (v is not None, v or "")
+    keys = [(-lv, nulls_first(p), r, nulls_first(c), nulls_first(b))
+            for lv, p, r, c, b in zip(
+                q36["lochierarchy"], q36["parent"], q36["rank_within_parent"],
+                q36["cat"], q36["bucket"])]
+    assert keys == sorted(keys) and len(keys) == min(
+        cs.ORDERED_LIMIT, len(rolled["cat"]))
 
 
 def test_per_day_oracle(small):

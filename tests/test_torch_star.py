@@ -52,7 +52,7 @@ from spark_rapids_tpu_torch.expr.hashing import hash_vec
 from spark_rapids_tpu_torch.expr.predicates import string_compare, \
     string_equal
 from spark_rapids_tpu_torch.ops import pallas_groupby, pallas_probe
-from spark_rapids_tpu_torch.plan import overrides
+from spark_rapids_tpu_torch.plan import cbo
 from spark_rapids_tpu_torch.plan.nodes import AggExpr, HashPartitionSpec
 from spark_rapids_tpu_torch.plugin import TpuSession
 from torch_port import JaxSource, PortSource, assert_same_rows, port_batch
@@ -233,7 +233,7 @@ class TestStarQueries:
         for name, jq in cs.star_queries(jsess, JAX_NS, t).items():
             pq = cs.star_queries(psess, PORT_NS, t)[name]
             jb, pb = _builds(jq.plan), _builds(pq.plan)
-            assert [overrides._estimated_bytes(b) for b in pb] == \
+            assert [cbo.estimated_bytes(b) for b in pb] == \
                 [jax_overrides._estimated_bytes(b, jsess.conf)
                  for b in jb] == want[name]
             assert "TpuShuffledHashJoinExec" not in pq.explain()
